@@ -1,0 +1,120 @@
+"""Device-resident scene: the upload step.
+
+The counterpart of tryraytrace_tpu/engine/device_scene.py for the
+port's one traversal (quad rows, Baldwin-Weber leaves, "mux" layout):
+build the BVH on the host, permute the primitives, pack the quad table
+and the fused triangle+material rows, and move them to ``device``.
+The packing code is the same NumPy as the JAX package's, so both
+engines walk byte-identical tables; ``DeviceScene.from_numpy`` takes
+the JAX package's uploaded arrays as they are.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+
+import numpy as np
+import torch
+
+from tryraytrace_tpu_torch.accel.bvh import (LinearBVH, build_bvh,
+                                             collapse_bvh, pack_quad_table,
+                                             pack_trimat_table,
+                                             quad_row_width)
+from tryraytrace_tpu_torch.config import INLINE_MAX_LIGHTS
+from tryraytrace_tpu_torch.scene.model import SceneArrays
+
+
+@dataclasses.dataclass
+class DeviceScene:
+    """What the engine reads, as tensors on one device."""
+
+    quad_table: torch.Tensor     # [R, 10 + max(29, 12K)] f32 quad rows
+    trimat: torch.Tensor         # [T, 37] f32 triangle+material rows
+    light_indices: torch.Tensor  # [max(L, 1)] int64 trimat row per light
+    num_lights: int
+    leaf_size: int               # K, triangles per leaf row
+
+    # The arrays and statics of a JAX DeviceScene this one takes over.
+    ARRAYS = ("quad_table", "trimat", "light_indices")
+    STATICS = ("num_lights", "leaf_size")
+
+    @classmethod
+    def from_numpy(cls, fields: dict, statics: dict, device) -> "DeviceScene":
+        """Build from NumPy arrays keyed as the JAX DeviceScene's fields
+        (``fields``; extra keys are ignored) and its static fields
+        (``statics``), e.g. a JAX upload's
+        ``{name: np.asarray(getattr(dev, name))}``.  Raises on a scene
+        the port does not render: another leaf format or quad layout,
+        or more lights than the inline NEE pick covers."""
+        layout = (statics.get("leaf_fmt", "bw"),
+                  statics.get("quad_layout", "mux"),
+                  statics.get("quad_select", "perm"))
+        if layout != ("bw", "mux", "perm"):
+            raise ValueError("the port walks 'bw' leaves in the 'mux' quad "
+                             f"layout with the 'perm' decode; got {layout}")
+        if statics["num_lights"] > INLINE_MAX_LIGHTS:
+            raise ValueError(
+                f"{statics['num_lights']} lights: the port's inline NEE "
+                f"pick covers at most {INLINE_MAX_LIGHTS} (config.py)")
+        t = {name: torch.tensor(np.asarray(fields[name]), device=device)
+             for name in cls.ARRAYS}
+        t["light_indices"] = t["light_indices"].to(torch.int64)
+        return cls(**t, **{name: int(statics[name]) for name in cls.STATICS})
+
+
+def _build_auto_leaf(arrays: SceneArrays, method: str, quad_collapse: str):
+    """Auto leaf size, exactly as the JAX package picks it for the quad
+    walk: the largest fat leaf (8, 6, 4) whose quad table stays under
+    2.3 MB (that engine's measured gather knee; the tables must match,
+    so the rule is kept as it is)."""
+    knee_bytes = 2.3e6
+    candidates = (8, 6, 4)
+    for cand in candidates:
+        bvh = build_bvh(arrays.tri_v0, arrays.tri_v1, arrays.tri_v2,
+                        leaf_size=cand, method=method)
+        width = quad_row_width(
+            int(max(1, bvh.leaf_count.max())) if bvh.num_nodes else 1)
+        rows = bvh.num_nodes
+        if rows:
+            rows = (len(collapse_bvh(bvh, criterion=quad_collapse))
+                    + int((bvh.leaf_count > 0).sum()))
+        if rows * width * 4 <= knee_bytes or cand == candidates[-1]:
+            return bvh
+    raise AssertionError("unreachable")
+
+
+def upload_scene(arrays: SceneArrays, leaf_size: int = 0,
+                 method: str = "sah", quad_collapse: str = "dp",
+                 device="cpu") -> tuple[DeviceScene, tuple, LinearBVH]:
+    """Build the BVH (``leaf_size`` 0 = auto; reordering primitives,
+    main.cpp:82-86 contract), pack the quad table with "bw" leaf rows in
+    the "mux" layout and the trimat rows, and move them to ``device``.
+
+    Returns (device_scene, textures, bvh); ``textures`` is the tuple of
+    [H, W, 3] float32 NumPy textures (the engine tiles them into its
+    unified table, engine/persistent.build_inline_table)."""
+    if leaf_size <= 0:
+        bvh = _build_auto_leaf(arrays, method, quad_collapse)
+    else:
+        bvh = build_bvh(arrays.tri_v0, arrays.tri_v1, arrays.tri_v2,
+                        leaf_size=leaf_size, method=method)
+    leaf_size = int(max(1, bvh.leaf_count.max())) if bvh.num_nodes else 1
+    ordered = arrays.permuted(bvh.perm) if bvh.perm.size else arrays
+
+    n_lights = ordered.num_lights
+    light_idx = ordered.light_indices
+    if n_lights == 0:
+        print("[Renderer Warning] No lights found in scene!", file=sys.stderr)  # renderer.cu:182
+        light_idx = np.zeros(1, dtype=np.int32)
+
+    bvh.quad_children = collapse_bvh(bvh, criterion=quad_collapse)
+    q_table = pack_quad_table(
+        bvh, ordered.tri_v0, ordered.tri_v1, ordered.tri_v2,
+        leaf_size=leaf_size, children=bvh.quad_children)
+    fields = dict(quad_table=q_table, trimat=pack_trimat_table(ordered),
+                  light_indices=light_idx)
+    dev = DeviceScene.from_numpy(
+        fields, dict(num_lights=n_lights, leaf_size=leaf_size), device)
+    textures = tuple(np.asarray(t, np.float32) for t in ordered.textures)
+    return dev, textures, bvh

@@ -1,0 +1,609 @@
+"""Persistent-wave path tracer with path regeneration, in eager PyTorch.
+
+The counterpart of tryraytrace_tpu/engine/persistent.py on its default
+path: owner schedule (one lane per pixel renders that pixel's samples
+in order), quad traversal, inline shading and inline texturing.  Each
+lane runs the JAX engine's state machine
+
+  TRAVERSE --(closest hit found)--> SHADEG --(shade)-->
+      SHADOW (diffuse, NEE) -> TRAVERSE      (path continues)
+    | TRAVERSE                               (spec/refr continue)
+    | TEXG (textured hit: fetch the texture tile row, then shade)
+    | REFILL --(next sample's camera ray)--> TRAVERSE | DONE
+
+and every step fetches ONE row per lane from the unified table
+(quad rows, then trimat rows, then texture tile rows): a tree row for
+a walking lane, its hit's material row for a SHADEG lane, its texture
+tile row for a TEXG lane.
+
+The loop is a Python ``while`` over eager tensor steps; every step
+also runs the shade/refill service block, which the JAX engine runs
+once per unrolled body.  A lane's draws are addressed by (sample
+seed, pixel, depth, slot), so when a lane is serviced cannot change
+what it draws, and the per-pixel sums equal the JAX engine's.  Two
+further liberties are exact too: the loop checks for a live lane every
+``LIVE_CHECK_EVERY`` steps (a DONE lane's step changes nothing), and
+once at most half the lanes are live it keeps only the live ones (a
+lane permutation, the eager counterpart of the JAX spill ladder).
+
+This loop is the plain version that the hand-written path-tracing
+kernel of a later change replaces; its ray counters are int64.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from tryraytrace_tpu_torch.config import (INLINE_MAX_LIGHTS, RenderConfig,
+                                          check_supported)
+from tryraytrace_tpu_torch.core import rng, vec
+from tryraytrace_tpu_torch.engine.camera_rays import generate_rays
+from tryraytrace_tpu_torch.engine.wavefront import _sanitize
+from tryraytrace_tpu_torch.ops import shade
+from tryraytrace_tpu_torch.ops.texture import (TEX_ROW, TEX_TILE,
+                                               build_texture_tiles,
+                                               planar_uv, tile_bilinear,
+                                               tile_coords)
+from tryraytrace_tpu_torch.ops.traverse import (MISS_T, _fat_leaf_intersect,
+                                                _quad_decode, _regfile_apply,
+                                                ray_octant)
+
+# 1/pi as the JAX engine evaluates it: a float32 division.
+INV_PI = float(np.float32(1.0) / np.float32(np.pi))
+
+# Lane modes, numbered as in the JAX engine (its tick-path mode READY,
+# 2, does not occur on the inline path).
+TRAVERSE = 0
+SHADOW = 1
+REFILL = 3
+DONE = 4
+SHADEG = 5
+TEXG = 6
+
+# Steps between checks for a live lane (each check waits for the
+# device); DONE lanes are no-ops, so overshooting is exact.
+LIVE_CHECK_EVERY = 8
+# Narrowest wave the loop compacts to; below it a step costs the same
+# at any width.
+MIN_COMPACT_WIDTH = 1024
+
+
+@dataclasses.dataclass
+class InlineTable:
+    """The unified gather table and its layout (build_inline_table)."""
+
+    table: torch.Tensor   # [quad rows; packed trimat rows; tile rows]
+    sentinel: int         # quad rows (the walk's done sentinel)
+    pack: int             # trimat rows per table row (1 or 2)
+    tex0: int | None      # first texture tile row, None without textures
+    metas: list           # per-texture tile layout (build_texture_tiles)
+
+
+def build_inline_table(scene, textures) -> InlineTable:
+    """Assemble the unified gather table in the JAX package's layout and
+    row ids: quad rows first (traversal ids and the done sentinel are
+    unchanged), then the trimat rows packed two per row when the quad
+    width is at least 74, then the texture tile rows.
+
+    The JAX engine leaves the tile rows out when they pass its 2 MB
+    gather budget and then shades textured hits on its tick path; the
+    port has no tick path and always appends them, which gives the
+    same image."""
+    table = scene.quad_table
+    nw = table.shape[1]
+    pack = 2 if nw >= 74 else 1
+    tex_on = bool(textures)
+    wu = max(nw, 37 * pack, TEX_ROW if tex_on else 0)
+    tm = scene.trimat
+    if pack == 2 and tm.shape[0] % 2:
+        tm = torch.nn.functional.pad(tm, (0, 0, 0, 1))
+    packed = tm.reshape(-1, 37 * pack)
+    pad = torch.nn.functional.pad
+    parts = [pad(table, (0, wu - nw)), pad(packed, (0, wu - 37 * pack))]
+    sentinel = int(table.shape[0])
+    tex0, metas = None, []
+    if tex_on:
+        rows, metas, _ = build_texture_tiles(textures)
+        rows = torch.as_tensor(rows, device=table.device)
+        parts.append(pad(rows, (0, wu - TEX_ROW)))
+        tex0 = sentinel + int(packed.shape[0])
+    return InlineTable(torch.cat(parts, 0), sentinel, pack, tex0, metas)
+
+
+@dataclasses.dataclass
+class _Frame:
+    """Per-frame constants the service block reads."""
+
+    scene: object
+    inline: InlineTable
+    cfg: RenderConfig
+    cam: object
+    frame_seed: int
+    width: int
+    height: int
+    spp: int
+
+
+def init_lane_ctx(frame_seed: int, spp: int, pix0, cam, width: int,
+                  height: int, cfg: RenderConfig, with_tstash: bool) -> dict:
+    """Fresh per-lane wave state: lane i renders pixel ``pix0[i]``,
+    starting with its sample 0."""
+    w = int(pix0.shape[0])
+    dev = pix0.device
+    f3 = lambda: torch.zeros((w, 3), device=dev)
+    sample0 = torch.zeros((w,), dtype=torch.int64, device=dev)
+    seed0 = rng.sample_seed(frame_seed, spp, sample0)
+    r_o, r_d = generate_rays(cam, width, height, seed0, pix0)
+    st = {}
+    if cfg.quad_regs > 0:
+        st["reg_e"] = torch.full((w, cfg.quad_regs), -1, dtype=torch.int64,
+                                 device=dev)
+        st["reg_s"] = st["reg_e"].clone()
+    if with_tstash:
+        # TEXG material stash (albedo, metallic, roughness, ior,
+        # transmission, fx, fy, front-face bit).
+        st["tstash"] = torch.zeros((w, 10), device=dev)
+    st.update(
+        mode=torch.full((w,), TRAVERSE, dtype=torch.int64, device=dev),
+        cur=torch.zeros((w,), dtype=torch.int64, device=dev),
+        d_min=torch.full((w,), MISS_T, device=dev),
+        hit_id=torch.full((w,), -1, dtype=torch.int64, device=dev),
+        o=r_o, d=r_d,
+        tp=torch.ones((w, 3), device=dev),
+        rad=f3(),                 # current sample's radiance
+        sample=sample0,
+        seed=seed0,
+        pix=pix0,
+        depth=torch.zeros((w,), dtype=torch.int64, device=dev),
+        prev_spec=torch.ones((w,), dtype=torch.bool, device=dev),
+        so=f3(), sd=f3(),
+        smax=torch.zeros((w,), device=dev),
+        pend=f3(),
+        cont_after_shadow=torch.zeros((w,), dtype=torch.bool, device=dev),
+        out=f3(),                 # the pixel's radiance sum
+    )
+    return st
+
+
+def render_frame_persistent(scene, inline: InlineTable, cam, frame_seed: int,
+                            width: int, height: int, cfg: RenderConfig,
+                            spp: int):
+    """All ``spp`` samples of one frame in one regenerating wave on the
+    scene's device, one lane per pixel.  ``inline`` is the scene's
+    ``build_inline_table``; ``cam`` a CameraParams (NumPy or tensors).
+
+    Returns (radiance sum [width*height, 3], stats) with stats
+    ``n_traced`` and ``n_shadow`` (int64 tensors: path rays started,
+    camera rays included, and NEE shadow rays fired) and
+    ``iterations`` (loop iterations run)."""
+    check_supported(cfg)
+    if scene.num_lights > INLINE_MAX_LIGHTS:
+        raise ValueError(f"{scene.num_lights} lights: the port covers at "
+                         f"most {INLINE_MAX_LIGHTS}")
+    dev = scene.quad_table.device
+    n = width * height
+    frame_seed = int(frame_seed) & rng.MASK32
+    cam = cam.to(dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    out = torch.zeros((n, 3), device=dev)
+    if scene.quad_table.shape[0] == 0:
+        # Empty scene: every ray misses, all samples contribute 0.
+        return out, dict(n_traced=zero + n * spp, n_shadow=zero,
+                         iterations=0)
+    fr = _Frame(scene, inline, cfg, cam, frame_seed, width, height, spp)
+    pos = torch.arange(n, device=dev)  # lane -> pixel
+    s = init_lane_ctx(frame_seed, spp, pos, cam, width, height, cfg,
+                      with_tstash=inline.tex0 is not None)
+    n_traced = zero + n  # camera rays
+    n_shadow = zero
+    passes = max(1, cfg.quad_redirect_passes)
+    iterations = 0
+    while True:
+        s, tr, sh = _step_quad(s, inline, scene.leaf_size, fr, passes)
+        n_traced = n_traced + tr
+        n_shadow = n_shadow + sh
+        iterations += 1
+        if iterations % LIVE_CHECK_EVERY:
+            continue
+        live = s["mode"] != DONE
+        n_live = int(live.sum())
+        w = int(live.shape[0])
+        if n_live == 0:
+            break
+        if n_live <= w // 2 and w > MIN_COMPACT_WIDTH:
+            # Retire the DONE lanes: their sums are final.
+            gone = ~live
+            out[pos[gone]] = s["out"][gone]
+            keep = live.nonzero()[:, 0]
+            s = {key: val[keep] for key, val in s.items()}
+            pos = pos[keep]
+    out[pos] = s["out"]
+    return out, dict(n_traced=n_traced, n_shadow=n_shadow,
+                     iterations=iterations)
+
+
+def _walk_inv(ls3, rd):
+    """Per-lane inverse direction: the closest-hit walk's sign-preserving
+    safe inverse, the shadow walk's plain reciprocal (one division)."""
+    tiny = (torch.abs(rd) < 1e-8) & ~ls3
+    q = 1.0 / torch.where(tiny, 1.0, rd)
+    big = torch.where(rd >= 0, 1e20, -1e20)
+    return torch.where(tiny, big, q)
+
+
+def _step_quad(s, inline: InlineTable, k: int, fr: _Frame,
+               redirect_passes: int = 1):
+    """One quad-row step for TRAVERSE and SHADOW lanes plus the service
+    block for SHADEG, TEXG and REFILL lanes, sharing one row fetch.
+    Returns (state', path rays started, shadow rays started)."""
+    table, sentinel = inline.table, inline.sentinel
+    mode = s["mode"]
+    live_t = mode == TRAVERSE
+    live_s = mode == SHADOW
+    stepping = live_t | live_s
+
+    use_regs = "reg_e" in s
+    if use_regs:
+        fresh = ((s["cur"] == 0) & stepping)[:, None]
+        reg_e = torch.where(fresh, -1, s["reg_e"])
+        reg_s = torch.where(fresh, -1, s["reg_s"])
+
+    ls3 = live_s[:, None]
+    ro = torch.where(ls3, s["so"], s["o"])
+    rd = torch.where(ls3, s["sd"], s["d"])
+    inv = _walk_inv(ls3, rd)
+    t_min = torch.where(live_s, 1e-3, 0.0)
+    octant = ray_octant(rd)
+
+    idx = torch.where(stepping, torch.clamp(s["cur"], max=sentinel - 1), 0)
+    idx, live_g, live_x = _service_select(s, idx, inline)
+    row = table[idx]
+
+    prim_start = row[:, 0].to(torch.int64)
+    is_leaf = prim_start >= 0
+
+    thi = torch.where(live_s, s["smax"] - 1e-3, s["d_min"])
+    best_t, best_id = _fat_leaf_intersect(row, k, ro, rd, prim_start,
+                                          t_min, thi)
+    found = stepping & is_leaf & (best_id >= 0)
+    d_min = torch.where(found & live_t, best_t, s["d_min"])
+    hit_id = torch.where(found & live_t, best_id, s["hit_id"])
+    occluded = found & live_s
+
+    t_max = torch.where(live_s, s["smax"], d_min)
+    cont, nxt_int, pushes = _quad_decode(row, octant, ro, inv, t_min, t_max)
+    nxt = torch.where(is_leaf, cont, nxt_int)
+    if use_regs:
+        reg_e, reg_s, nxt = _regfile_apply(reg_e, reg_s, pushes, nxt,
+                                           stepping, ~is_leaf & stepping,
+                                           passes=redirect_passes)
+    cur = torch.where(stepping, nxt, s["cur"])
+
+    t_done = live_t & (cur >= sentinel)
+    s_done = live_s & (occluded | (cur >= sentinel))
+    lit = s_done & ~occluded
+    rad = s["rad"] + torch.where(lit[:, None], s["pend"], 0.0)
+
+    # A finished walk shades on the next step (its material row rides
+    # the row fetch); a miss ends the path (renderer.cu:427).  A
+    # finished shadow ray resumes the already-chosen next bounce unless
+    # the path ended at this bounce.
+    mode = torch.where(t_done, torch.where(hit_id >= 0, SHADEG, REFILL), mode)
+    mode = torch.where(s_done, torch.where(s["cont_after_shadow"], TRAVERSE,
+                                           REFILL), mode)
+    cur = torch.where(s_done, 0, cur)
+    d_min = torch.where(s_done, MISS_T, d_min)
+    hit_id = torch.where(s_done, -1, hit_id)
+
+    out = dict(s)
+    out.update(mode=mode, cur=cur, d_min=d_min, hit_id=hit_id, rad=rad)
+    if use_regs:
+        out.update(reg_e=reg_e, reg_s=reg_s)
+    return _service_shade(out, s, row, live_g, live_x, fr)
+
+
+def _service_select(s, idx, inline: InlineTable):
+    """Route the service fetches into the step's row fetch: SHADEG lanes
+    take their hit triangle's packed material row, TEXG lanes the tile
+    row index stashed in ``cur``.  Returns (idx, live_g, live_x)."""
+    live_g = s["mode"] == SHADEG
+    sid = torch.clamp(s["hit_id"], min=0)
+    shade_idx = inline.sentinel + (sid >> 1 if inline.pack == 2 else sid)
+    idx = torch.where(live_g, shade_idx, idx)
+    live_x = None
+    if inline.tex0 is not None:
+        live_x = s["mode"] == TEXG
+        idx = torch.where(live_x, s["cur"], idx)
+    return idx, live_g, live_x
+
+
+def _service_shade(out, s, row, live_g, live_x, fr: _Frame):
+    """The in-step shade / texture / regenerate block.  ``row`` is this
+    step's fetched row, ``s`` the pre-step state (hit_id, so, sd, pend
+    and tstash carry the TEXG stash across steps)."""
+    if fr.inline.pack == 2:
+        trow = torch.where(((s["hit_id"] & 1) == 1)[:, None],
+                           row[:, 37:74], row[:, 0:37])
+    else:
+        trow = row[:, 0:37]
+    out, ready_u, qq = _shade_prepare(out, trow, live_g, fr)
+    m_all = ready_u
+    if live_x is not None:
+        ts = out["tstash"]
+        hid = torch.clamp(s["hit_id"], min=0)
+        offx = hid % TEX_TILE
+        offy = hid // TEX_TILE % TEX_TILE
+        factor = tile_bilinear(row, offx, offy, ts[:, 7], ts[:, 8])
+        lx3 = live_x[:, None]
+        front3 = (ts[:, 9] > 0.0)[:, None]
+        nl_x = out["so"]
+        qq = dict(qq)
+        qq["nl"] = torch.where(lx3, nl_x, qq["nl"])
+        qq["nrm"] = torch.where(lx3, torch.where(front3, nl_x, -nl_x),
+                                qq["nrm"])
+        qq["nl_off"] = torch.where(lx3, out["sd"], qq["nl_off"])
+        qq["albedo"] = torch.where(lx3, ts[:, 0:3] * factor, qq["albedo"])
+        qq["emission"] = torch.where(lx3, out["pend"], qq["emission"])
+        qq["metallic"] = torch.where(live_x, ts[:, 3], qq["metallic"])
+        qq["roughness"] = torch.where(live_x, ts[:, 4], qq["roughness"])
+        qq["ior"] = torch.where(live_x, ts[:, 5], qq["ior"])
+        qq["transmission"] = torch.where(live_x, ts[:, 6],
+                                         qq["transmission"])
+        m_all = ready_u | live_x
+    out, tr, sh = _shade_finish(out, m_all, qq, fr.scene, fr.cfg)
+    out, tr2 = _refill(out, fr)
+    return out, tr + tr2, sh
+
+
+def _shade_prepare(s, hitrow, mask, fr: _Frame):
+    """Geometry/material half of the shading block: normals, and for
+    textured hits the TEXG transition with the material stashed.
+    Returns (s, ready, q): ``ready`` the lanes to shade now."""
+    textured = fr.inline.tex0 is not None
+    ready = mask
+    if textured:
+        # Out-of-range texture slots sample as factor 1: shade them now.
+        tex_f = hitrow[:, 19]
+        deferred = (ready & (s["hit_id"] >= 0) & (tex_f >= 0.0)
+                    & (tex_f < len(fr.inline.metas)))
+        ready = ready & ~deferred
+
+    v0 = hitrow[:, 0:3]
+    v1 = hitrow[:, 3:6]
+    v2 = hitrow[:, 6:9]
+    o, d = s["o"], s["d"]
+    x_hit = o + d * s["d_min"][:, None]
+
+    nrm = vec.norm(vec.cross(v1 - v0, v2 - v0))
+    front = vec.dot(nrm, d) < 0.0
+    nl = torch.where(front[:, None], nrm, -nrm)
+
+    albedo = hitrow[:, 9:12]
+    emission = hitrow[:, 12:15]
+    metallic = hitrow[:, 15]
+    roughness = hitrow[:, 16]
+    ior = hitrow[:, 17]
+    transmission = hitrow[:, 18]
+    nl_off = nl
+
+    if textured:
+        # TEXG transition: stash what the finish body needs (the tile
+        # row takes the row fetch next step); nrm is rebuilt from nl and
+        # the front-face bit, negation being exact.
+        t_u, t_v = planar_uv(x_hit, nrm, fr.cfg.tex_planar_scale)
+        trow_i, offx, offy, fx, fy = tile_coords(
+            fr.inline.metas, hitrow[:, 19].to(torch.int64), t_u, t_v)
+        t3 = deferred[:, None]
+        s = dict(s)
+        s["so"] = torch.where(t3, nl, s["so"])
+        s["sd"] = torch.where(t3, nl_off, s["sd"])
+        s["pend"] = torch.where(t3, emission, s["pend"])
+        stash = torch.cat(
+            [albedo, metallic[:, None], roughness[:, None], ior[:, None],
+             transmission[:, None], fx[:, None], fy[:, None],
+             front[:, None].to(torch.float32)], dim=1)
+        s["tstash"] = torch.where(t3, stash, s["tstash"])
+        s["mode"] = torch.where(deferred, TEXG, s["mode"])
+        s["cur"] = torch.where(deferred, fr.inline.tex0 + trow_i, s["cur"])
+        s["hit_id"] = torch.where(deferred, offy * TEX_TILE + offx,
+                                  s["hit_id"])
+
+    q = dict(x_hit=x_hit, nrm=nrm, nl=nl, nl_off=nl_off, albedo=albedo,
+             emission=emission, metallic=metallic, roughness=roughness,
+             ior=ior, transmission=transmission)
+    return s, ready, q
+
+
+def _shade_finish(s, ready, q, scene, cfg: RenderConfig):
+    """RNG/branch/NEE half of the shading block (renderer.cu:487-733):
+    emitter accumulation, Russian roulette, the spec/trans/diff branch
+    select, NEE shadow-segment setup, and the mode transitions.
+    Returns (s', path rays continued, shadow rays fired)."""
+    seed = s["seed"]
+    pixel_idx = s["pix"]
+    found = s["hit_id"] >= 0
+    alive = ready & found  # miss -> path ends (renderer.cu:427)
+    o, d, tp, rad = s["o"], s["d"], s["tp"], s["rad"]
+    depth = s["depth"]
+    x_hit = q["x_hit"]
+    nrm = q["nrm"]
+    nl = q["nl"]
+    nl_off = q["nl_off"]
+    albedo = q["albedo"]
+    emission = q["emission"]
+    metallic = q["metallic"]
+    roughness = q["roughness"]
+    ior = q["ior"]
+    transmission = q["transmission"]
+
+    rad = rad + torch.where((alive & s["prev_spec"])[:, None],
+                            tp * emission, 0.0)
+    is_emitter = (emission > cfg.emitter_stop_threshold).any(dim=-1)
+    alive = alive & ~is_emitter
+
+    p_spec, p_trans, fres = shade.pbr_weights(
+        albedo, metallic, roughness, transmission, nl, d)
+
+    # All seven per-bounce draws in one hash: slots 0..6 of this depth.
+    base = rng.CAMERA_DRAWS + depth * rng.DRAWS_PER_BOUNCE
+    slots = torch.arange(rng.SLOT_LIGHT_R2 + 1, device=depth.device)
+    u = rng.uniform(seed[:, None], pixel_idx[:, None], base[:, None] + slots)
+    u_rr = u[:, rng.SLOT_RR]
+    rr_on = depth > cfg.rr_threshold
+    p_live = torch.clamp(albedo.amax(dim=-1), min=cfg.rr_min_p)
+    survive = u_rr < p_live
+    tp = torch.where((rr_on & alive & survive)[:, None],
+                     tp * (1.0 / p_live)[:, None], tp)
+    alive = alive & (~rr_on | survive)
+
+    u_b = u[:, rng.SLOT_BRANCH]
+    m_spec = alive & (u_b < p_spec)
+    m_trans = alive & ~m_spec & (u_b < p_spec + p_trans)
+    m_diff = alive & ~m_spec & ~m_trans
+
+    u_d1 = u[:, rng.SLOT_DIR_R1]
+    u_d2 = u[:, rng.SLOT_DIR_R2]
+
+    # Branch A: specular (renderer.cu:571-589).
+    perfect = shade.reflect(d, nrm)
+    d_spec = shade.rough_perturb(perfect, roughness, u_d1, u_d2)
+    kill_spec = vec.dot(d_spec, nl) <= 0.0
+    tp_spec = tp * fres * (1.0 / p_spec)[:, None]
+    o_spec = x_hit + nl_off * cfg.shadow_eps
+
+    # Branch B: transmission (renderer.cu:592-648).
+    d_trans, _ = shade.refract_branch(d, nrm, nl, ior, roughness,
+                                      u_d1, u_d2)
+    p_branch = (1.0 - p_spec) * transmission
+    tp_trans = torch.where(
+        (p_branch > 1e-4)[:, None],
+        tp * albedo / torch.where(p_branch > 1e-4, p_branch, 1.0)[:, None],
+        tp)
+    o_trans = x_hit + d_trans * cfg.refr_offset
+
+    # Branch C: diffuse + NEE setup (renderer.cu:651-733).
+    has_shadow = torch.zeros_like(m_diff)
+    pend = torch.zeros_like(tp)
+    so, sd, smax = s["so"], s["sd"], s["smax"]
+    if scene.num_lights > 0:
+        lcount = scene.num_lights
+        u4 = u[:, rng.SLOT_LIGHT_PICK]
+        u5 = u[:, rng.SLOT_LIGHT_R1]
+        u6 = u[:, rng.SLOT_LIGHT_R2]
+        lrows = scene.trimat[scene.light_indices[:lcount]]
+        if lcount == 1:
+            lrow = lrows[0].expand(u4.shape[0], -1)
+        else:
+            pick = torch.clamp((u4 * (lcount - 0.001)).to(torch.int64),
+                               0, lcount - 1)
+            lrow = lrows[pick]
+        lv0, lv1, lv2 = lrow[:, 0:3], lrow[:, 3:6], lrow[:, 6:9]
+        light_pos = shade.sample_triangle(lv0, lv1, lv2, u5, u6)
+        to_light = light_pos - x_hit
+        dist_sq = vec.dot(to_light, to_light)
+        if cfg.nee_dist_floor_enabled:
+            dist_sq = torch.clamp(dist_sq, min=cfg.nee_dist_sq_floor)
+        dist = vec.sqrt(dist_sq)
+        l_dir = to_light * (1.0 / dist)[:, None]
+        cos_theta = vec.dot(nl, l_dir)
+        light_n = vec.norm(vec.cross(lv1 - lv0, lv2 - lv0))
+        cos_light = -vec.dot(light_n, l_dir)
+        geo_ok = m_diff & (cos_theta > 0.0) & (cos_light > 0.0)
+
+        area = lrow[:, 20]
+        pdf = 1.0 / (area * lcount)
+        g_term = (cos_theta * cos_light) / dist_sq
+        brdf = albedo * INV_PI
+        contrib = lrow[:, 12:15] * brdf * (g_term / pdf)[:, None]
+
+        has_shadow = geo_ok
+        g3 = geo_ok[:, None]
+        pend = torch.where(g3, tp * contrib, pend)
+        so = torch.where(g3, x_hit + nl_off * cfg.shadow_eps, so)
+        sd = torch.where(g3, l_dir, sd)
+        smax = torch.where(geo_ok, dist - cfg.shadow_max_dist_eps, smax)
+
+    d_diff = shade.cosine_hemisphere(nl, u_d1, u_d2)
+    p_diff = 1.0 - p_spec - (1.0 - p_spec) * transmission
+    tp_diff = (tp * (albedo * (1.0 - metallic)[:, None])
+               * (1.0 / p_diff)[:, None])
+    o_diff = x_hit + nl_off * cfg.shadow_eps
+
+    ms3, mt3, md3 = m_spec[:, None], m_trans[:, None], m_diff[:, None]
+    new_d = torch.where(ms3, d_spec, torch.where(mt3, d_trans, d_diff))
+    new_o = torch.where(ms3, o_spec, torch.where(mt3, o_trans, o_diff))
+    new_tp = torch.where(ms3, tp_spec,
+                         torch.where(mt3, tp_trans,
+                                     torch.where(md3, tp_diff, tp)))
+    alive = alive & ~(m_spec & kill_spec)
+    new_prev = torch.where(m_spec | m_trans, True,
+                           torch.where(m_diff, False, s["prev_spec"]))
+
+    # Depth cap (renderer.cu:367): NEE still fires at the final depth.
+    next_depth = depth + 1
+    alive = alive & (next_depth < cfg.max_depth)
+    shadow_fire = ready & has_shadow  # implies m_diff
+
+    mode = s["mode"]
+    mode = torch.where(ready, REFILL, mode)  # default: path over
+    cont = ready & alive
+    mode = torch.where(cont & ~has_shadow, TRAVERSE, mode)
+    mode = torch.where(shadow_fire, SHADOW, mode)
+    r3 = ready[:, None]
+    out = dict(s)
+    out.update(
+        mode=mode,
+        cur=torch.where(ready, 0, s["cur"]),
+        d_min=torch.where(ready, MISS_T, s["d_min"]),
+        hit_id=torch.where(ready, -1, s["hit_id"]),
+        o=torch.where(r3, new_o, o),
+        d=torch.where(r3, new_d, d),
+        tp=torch.where(r3, new_tp, tp),
+        rad=rad,
+        depth=torch.where(ready, next_depth, depth),
+        prev_spec=torch.where(ready, new_prev, s["prev_spec"]),
+        so=so, sd=sd, smax=smax,
+        pend=torch.where(r3, pend, s["pend"]),
+        cont_after_shadow=torch.where(shadow_fire, alive,
+                                      s["cont_after_shadow"]),
+    )
+    return out, cont.sum(), shadow_fire.sum()
+
+
+def _refill(s, fr: _Frame):
+    """Path regeneration, owner schedule: flush the finished sample's
+    radiance through the reference's sanitation (renderer.cu:737-759)
+    into the lane's pixel sum, then start the pixel's next sample or
+    retire the lane.  Returns (s', camera rays started)."""
+    refill = s["mode"] == REFILL
+    r3 = refill[:, None]
+    flushed = _sanitize(s["rad"], fr.cfg)
+    next_sample = s["sample"] + 1
+    exhausted = next_sample >= fr.spp
+    new_sample = torch.where(refill, next_sample, s["sample"])
+    start = refill & ~exhausted
+    new_seed = rng.sample_seed(fr.frame_seed, fr.spp, new_sample)
+    r_o, r_d = generate_rays(fr.cam, fr.width, fr.height, new_seed, s["pix"])
+
+    st3 = start[:, None]
+    res = dict(s)
+    res.update(
+        out=s["out"] + torch.where(r3, flushed, 0.0),
+        mode=torch.where(refill, torch.where(exhausted, DONE, TRAVERSE),
+                         s["mode"]),
+        cur=torch.where(start, 0, s["cur"]),
+        d_min=torch.where(start, MISS_T, s["d_min"]),
+        hit_id=torch.where(start, -1, s["hit_id"]),
+        o=torch.where(st3, r_o, s["o"]),
+        d=torch.where(st3, r_d, s["d"]),
+        tp=torch.where(st3, 1.0, s["tp"]),
+        rad=torch.where(r3, 0.0, s["rad"]),
+        sample=new_sample,
+        seed=torch.where(refill, new_seed, s["seed"]),
+        depth=torch.where(start, 0, s["depth"]),
+        prev_spec=torch.where(start, True, s["prev_spec"]),
+    )
+    return res, start.sum()
