@@ -2,21 +2,42 @@
 
     python3 chip_smoke.py
 
-Builds the port's hand-written CUDA kernel from the sources in this
-checkout, checks it against its plain PyTorch version on the card,
-checks the port's render on the card against the port's render on the
-CPU, then drives the main path (Renderer -> render_frame_persistent
--> Renderer.image) at the reference's interactive operating point,
-1200x800 at 1 spp per step, on a 20,487-triangle Cornell box built in
-the repo.  Every phase prints its own lines; any failure raises and
-the script exits non-zero.  The last line is a JSON object
-{"ok": true, "device": {...}} and the line before it the kernel table.
-Without a CUDA device it exits non-zero and prints no result.
+Builds the port's hand-written CUDA kernels (tonemap, fetch_chain,
+quad_walk; one nvcc each, side by side) from the sources in this
+checkout and holds each against its plain PyTorch version on the card
+at the shapes its path gives it.  Then it drives the port's two paths,
+each with the kernels' launch counts set to 0 just before and read just
+after:
+
+  - the row-fetch microbenchmark (scripts/microbench_torch_fetch.py):
+    65,536 lanes, 64 steps, six table variants, both placements;
+  - the main path (Renderer -> render_frame_persistent -> Renderer.image)
+    at the reference's interactive operating point, 1200x800 at 1 spp
+    per step, on a 20,487-triangle Cornell box built in the repo: the
+    round loop, one walk-kernel launch and one eager service pass per
+    round.
+
+It also checks the port's render on the card (round loop, kernel)
+against the plain version of the whole on the CPU (the interleaved
+eager loop, one row per lane per step).  Every
+phase prints its own lines; any failure raises and the script exits
+non-zero.  The last line is a JSON object {"ok": true, "device": {...}},
+the line before it the card's name and power limit, and the line before
+that the kernel table.  Without a CUDA device it exits non-zero and
+prints no result.
+
+A kernel's ``bound_ms`` is the least time the card could take: the
+larger of the bytes its outputs depend on plus the bytes it writes
+(each counted once) over the device-memory rate and the float32
+operations those outputs need over the float32 rate, both NVIDIA's
+published figures for the H100 SXM.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
+import os
 import subprocess
 import sys
 import time
@@ -26,8 +47,11 @@ import torch
 
 from tryraytrace_tpu_torch.camera.controller import CameraController
 from tryraytrace_tpu_torch.config import RenderConfig
+from tryraytrace_tpu_torch.engine import persistent
 from tryraytrace_tpu_torch.engine.renderer import Renderer
+from tryraytrace_tpu_torch.ops import _build, fetch
 from tryraytrace_tpu_torch.ops import tonemap as tm
+from tryraytrace_tpu_torch.ops import walk
 from tryraytrace_tpu_torch.scene.assets import (checker_texture, cube_mesh,
                                                 icosphere_mesh)
 from tryraytrace_tpu_torch.scene.cornell import create_cornell_box
@@ -41,6 +65,15 @@ TONEMAP_SHAPE = (WIDTH * HEIGHT, 3)
 # rounding boundary), and in at most this share of the bytes.
 MAX_BOUNDARY_SHARE = 1e-5
 RENDER_MSE = 1e-9              # port on the card vs port on the CPU
+# The main path is deterministic: warm-up + TIMED_STEPS steps of this
+# scene at this raster tonemap to this mean on every run.
+MAIN_IMAGE_MEAN = 79.99850451388889
+SHADOW_LANES_MIN = 10000       # [walk]'s second state: this many in SHADOW
+
+# NVIDIA's published H100 SXM figures: device-memory rate and float32
+# rate outside the tensor cores.
+MEM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -74,18 +107,34 @@ def main_path_arrays():
     return flatten_scene(scene, textures=[checker_texture(256)])
 
 
+def bound(n_bytes: float, n_flops: float) -> dict:
+    """bound_ms / bound_by of a kernel that must move ``n_bytes`` and do
+    ``n_flops`` float32 operations."""
+    by_bytes = 1e3 * n_bytes / MEM_BYTES_PER_S
+    by_ops = 1e3 * n_flops / F32_FLOP_PER_S
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
 def phase_environment() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    nvcc = subprocess.run([tm._nvcc(), "--version"], capture_output=True,
+    nvcc = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
                           text=True, check=True, timeout=60)
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{nvcc.stdout.strip().splitlines()[-1]}")
     log(f"[env] device {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
-    path = tm.build_library()
-    log(f"[build] {path} in {tm._Library.build_seconds:.3f} s")
+    t0 = time.perf_counter()
+    libraries = [tm.LIBRARY, fetch.LIBRARY, walk.LIBRARY]
+    _build.build_all(libraries)
+    for lib in libraries:
+        log(f"[build] {lib.path} in {lib.build_seconds:.3f} s")
+        for line in lib.compiler_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {line.strip()}")
+    log(f"[build] all kernels in {time.perf_counter() - t0:.3f} s")
     return smi
 
 
@@ -144,49 +193,213 @@ def phase_tonemap() -> dict:
     log(f"[tonemap] {list(TONEMAP_SHAPE)} f32: kernel {ms:.4f} ms "
         f"(runs {runs['kernel']}), plain {plain_ms:.4f} ms "
         f"(runs {runs['plain']}); {mismatches} differing bytes of {total}")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+    # 4 B read and 1 B written per float; scale, two clamps, powf (counted
+    # as 20), scale, offset, truncation.
+    n = acc.numel()
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **bound(5 * n, 26 * n))
 
 
-def render_once(arrays, w, h, device) -> np.ndarray:
-    r = Renderer(arrays, cfg=RenderConfig(width=w, height=h, spp=1),
-                 device=device)
-    r.step(CameraController().get_params(w, h))
-    return r.accum_host()
+def _load_fetch_script():
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "microbench_torch_fetch.py")
+    spec = importlib.util.spec_from_file_location("microbench_torch_fetch",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_fetch(seed: int) -> dict:
+    """The fetch-chain kernel, both placements, against the plain gather
+    chain on the card (bit-equal), then the microbenchmark path itself."""
+    script = _load_fetch_script()
+    rs = np.random.RandomState(seed + 1)
+    worst = 0.0
+    for m, w, dtype, dependent in fetch.VARIANTS:
+        table, idx = fetch.make_inputs(rs, m, w, dtype, dependent,
+                                       fetch.LANES)
+        table, idx = table.cuda(), idx.cuda()
+        want = fetch.fetch_chain_plain(table, idx, fetch.STEPS)
+        for placement in fetch.PLACEMENTS:
+            name = f"{script.variant_name(m, w, dtype, dependent)} {placement}"
+            if placement == "shared" and not fetch.fits_shared(table):
+                log(f"[fetch] {name}: {fetch.shared_bytes(table)} B staged "
+                    f"does not fit {fetch.SHARED_LIMIT_BYTES} B of shared "
+                    "memory")
+                continue
+            got = fetch.fetch_chain_cuda(table, idx, fetch.STEPS, placement)
+            torch.cuda.synchronize()
+            errs = [float((g - x).abs().max()) for g, x in zip(got, want)]
+            worst = max(worst, *errs)
+            log(f"[fetch] {name}: acc max abs err {errs[0]!r}, rowsum max "
+                f"abs err {errs[1]!r} (acc sum {float(got[0].sum())!r})")
+            if not all(torch.equal(g, x) for g, x in zip(got, want)):
+                raise AssertionError(f"fetch_chain kernel disagrees with "
+                                     f"its plain version: {name}")
+    # The microbenchmark path, through its entry point's own function.
+    fetch.fetch_chain_cuda.launches = 0
+    results = script.run_benchmark(seed)
+    launches = fetch.fetch_chain_cuda.launches
+    for res in results:
+        per = 1e6 / (res["lanes"] * res["steps"])
+        shared = res["ms"]["shared"]
+        log(f"[fetch] {res['name']}: device memory {res['ms']['global']:.4f} "
+            f"ms ({res['ms']['global'] * per:.4f} ns/lane/step), shared "
+            + (f"{shared:.4f} ms ({shared * per:.4f} ns/lane/step)"
+               if shared is not None else "does not fit")
+            + f", plain {res['plain_ms']:.4f} ms "
+            f"({res['plain_ms'] * per:.4f} ns/lane/step), "
+            f"{'EXACT' if res['exact'] else 'DIFFERENT'}")
+        if not res["exact"]:
+            raise AssertionError(f"microbenchmark: {res['name']} not exact")
+    if launches < 1:
+        raise AssertionError("the microbenchmark never launched fetch_chain")
+    # The kernel line reports the first variant (the TPU script's first),
+    # read from device memory: the table once, an index and two outputs
+    # per lane.  The outputs need, per lane, an accumulator add and an
+    # index advance per step and one W-column sum, of the last row only.
+    first = results[0]
+    lanes, steps = first["lanes"], first["steps"]
+    return dict(max_abs_err=worst, ms=first["ms"]["global"],
+                plain_ms=first["plain_ms"], library_ms=None,
+                launches=launches, variants=results,
+                **bound(first["table_bytes"] + 12 * lanes,
+                        lanes * (2 * steps + first["w"])))
 
 
 def phase_cuda_vs_cpu() -> float:
+    """The renderer on the card (round loop, walk kernel) against the
+    plain version of the whole on the CPU (interleaved eager loop)."""
     arrays = cube256_arrays()
+    w = h = 64
+    cfg = RenderConfig(width=w, height=h, spp=1)
+    params = CameraController().get_params(w, h)
     t0 = time.perf_counter()
-    on_card = render_once(arrays, 64, 64, "cuda")
+    r = Renderer(arrays, cfg=cfg)
+    r.step(params)
+    on_card, card_stats = r.accum_host(), r.last_stats
     t1 = time.perf_counter()
-    on_cpu = render_once(arrays, 64, 64, "cpu")
+    host = Renderer(arrays, cfg=cfg, device="cpu")
+    acc, cpu_stats = persistent.render_frame_interleaved(
+        host.scene, host.inline, params, host.frame, w, h, cfg, 1)
+    on_cpu = acc.numpy().reshape(h, w, 3)
     t2 = time.perf_counter()
     mse = float(((on_card - on_cpu) ** 2).mean())
-    log(f"[cube256 64x64] card vs CPU MSE {mse!r} (card {t1 - t0:.2f} s, "
-        f"CPU {t2 - t1:.2f} s, mean radiance {float(on_card.mean())!r})")
+    counts = {dev: (int(st["n_traced"]), int(st["n_shadow"]),
+                    int(st["rows_fetched"]))
+              for dev, st in (("card", card_stats), ("cpu", cpu_stats))}
+    log(f"[cube256 64x64] card vs CPU MSE {mse!r} (card {t1 - t0:.2f} s in "
+        f"{card_stats['iterations']} rounds, CPU {t2 - t1:.2f} s in "
+        f"{cpu_stats['iterations']} steps, mean radiance "
+        f"{float(on_card.mean())!r}); (path rays, shadow rays, rows "
+        f"fetched) card {counts['card']} CPU {counts['cpu']}")
     if not np.isfinite(on_card).all() or not mse < RENDER_MSE:
         raise AssertionError(f"card render disagrees with the CPU: {mse}")
+    if counts["card"] != counts["cpu"]:
+        raise AssertionError(f"ray or row counts differ: {counts}")
     if not on_card.mean() > 0.0:
         raise AssertionError("cube256 render is black")
     return mse
 
 
-def phase_main_path() -> dict:
-    t0 = time.perf_counter()
-    arrays = main_path_arrays()
-    r = Renderer(arrays, cfg=RenderConfig(width=WIDTH, height=HEIGHT,
-                                          spp=1), device="cuda")
-    params = CameraController().get_params(WIDTH, HEIGHT)
-    log(f"[main] {arrays.num_objects} triangles, leaf {r.scene.leaf_size}, "
-        f"quad rows {r.scene.quad_table.shape[0]}, unified table "
-        f"{tuple(r.inline.table.shape)}; setup {time.perf_counter() - t0:.2f} s")
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal as numbers (so -0.0 == 0.0: the plain step adds + 0.0 to
+    every lane's rad, the kernel only to the lanes it walked), NaN equal
+    to NaN."""
+    eq = a == b
+    if a.is_floating_point():
+        eq = eq | (a.isnan() & b.isnan())
+    return bool(eq.all())
+
+
+def walk_state_bytes(n_traverse: int, n_shadow: int, n_other: int) -> int:
+    """Bytes of lane state a walk's outputs depend on, plus those it
+    writes.  Every lane's mode is read (8 B).  A TRAVERSE lane also reads
+    cur, hit_id, d_min, o and d (44 B) and writes mode, cur, hit_id and
+    d_min (28 B).  A SHADOW lane reads all that and rad, so, sd, smax,
+    pend and cont_after_shadow (53 B more) and writes rad too (12 B)."""
+    return (8 * n_other + (8 + 44 + 28) * n_traverse
+            + (8 + 44 + 53 + 28 + 12) * n_shadow)
+
+
+def phase_walk(r: Renderer, params) -> dict:
+    """quad_walk_cuda against walk_plain on the main-path scene: the
+    fresh 960,000-lane state (a closest-hit round), and the first round's
+    state with at least SHADOW_LANES_MIN lanes in SHADOW."""
+    inline, k, cfg = r.inline, r.scene.leaf_size, r.cfg
+    table, sentinel = inline.table, inline.sentinel
+    passes = max(1, cfg.quad_redirect_passes)
+    cam = params.to(r.device)
+    fr = persistent._Frame(r.scene, inline, cfg, cam, 1, WIDTH, HEIGHT, 1)
+    s = persistent.init_lane_ctx(
+        1, 1, torch.arange(WIDTH * HEIGHT, device=r.device), cam, WIDTH,
+        HEIGHT, cfg, with_tstash=inline.tex0 is not None)
+    out = None
+    for rnd in range(cfg.max_depth * 2 + 2):
+        n_shadow = int((s["mode"] == walk.SHADOW).sum())
+        n_traverse = int((s["mode"] == walk.TRAVERSE).sum())
+        if rnd > 0 and n_shadow < SHADOW_LANES_MIN:
+            s = persistent._round_quad(s, inline, k, fr, passes)[0]
+            continue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, rows = walk.quad_walk_cuda(s, table, sentinel, k, passes)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want, want_rows = walk.walk_plain(s, table, sentinel, k, passes)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        bad = [f for f in walk.WRITES if not _same(got[f], want[f])]
+        err = max(float((got[f].double() - want[f].double()).abs()
+                        .nan_to_num(0.0).max()) for f in walk.WRITES)
+        log(f"[walk] round {rnd}: {n_traverse} TRAVERSE and {n_shadow} "
+            f"SHADOW lanes of {s['mode'].shape[0]}; rows fetched kernel "
+            f"{int(rows)} plain {int(want_rows)}; fields differing {bad} "
+            f"(-0.0 == 0.0, NaN == NaN), max abs err {err!r}; kernel "
+            f"{1e3 * (t1 - t0):.3f} ms, plain {1e3 * (t2 - t1):.1f} ms")
+        if bad or int(rows) != int(want_rows):
+            raise AssertionError(f"quad_walk kernel disagrees with "
+                                 f"walk_plain in round {rnd}: {bad}")
+        if rnd == 0:
+            ms = _time_ms(lambda: walk.quad_walk_cuda(s, table, sentinel, k,
+                                                      passes), reps=5)
+            n_rows = int(rows)
+            n_other = s["mode"].shape[0] - n_traverse - n_shadow
+            out = dict(max_abs_err=err, ms=ms, plain_ms=1e3 * (t2 - t1),
+                       library_ms=None, rows_fetched=n_rows,
+                       # The quad rows once (at most: a walk may leave
+                       # some unvisited) and the lane state by mode.
+                       # Operations: the cheaper row kind, an internal
+                       # row's four slab tests at 30 each.
+                       **bound(sentinel * table.shape[1] * 4
+                               + walk_state_bytes(n_traverse, n_shadow,
+                                                  n_other),
+                               120 * n_rows))
+            # Not a bound: every fetched row again at its 300 B over the
+            # device-memory rate (the table lives in L2, and a thread
+            # loads only the columns its row kind uses).
+            traffic_ms = 1e3 * n_rows * table.shape[1] * 4 / MEM_BYTES_PER_S
+            log(f"[walk] fresh state: kernel {ms:.3f} ms, "
+                f"{n_rows / ms / 1e6:.3f} G rows/s, bound {out['bound_ms']:.4f}"
+                f" ms by {out['bound_by']}, rows x row bytes over the "
+                f"device-memory rate {traffic_ms:.3f} ms")
+            s = persistent._round_quad(s, inline, k, fr, passes)[0]
+            continue
+        return out
+    raise AssertionError(f"no round had {SHADOW_LANES_MIN} lanes in SHADOW")
+
+
+def phase_main_path(r: Renderer, params) -> dict:
     torch.cuda.reset_peak_memory_stats()
     tm.tonemap_cuda.launches = 0
+    walk.quad_walk_cuda.launches = 0
     t0 = time.perf_counter()
     r.step(params)
     r.block_until_ready()
+    warm_rounds = r.last_stats["iterations"]
     log(f"[main] warm-up step {1e3 * (time.perf_counter() - t0):.1f} ms, "
-        f"{r.last_stats['iterations']} iterations")
+        f"{warm_rounds} rounds")
     steps = []
     for _ in range(TIMED_STEPS):
         t0 = time.perf_counter()
@@ -197,13 +410,16 @@ def phase_main_path() -> dict:
         rays = int(st["n_traced"]) + int(st["n_shadow"])
         steps.append(dict(ms=1e3 * dt, path=int(st["n_traced"]),
                           shadow=int(st["n_shadow"]),
-                          iterations=st["iterations"],
+                          rounds=st["iterations"],
+                          rows_fetched=int(st["rows_fetched"]),
                           mrays_per_s=rays / dt / 1e6))
         log(f"[main] step {1e3 * dt:.1f} ms, path rays {steps[-1]['path']}, "
             f"shadow rays {steps[-1]['shadow']}, {st['iterations']} "
-            f"iterations, {steps[-1]['mrays_per_s']:.3f} Mrays/s")
+            f"rounds, {steps[-1]['rows_fetched']} rows fetched, "
+            f"{steps[-1]['mrays_per_s']:.3f} Mrays/s")
     img = r.image()
     launches = tm.tonemap_cuda.launches
+    walk_launches = walk.quad_walk_cuda.launches
     accum = r.state.accum
     peak = torch.cuda.max_memory_allocated()
     if not bool(torch.isfinite(accum).all()):
@@ -212,15 +428,26 @@ def phase_main_path() -> dict:
         raise AssertionError(f"image {img.shape} {img.dtype}")
     if launches < 1:
         raise AssertionError("the main path never launched the tonemap kernel")
+    if walk_launches < 1:
+        raise AssertionError("the main path never launched the walk kernel")
+    if walk_launches != warm_rounds + sum(s["rounds"] for s in steps):
+        raise AssertionError(f"{walk_launches} walk launches in "
+                             f"{warm_rounds} + {[s['rounds'] for s in steps]} "
+                             "rounds: a round is one launch")
     if not img.max() > 0:
         raise AssertionError("the image is all black")
     want = tm.tonemap_plain(accum.cpu(), r.spp()).numpy().reshape(img.shape)
     off = np.abs(img.astype(np.int32) - want.astype(np.int32))
     log(f"[main] image mean {float(img.mean())!r}, spp {r.spp()}, peak "
-        f"device memory {peak} B, tonemap launches {launches}, "
-        f"bytes off the CPU tonemap {int((off > 0).sum())} (max {int(off.max())})")
+        f"device memory {peak} B, tonemap launches {launches}, walk "
+        f"launches {walk_launches}, bytes off the CPU tonemap "
+        f"{int((off > 0).sum())} (max {int(off.max())})")
+    if float(img.mean()) != MAIN_IMAGE_MEAN:
+        raise AssertionError(f"image mean {float(img.mean())!r} is not "
+                             f"{MAIN_IMAGE_MEAN!r}: the render changed")
     ms = float(np.mean([s["ms"] for s in steps]))
-    return dict(steps=steps, launches=launches, ms_per_step=ms,
+    return dict(steps=steps, launches=launches, walk_launches=walk_launches,
+                ms_per_step=ms,
                 mrays_per_s=float(np.mean([s["mrays_per_s"] for s in steps])),
                 peak_bytes=peak, image_mean=float(img.mean()))
 
@@ -232,15 +459,36 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_environment()
     tone = phase_tonemap()
+    chain = phase_fetch(seed=0)
     phase_cuda_vs_cpu()
-    main_run = phase_main_path()
+    t0 = time.perf_counter()
+    arrays = main_path_arrays()
+    r = Renderer(arrays, cfg=RenderConfig(width=WIDTH, height=HEIGHT, spp=1))
+    params = CameraController().get_params(WIDTH, HEIGHT)
+    log(f"[main] {arrays.num_objects} triangles, leaf {r.scene.leaf_size}, "
+        f"quad rows {r.scene.quad_table.shape[0]}, unified table "
+        f"{tuple(r.inline.table.shape)}; setup {time.perf_counter() - t0:.2f} s")
+    walked = phase_walk(r, params)
+    main_run = phase_main_path(r, params)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
-    log(json.dumps({"kernels": [dict(
-        name="tonemap", route="cuda",
-        source="tryraytrace_tpu_torch/csrc/tonemap.cu",
-        replaces="tryraytrace_tpu/ops/pallas_tonemap.py:33",
-        launches=main_run["launches"], max_abs_err=tone["max_abs_err"],
-        ms=tone["ms"], plain_ms=tone["plain_ms"])]}))
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    log(json.dumps({"kernels": [
+        dict(name="tonemap", route="cuda",
+             source="tryraytrace_tpu_torch/csrc/tonemap.cu",
+             replaces="tryraytrace_tpu/ops/pallas_tonemap.py:33",
+             launches=main_run["launches"], **{k: tone[k] for k in keys}),
+        dict(name="fetch_chain", route="cuda",
+             source="tryraytrace_tpu_torch/csrc/fetch_chain.cu",
+             replaces="scripts/microbench_pallas_fetch.py:34",
+             launches=chain["launches"], **{k: chain[k] for k in keys},
+             variants=chain["variants"]),
+        dict(name="quad_walk", route="cuda",
+             source="tryraytrace_tpu_torch/csrc/quad_walk.cu",
+             replaces="tryraytrace_tpu/engine/persistent.py:948",
+             launches=main_run["walk_launches"],
+             **{k: walked[k] for k in keys},
+             rows_fetched=walked["rows_fetched"])]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

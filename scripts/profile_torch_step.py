@@ -1,14 +1,15 @@
 """Where a step of the PyTorch port's engine spends its time on a card.
 
     python3 scripts/profile_torch_step.py [--width 1200 --height 800]
-        [--window 40:50]
+        [--window 2:8]
 
 Renders chip_smoke.py's main-path scene (Cornell box + icosphere(5),
-20,487 triangles) once to warm up, then profiles loop iterations
-``window`` of the next step with torch.profiler: host wall time and
-device kernel time per iteration (their ratio is the device's busy
-share), kernel launches per iteration, and the kernels that take the
-most device time.  Needs a CUDA device.
+20,487 triangles) once to warm up, then profiles rounds ``window`` of
+the next step's round loop (one walk-kernel launch and one eager
+service pass per round) with torch.profiler: host wall time and device
+kernel time per round (their ratio is the device's busy share), kernel
+launches per round, the walk kernel's share of the device time, and the
+kernels that take the most device time.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--width", type=int, default=1200)
     ap.add_argument("--height", type=int, default=800)
-    ap.add_argument("--window", default="40:50")
+    ap.add_argument("--window", default="2:8")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
@@ -50,7 +51,7 @@ def main() -> int:
     r.step(params)
     r.block_until_ready()
 
-    step = persistent._step_quad
+    step = persistent._round_quad
     state = dict(i=0, prof=None, t0=0.0, wall=0.0)
 
     def traced_step(*a, **kw):
@@ -68,29 +69,41 @@ def main() -> int:
             state["prof"].__exit__(None, None, None)
         return out
 
-    persistent._step_quad = traced_step
+    persistent._round_quad = traced_step
     try:
         t0 = time.perf_counter()
         r.step(params)
         r.block_until_ready()
         step_s = time.perf_counter() - t0
     finally:
-        persistent._step_quad = step
+        persistent._round_quad = step
+    if state["prof"] is None:
+        print(f"[profile] the step had {state['i']} rounds, none in the "
+              f"window {lo}:{hi}", file=sys.stderr)
+        return 1
+    if state["i"] < hi:  # the step ended inside the window
+        state["wall"] = time.perf_counter() - state["t0"]
+        state["prof"].__exit__(None, None, None)
+        hi = state["i"]
     n_it = hi - lo
     ka = state["prof"].key_averages()
     kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
+    walk_us = sum(e.device_time_total for e in kernels
+                  if "quad_walk_kernel" in e.key)
     print(f"[profile] {torch.cuda.get_device_name(0)}; {w}x{h}; step "
-          f"{step_s * 1e3:.1f} ms, {r.last_stats['iterations']} iterations")
-    print(f"[profile] iterations {lo}..{hi - 1}: wall "
-          f"{state['wall'] / n_it * 1e3:.3f} ms/iteration, device kernels "
-          f"{dev_us / n_it / 1e3:.3f} ms/iteration, busy share "
+          f"{step_s * 1e3:.1f} ms under the profiler, "
+          f"{r.last_stats['iterations']} rounds")
+    print(f"[profile] rounds {lo}..{hi - 1}: wall "
+          f"{state['wall'] / n_it * 1e3:.3f} ms/round, device kernels "
+          f"{dev_us / n_it / 1e3:.3f} ms/round (walk kernel "
+          f"{walk_us / n_it / 1e3:.3f}), busy share "
           f"{dev_us / 1e6 / state['wall']:.3f}, kernel launches "
-          f"{launches / n_it:.0f}/iteration")
+          f"{launches / n_it:.0f}/round")
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:15]:
-        print(f"[profile]   {e.device_time_total / n_it:9.1f} us/it "
-              f"{e.count / n_it:6.1f}/it  {e.key[:90]}")
+        print(f"[profile]   {e.device_time_total / n_it:9.1f} us/round "
+              f"{e.count / n_it:6.1f}/round  {e.key[:90]}")
     return 0
 
 

@@ -144,7 +144,7 @@ def test_upload_and_inline_table_match_jax(kind):
     tcfg = tconfig.RenderConfig()
     tdev, ttex, tbvh = tupload(
         ta, leaf_size=tcfg.bvh_leaf_size, method=tcfg.bvh_method,
-        quad_collapse=tcfg.quad_collapse)
+        quad_collapse=tcfg.quad_collapse, device="cpu")
 
     # BVH arrays and the auto leaf size.
     for name in ("bounds", "leaf_prim", "leaf_count", "miss", "left",
@@ -265,6 +265,7 @@ def test_explicit_leaf_and_collapse_match(leaf_size):
     for crit in ("count", "sa"):
         jdev, _, _ = jupload(ja, leaf_size=leaf_size, leaf_fmt="bw",
                              quad_collapse=crit)
-        tdev, _, _ = tupload(ta, leaf_size=leaf_size, quad_collapse=crit)
+        tdev, _, _ = tupload(ta, leaf_size=leaf_size, quad_collapse=crit,
+                             device="cpu")
         np.testing.assert_array_equal(np.asarray(jdev.quad_table),
                                       tdev.quad_table.numpy())

@@ -29,7 +29,7 @@ def _mse(a, b):
 
 def _render_both(arrays, w, h, spp=1, aperture=0.0, frame=1):
     cfg = RenderConfig(width=w, height=h, spp=spp)
-    r = Renderer(arrays, cfg=cfg)
+    r = Renderer(arrays, cfg=cfg, device="cpu")
     cam = CameraController()
     cam.aperture = aperture
     params = cam.get_params(w, h)
@@ -123,7 +123,7 @@ def test_golden_scene_matches_oracle(name, build, w, h, spp, aperture,
 def test_progressive_three_frames_and_reset():
     arrays = _walls()
     cfg = RenderConfig(width=24, height=16, spp=1)
-    r = Renderer(arrays, cfg=cfg)
+    r = Renderer(arrays, cfg=cfg, device="cpu")
     params = CameraController().get_params(24, 16)
     for _ in range(3):
         r.step(params)
@@ -145,17 +145,27 @@ def test_compaction_and_check_cadence_are_exact(monkeypatch):
     params = CameraController().get_params(40, 30)
 
     def render():
-        r = Renderer(arrays, cfg=RenderConfig(width=40, height=30, spp=2))
+        r = Renderer(arrays, cfg=RenderConfig(width=40, height=30, spp=2),
+                     device="cpu")
         r.step(params)
         return r.accum_host(), r.last_stats
 
+    def render_interleaved():
+        r = Renderer(arrays, cfg=RenderConfig(width=40, height=30, spp=2),
+                     device="cpu")
+        acc, stats = persistent.render_frame_interleaved(
+            r.scene, r.inline, params, 1, 40, 30, r.cfg, 2)
+        return acc.numpy().reshape(30, 40, 3), stats
+
     ref, ref_stats = render()
+    plain, plain_stats = render_interleaved()
     monkeypatch.setattr(persistent, "MIN_COMPACT_WIDTH", 0)
     monkeypatch.setattr(persistent, "LIVE_CHECK_EVERY", 1)
-    got, stats = render()
-    np.testing.assert_array_equal(ref, got)
-    assert int(stats["n_traced"]) == int(ref_stats["n_traced"])
-    assert int(stats["n_shadow"]) == int(ref_stats["n_shadow"])
+    for got, stats in (render(), render_interleaved(),
+                       (plain, plain_stats)):
+        np.testing.assert_array_equal(ref, got)
+        assert int(stats["n_traced"]) == int(ref_stats["n_traced"])
+        assert int(stats["n_shadow"]) == int(ref_stats["n_shadow"])
 
 
 def test_more_than_sixteen_lights_raises():
@@ -168,7 +178,7 @@ def test_more_than_sixteen_lights_raises():
     arrays = flatten_scene(scene, textures=[checker_texture(8)])
     assert arrays.num_lights == 17
     with pytest.raises(ValueError):
-        Renderer(arrays, cfg=RenderConfig(width=8, height=8))
+        Renderer(arrays, cfg=RenderConfig(width=8, height=8), device="cpu")
 
 
 def test_matches_jax_renderer_and_ray_counts():
@@ -205,7 +215,8 @@ def test_matches_jax_renderer_and_ray_counts():
         jr.scene, jr.textures, jparams, jnp.uint32(1), width=40,
         height=30, cfg=jr.cfg, spp=2)
 
-    r = Renderer(_mesh_scene(), cfg=RenderConfig(width=40, height=30, spp=2))
+    r = Renderer(_mesh_scene(), cfg=RenderConfig(width=40, height=30, spp=2),
+                 device="cpu")
     r.step(CameraController().get_params(40, 30), spp=2)
     got = r.accum_host()
     assert _mse(got / 2, want / 2) < MSE_EXPECT
@@ -213,3 +224,31 @@ def test_matches_jax_renderer_and_ray_counts():
     assert int(r.last_stats["n_traced"]) == int(tr)
     assert int(r.last_stats["n_shadow"]) == int(sh)
     assert int(tr) > 40 * 30 * 2 and int(sh) > 0
+    # The step above ran the round loop (walks to their end, then a
+    # service pass), the loop a card runs; its plain version, one row
+    # per lane per step, is held to the same image and counts.
+    plain, stats = persistent.render_frame_interleaved(
+        r.scene, r.inline, CameraController().get_params(40, 30), 1, 40, 30,
+        r.cfg, 2)
+    assert r.last_stats["iterations"] * 3 < stats["iterations"]
+    assert _mse(plain.numpy().reshape(want.shape) / 2, want / 2) < MSE_EXPECT
+    assert int(stats["n_traced"]) == int(tr)
+    assert int(stats["n_shadow"]) == int(sh)
+
+
+def test_default_device_is_the_card_and_raises_without_one():
+    """The entry points run on the card unless asked for the CPU, and
+    nothing moves to the CPU on its own."""
+    from tryraytrace_tpu_torch.engine.device_scene import upload_scene
+    from tryraytrace_tpu_torch.engine.state import RenderState
+
+    if torch.cuda.is_available():
+        assert RenderState.zeros(4).accum.device.type == "cuda"
+        return
+    arrays = _walls()
+    for call in (lambda: Renderer(arrays, cfg=RenderConfig(width=8, height=8)),
+                 lambda: upload_scene(arrays),
+                 lambda: RenderState.zeros(4)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    assert RenderState.zeros(4, device="cpu").accum.device.type == "cpu"

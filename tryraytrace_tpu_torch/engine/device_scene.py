@@ -22,6 +22,7 @@ from tryraytrace_tpu_torch.accel.bvh import (LinearBVH, build_bvh,
                                              pack_trimat_table,
                                              quad_row_width)
 from tryraytrace_tpu_torch.config import INLINE_MAX_LIGHTS
+from tryraytrace_tpu_torch.engine.state import resolve_device
 from tryraytrace_tpu_torch.scene.model import SceneArrays
 
 
@@ -86,14 +87,16 @@ def _build_auto_leaf(arrays: SceneArrays, method: str, quad_collapse: str):
 
 def upload_scene(arrays: SceneArrays, leaf_size: int = 0,
                  method: str = "sah", quad_collapse: str = "dp",
-                 device="cpu") -> tuple[DeviceScene, tuple, LinearBVH]:
+                 device="cuda") -> tuple[DeviceScene, tuple, LinearBVH]:
     """Build the BVH (``leaf_size`` 0 = auto; reordering primitives,
     main.cpp:82-86 contract), pack the quad table with "bw" leaf rows in
-    the "mux" layout and the trimat rows, and move them to ``device``.
+    the "mux" layout and the trimat rows, and move them to ``device``
+    (the card by default; raises without one unless ``device="cpu"``).
 
     Returns (device_scene, textures, bvh); ``textures`` is the tuple of
     [H, W, 3] float32 NumPy textures (the engine tiles them into its
     unified table, engine/persistent.build_inline_table)."""
+    device = resolve_device(device)
     if leaf_size <= 0:
         bvh = _build_auto_leaf(arrays, method, quad_collapse)
     else:

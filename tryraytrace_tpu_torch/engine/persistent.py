@@ -16,18 +16,32 @@ and every step fetches ONE row per lane from the unified table
 a walking lane, its hit's material row for a SHADEG lane, its texture
 tile row for a TEXG lane.
 
-The loop is a Python ``while`` over eager tensor steps; every step
-also runs the shade/refill service block, which the JAX engine runs
-once per unrolled body.  A lane's draws are addressed by (sample
-seed, pixel, depth, slot), so when a lane is serviced cannot change
-what it draws, and the per-pixel sums equal the JAX engine's.  Two
-further liberties are exact too: the loop checks for a live lane every
-``LIVE_CHECK_EVERY`` steps (a DONE lane's step changes nothing), and
-once at most half the lanes are live it keeps only the live ones (a
-lane permutation, the eager counterpart of the JAX spill ladder).
+``render_frame_persistent`` runs it in rounds, on every device: one call
+of ``quad_walk`` (ops/walk.py) runs every TRAVERSE and SHADOW lane's
+walk to its end (the hand-written CUDA kernel for CUDA tensors, its
+plain version for CPU tensors), then one service pass (a row fetch for
+the SHADEG and TEXG lanes, shade, texture, refill) in eager PyTorch;
+rounds repeat until every lane is DONE.
 
-This loop is the plain version that the hand-written path-tracing
-kernel of a later change replaces; its ray counters are int64.
+``render_frame_interleaved`` is the plain version of the whole: a Python
+``while`` over eager tensor steps, each of which advances every walking
+lane by one row (ops/walk.py ``walk_step``) and runs the service block
+on the same row fetch, as the JAX engine does once per unrolled body.
+Nothing but the tests and the smoke run calls it.  It gives every lane
+the same state as the round loop, so the same per-pixel sums, ray
+counts and row counts: a lane's draws are addressed by (sample seed,
+pixel, depth, slot) and a walk draws nothing, so when a lane is
+serviced cannot change what it draws.
+
+Two further liberties are exact too: the interleaved loop checks for a
+live lane every ``LIVE_CHECK_EVERY`` steps (a DONE lane's step changes
+nothing), and once at most half the lanes are live both loops keep only
+the live ones (a lane permutation, the eager counterpart of the JAX
+spill ladder).
+
+The interleaved loop is also the plain version of the
+hand-written state-machine kernel that takes the service block in as
+well in a later change.  The ray counters are int64.
 """
 
 from __future__ import annotations
@@ -47,21 +61,13 @@ from tryraytrace_tpu_torch.ops.texture import (TEX_ROW, TEX_TILE,
                                                build_texture_tiles,
                                                planar_uv, tile_bilinear,
                                                tile_coords)
-from tryraytrace_tpu_torch.ops.traverse import (MISS_T, _fat_leaf_intersect,
-                                                _quad_decode, _regfile_apply,
-                                                ray_octant)
+from tryraytrace_tpu_torch.ops.traverse import MISS_T
+from tryraytrace_tpu_torch.ops.walk import (DONE, REFILL, SHADEG, SHADOW,
+                                            TEXG, TRAVERSE, quad_walk,
+                                            walk_index, walk_step)
 
 # 1/pi as the JAX engine evaluates it: a float32 division.
 INV_PI = float(np.float32(1.0) / np.float32(np.pi))
-
-# Lane modes, numbered as in the JAX engine (its tick-path mode READY,
-# 2, does not occur on the inline path).
-TRAVERSE = 0
-SHADOW = 1
-REFILL = 3
-DONE = 4
-SHADEG = 5
-TEXG = 6
 
 # Steps between checks for a live lane (each check waits for the
 # device); DONE lanes are no-ops, so overshooting is exact.
@@ -172,13 +178,36 @@ def render_frame_persistent(scene, inline: InlineTable, cam, frame_seed: int,
                             width: int, height: int, cfg: RenderConfig,
                             spp: int):
     """All ``spp`` samples of one frame in one regenerating wave on the
-    scene's device, one lane per pixel.  ``inline`` is the scene's
-    ``build_inline_table``; ``cam`` a CameraParams (NumPy or tensors).
+    scene's device, one lane per pixel, in rounds: every walk run to its
+    end (the CUDA walk kernel on a CUDA device), then one service pass.
+    ``inline`` is the scene's ``build_inline_table``; ``cam`` a
+    CameraParams (NumPy or tensors).
 
     Returns (radiance sum [width*height, 3], stats) with stats
     ``n_traced`` and ``n_shadow`` (int64 tensors: path rays started,
-    camera rays included, and NEE shadow rays fired) and
-    ``iterations`` (loop iterations run)."""
+    camera rays included, and NEE shadow rays fired), ``iterations``
+    (rounds) and ``rows_fetched`` (int64 tensor: quad rows the walks
+    fetched)."""
+    return _render_frame(scene, inline, cam, frame_seed, width, height, cfg,
+                         spp, _round_quad, 1)
+
+
+def render_frame_interleaved(scene, inline: InlineTable, cam, frame_seed: int,
+                             width: int, height: int, cfg: RenderConfig,
+                             spp: int):
+    """The plain version of ``render_frame_persistent``: one row per
+    walking lane per step, the service block in every step.  Same
+    arguments, same result; ``iterations`` counts steps."""
+    return _render_frame(scene, inline, cam, frame_seed, width, height, cfg,
+                         spp, _step_quad, LIVE_CHECK_EVERY)
+
+
+def _render_frame(scene, inline: InlineTable, cam, frame_seed: int,
+                  width: int, height: int, cfg: RenderConfig, spp: int,
+                  advance, check_every: int):
+    """The wave loop around ``advance`` (``_round_quad`` or
+    ``_step_quad``), which looks for a live lane every ``check_every``
+    calls."""
     check_supported(cfg)
     if scene.num_lights > INLINE_MAX_LIGHTS:
         raise ValueError(f"{scene.num_lights} lights: the port covers at "
@@ -192,21 +221,23 @@ def render_frame_persistent(scene, inline: InlineTable, cam, frame_seed: int,
     if scene.quad_table.shape[0] == 0:
         # Empty scene: every ray misses, all samples contribute 0.
         return out, dict(n_traced=zero + n * spp, n_shadow=zero,
-                         iterations=0)
+                         iterations=0, rows_fetched=zero)
     fr = _Frame(scene, inline, cfg, cam, frame_seed, width, height, spp)
     pos = torch.arange(n, device=dev)  # lane -> pixel
     s = init_lane_ctx(frame_seed, spp, pos, cam, width, height, cfg,
                       with_tstash=inline.tex0 is not None)
     n_traced = zero + n  # camera rays
     n_shadow = zero
+    rows_fetched = zero
     passes = max(1, cfg.quad_redirect_passes)
     iterations = 0
     while True:
-        s, tr, sh = _step_quad(s, inline, scene.leaf_size, fr, passes)
+        s, tr, sh, rows = advance(s, inline, scene.leaf_size, fr, passes)
         n_traced = n_traced + tr
         n_shadow = n_shadow + sh
+        rows_fetched = rows_fetched + rows
         iterations += 1
-        if iterations % LIVE_CHECK_EVERY:
+        if iterations % check_every:
             continue
         live = s["mode"] != DONE
         n_live = int(live.sum())
@@ -222,87 +253,36 @@ def render_frame_persistent(scene, inline: InlineTable, cam, frame_seed: int,
             pos = pos[keep]
     out[pos] = s["out"]
     return out, dict(n_traced=n_traced, n_shadow=n_shadow,
-                     iterations=iterations)
-
-
-def _walk_inv(ls3, rd):
-    """Per-lane inverse direction: the closest-hit walk's sign-preserving
-    safe inverse, the shadow walk's plain reciprocal (one division)."""
-    tiny = (torch.abs(rd) < 1e-8) & ~ls3
-    q = 1.0 / torch.where(tiny, 1.0, rd)
-    big = torch.where(rd >= 0, 1e20, -1e20)
-    return torch.where(tiny, big, q)
+                     iterations=iterations, rows_fetched=rows_fetched)
 
 
 def _step_quad(s, inline: InlineTable, k: int, fr: _Frame,
                redirect_passes: int = 1):
-    """One quad-row step for TRAVERSE and SHADOW lanes plus the service
-    block for SHADEG, TEXG and REFILL lanes, sharing one row fetch.
-    Returns (state', path rays started, shadow rays started)."""
-    table, sentinel = inline.table, inline.sentinel
-    mode = s["mode"]
-    live_t = mode == TRAVERSE
-    live_s = mode == SHADOW
-    stepping = live_t | live_s
-
-    use_regs = "reg_e" in s
-    if use_regs:
-        fresh = ((s["cur"] == 0) & stepping)[:, None]
-        reg_e = torch.where(fresh, -1, s["reg_e"])
-        reg_s = torch.where(fresh, -1, s["reg_s"])
-
-    ls3 = live_s[:, None]
-    ro = torch.where(ls3, s["so"], s["o"])
-    rd = torch.where(ls3, s["sd"], s["d"])
-    inv = _walk_inv(ls3, rd)
-    t_min = torch.where(live_s, 1e-3, 0.0)
-    octant = ray_octant(rd)
-
-    idx = torch.where(stepping, torch.clamp(s["cur"], max=sentinel - 1), 0)
+    """One step of the interleaved loop: one quad-row step for TRAVERSE
+    and SHADOW lanes plus the service block for SHADEG, TEXG and REFILL
+    lanes, sharing one row fetch.  Returns (state', path rays started,
+    shadow rays started, quad rows fetched)."""
+    idx, stepping = walk_index(s, inline.sentinel)
     idx, live_g, live_x = _service_select(s, idx, inline)
-    row = table[idx]
+    row = inline.table[idx]
+    out = walk_step(s, row, inline.sentinel, k, redirect_passes)
+    out, tr, sh = _service_shade(out, s, row, live_g, live_x, fr)
+    return out, tr, sh, stepping.sum()
 
-    prim_start = row[:, 0].to(torch.int64)
-    is_leaf = prim_start >= 0
 
-    thi = torch.where(live_s, s["smax"] - 1e-3, s["d_min"])
-    best_t, best_id = _fat_leaf_intersect(row, k, ro, rd, prim_start,
-                                          t_min, thi)
-    found = stepping & is_leaf & (best_id >= 0)
-    d_min = torch.where(found & live_t, best_t, s["d_min"])
-    hit_id = torch.where(found & live_t, best_id, s["hit_id"])
-    occluded = found & live_s
-
-    t_max = torch.where(live_s, s["smax"], d_min)
-    cont, nxt_int, pushes = _quad_decode(row, octant, ro, inv, t_min, t_max)
-    nxt = torch.where(is_leaf, cont, nxt_int)
-    if use_regs:
-        reg_e, reg_s, nxt = _regfile_apply(reg_e, reg_s, pushes, nxt,
-                                           stepping, ~is_leaf & stepping,
-                                           passes=redirect_passes)
-    cur = torch.where(stepping, nxt, s["cur"])
-
-    t_done = live_t & (cur >= sentinel)
-    s_done = live_s & (occluded | (cur >= sentinel))
-    lit = s_done & ~occluded
-    rad = s["rad"] + torch.where(lit[:, None], s["pend"], 0.0)
-
-    # A finished walk shades on the next step (its material row rides
-    # the row fetch); a miss ends the path (renderer.cu:427).  A
-    # finished shadow ray resumes the already-chosen next bounce unless
-    # the path ended at this bounce.
-    mode = torch.where(t_done, torch.where(hit_id >= 0, SHADEG, REFILL), mode)
-    mode = torch.where(s_done, torch.where(s["cont_after_shadow"], TRAVERSE,
-                                           REFILL), mode)
-    cur = torch.where(s_done, 0, cur)
-    d_min = torch.where(s_done, MISS_T, d_min)
-    hit_id = torch.where(s_done, -1, hit_id)
-
-    out = dict(s)
-    out.update(mode=mode, cur=cur, d_min=d_min, hit_id=hit_id, rad=rad)
-    if use_regs:
-        out.update(reg_e=reg_e, reg_s=reg_s)
-    return _service_shade(out, s, row, live_g, live_x, fr)
+def _round_quad(s, inline: InlineTable, k: int, fr: _Frame,
+                redirect_passes: int = 1):
+    """One round of the round loop: every TRAVERSE and SHADOW lane's walk
+    run to its end (the CUDA kernel on a card), then one service pass.
+    A lane the pass sends to TEXG is shaded by the next round's pass.
+    Returns (state', path rays started, shadow rays started, quad rows
+    fetched)."""
+    s, rows = quad_walk(s, inline.table, inline.sentinel, k, redirect_passes)
+    idx, live_g, live_x = _service_select(s, torch.zeros_like(s["cur"]),
+                                          inline)
+    row = inline.table[idx]
+    out, tr, sh = _service_shade(s, s, row, live_g, live_x, fr)
+    return out, tr, sh, rows
 
 
 def _service_select(s, idx, inline: InlineTable):

@@ -3,8 +3,10 @@ tryraytrace_tpu/engine/renderer.py).
 
   - construction = scene upload (BVH build, table packing, upload to
     ``device``) and the unified inline table;
-  - ``step(cam)`` = one progressive pass: render a frame's samples and
-    add them to the accumulator, which stays on the device;
+  - ``step(cam)`` = one progressive pass: render a frame's samples (the
+    round loop; its walks run in the CUDA walk kernel on a card, in the
+    kernel's plain version on the CPU) and add them to the accumulator,
+    which stays on the device;
   - ``reset()`` on camera move;
   - ``image()`` tonemaps on the device (the CUDA kernel on a card, its
     plain version on the CPU) and copies only the uint8 pixels out.
@@ -20,18 +22,20 @@ from tryraytrace_tpu_torch.config import (DEFAULT_CONFIG, RenderConfig,
 from tryraytrace_tpu_torch.engine.device_scene import upload_scene
 from tryraytrace_tpu_torch.engine.persistent import (build_inline_table,
                                                      render_frame_persistent)
-from tryraytrace_tpu_torch.engine.state import RenderState
+from tryraytrace_tpu_torch.engine.state import RenderState, resolve_device
 from tryraytrace_tpu_torch.ops.tonemap import tonemap
 from tryraytrace_tpu_torch.scene.model import Scene, SceneArrays, flatten_scene
 
 
 class Renderer:
-    """Progressive path tracer bound to one scene, resolution and device."""
+    """Progressive path tracer bound to one scene, resolution and device
+    (the card by default; without one the constructor raises unless
+    ``device="cpu"``)."""
 
     def __init__(self, scene, width: int | None = None,
                  height: int | None = None,
                  cfg: RenderConfig = DEFAULT_CONFIG,
-                 textures=None, device="cpu"):
+                 textures=None, device="cuda"):
         check_supported(cfg)
         if isinstance(scene, Scene):
             arrays = flatten_scene(scene, textures=textures,
@@ -45,7 +49,7 @@ class Renderer:
         self.cfg = cfg if width is None else cfg.with_size(width, height)
         self.width = self.cfg.width
         self.height = self.cfg.height
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.scene, self.textures, self.bvh = upload_scene(
             arrays, leaf_size=self.cfg.bvh_leaf_size,
             method=self.cfg.bvh_method,
@@ -54,7 +58,7 @@ class Renderer:
         self.state = RenderState.zeros(self.width * self.height, self.device)
         self.frame = 1  # gpu_frame counter parity (main.cpp:149)
         self._step_spp = None
-        # The last step's ray counts and loop iterations
+        # The last step's ray counts, rounds and rows fetched
         # (render_frame_persistent's stats).
         self.last_stats = None
 

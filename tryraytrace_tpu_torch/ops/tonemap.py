@@ -11,8 +11,7 @@ elementwise pass (csrc/tonemap.cu).
 
 ``tonemap`` runs the plain version for a CPU tensor and the kernel for
 a CUDA tensor; there is no fallback between the two.  The kernel is
-compiled with nvcc at first use into ``build/kernels/`` (listed in
-.gitignore) and bound with ctypes.
+compiled with nvcc at first use and bound with ctypes (ops/_build.py).
 
 The sample-count reciprocal is one float32 division on the host,
 ``float32(1) / float32(max(spp, 1))``, as the JAX device path divides;
@@ -23,20 +22,11 @@ to float32 (tests/test_torch_tonemap.py checks both).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 
 import numpy as np
 import torch
 
-_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_ROOT, "csrc", "tonemap.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_ROOT), "build", "kernels")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+from tryraytrace_tpu_torch.ops._build import KernelLibrary
 
 GAMMA_EXP = float(np.float32(1.0 / 2.2))
 
@@ -54,56 +44,10 @@ def tonemap_plain(accum: torch.Tensor, spp: int) -> torch.Tensor:
         torch.uint8)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    return os.path.join(home, "bin", "nvcc")
-
-
-class _Library:
-    """The compiled kernel library, built once per process."""
-
-    handle = None
-    path = None
-    build_seconds = None
-
-    @classmethod
-    def load(cls):
-        if cls.handle is not None:
-            return cls.handle
-        with open(SOURCE, "rb") as f:
-            tag = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()
-                               ).hexdigest()[:12]
-        path = os.path.join(BUILD_DIR, f"libtrt_tonemap_{tag}.so")
-        t0 = time.perf_counter()
-        if not os.path.exists(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                capture_output=True, text=True, timeout=600)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
-                    f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(path)
-        fn = lib.trt_tonemap_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-        cls.handle, cls.path = lib, path
-        cls.build_seconds = time.perf_counter() - t0
-        return lib
-
-
-def build_library() -> str:
-    """Compile (if needed) and load the kernel library; returns its
-    path.  ``_Library.build_seconds`` holds the time it took."""
-    _Library.load()
-    return _Library.path
+LIBRARY = KernelLibrary("tonemap", {
+    "trt_tonemap_launch": (ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_longlong, ctypes.c_float,
+                           ctypes.c_float, ctypes.c_void_p)})
 
 
 def tonemap_cuda(accum: torch.Tensor, spp: int) -> torch.Tensor:
@@ -118,7 +62,7 @@ def tonemap_cuda(accum: torch.Tensor, spp: int) -> torch.Tensor:
         raise ValueError(f"accum must be [N, 3], got {tuple(accum.shape)}")
     if not accum.is_contiguous():
         raise ValueError("accum must be contiguous")
-    lib = _Library.load()
+    lib = LIBRARY.load()
     out = torch.empty(accum.shape, dtype=torch.uint8, device=accum.device)
     with torch.cuda.device(accum.device):
         stream = torch.cuda.current_stream().cuda_stream
