@@ -5,32 +5,37 @@
 Builds the port's hand-written CUDA kernels (tonemap, fetch_chain,
 quad_walk; one nvcc each, side by side) from the sources in this
 checkout and holds each against its plain PyTorch version on the card
-at the shapes its path gives it.  Then it drives the port's two paths,
-each with the kernels' launch counts set to 0 just before and read just
+at the shapes its path gives it.  It drives the port's two paths, each
+with the kernels' launch counts set to 0 just before and read just
 after:
 
-  - the row-fetch microbenchmark (scripts/microbench_torch_fetch.py):
-    65,536 lanes, 64 steps, six table variants, both placements;
   - the main path (Renderer -> render_frame_persistent -> Renderer.image)
     at the reference's interactive operating point, 1200x800 at 1 spp
     per step, on a 20,487-triangle Cornell box built in the repo: the
     round loop, one walk-kernel launch and one eager service pass per
-    round.
+    round.  It runs first, before any kernel is timed under
+    torch.profiler;
+  - the row-fetch microbenchmark (scripts/microbench_torch_fetch.py):
+    65,536 lanes, 64 steps, six table variants, both placements.
 
-It also checks the port's render on the card (round loop, kernel)
-against the plain version of the whole on the CPU (the interleaved
-eager loop, one row per lane per step).  Every
-phase prints its own lines; any failure raises and the script exits
-non-zero.  The last line is a JSON object {"ok": true, "device": {...}},
-the line before it the card's name and power limit, and the line before
-that the kernel table.  Without a CUDA device it exits non-zero and
-prints no result.
+The walk kernel is held to its plain version on three states of the
+main path's rounds (fresh, many shadow walks, mostly done).  It also
+checks the port's render on the card (round loop, kernel) against the
+plain version of the whole on the CPU (the interleaved eager loop, one
+row per lane per step).  Every phase prints its own lines; any failure
+raises and the script exits non-zero.  The last line is a JSON object
+{"ok": true, "device": {...}}, the line before it the card's name and
+power limit, and the line before that the kernel table.  Without a
+CUDA device it exits non-zero and prints no result.
 
-A kernel's ``bound_ms`` is the least time the card could take: the
-larger of the bytes its outputs depend on plus the bytes it writes
-(each counted once) over the device-memory rate and the float32
-operations those outputs need over the float32 rate, both NVIDIA's
-published figures for the H100 SXM.
+A kernel's ``ms`` is its own device time per launch (torch.profiler's
+durations of the kernel itself), ``wrapper_ms`` the time per call of
+its Python wrapper with everything the wrapper does around the launch
+(CUDA events around a run of calls).  ``bound_ms`` is the least time
+the card could take: the larger of the bytes its outputs depend on
+plus the bytes it writes (each counted once) over the device-memory
+rate and the float32 operations those outputs need over the float32
+rate, both NVIDIA's published figures for the H100 SXM.
 """
 
 from __future__ import annotations
@@ -38,12 +43,15 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from tryraytrace_tpu_torch.camera.controller import CameraController
 from tryraytrace_tpu_torch.config import RenderConfig
@@ -68,7 +76,15 @@ RENDER_MSE = 1e-9              # port on the card vs port on the CPU
 # The main path is deterministic: warm-up + TIMED_STEPS steps of this
 # scene at this raster tonemap to this mean on every run.
 MAIN_IMAGE_MEAN = 79.99850451388889
+# ... and each timed step traces these (path rays, shadow rays, rows
+# fetched, rounds): the walk's table layout, launch shape and lane order
+# may change, the rows a step reads may not.
+MAIN_STEP_COUNTS = ((6993829, 4624618, 41696132, 39),
+                    (6990291, 4622330, 41665341, 40),
+                    (6987560, 4620233, 41678448, 40),
+                    (6996624, 4627199, 41692854, 39))
 SHADOW_LANES_MIN = 10000       # [walk]'s second state: this many in SHADOW
+LATE_DONE_SHARE = 0.9          # [walk]'s third state: this share DONE
 
 # NVIDIA's published H100 SXM figures: device-memory rate and float32
 # rate outside the tensor cores.
@@ -116,6 +132,25 @@ def bound(n_bytes: float, n_flops: float) -> dict:
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
+def _sass_sizes(path: str) -> dict:
+    """Instructions of each kernel in a built library's machine code
+    (cuobjdump -sass); empty where the toolkit has no cuobjdump."""
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    sizes, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            sizes[name] = 0
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
+            sizes[name] += 1
+    return sizes
+
+
 def phase_environment() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -134,6 +169,8 @@ def phase_environment() -> str:
         for line in lib.compiler_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
+        for name, n in _sass_sizes(lib.path).items():
+            log(f"[build]   {name}: {n} SASS instructions")
     log(f"[build] all kernels in {time.perf_counter() - t0:.3f} s")
     return smi
 
@@ -149,6 +186,31 @@ def _time_ms(fn, reps: int = 50) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _kernel_ms(fn, kernel: str, reps: int = 20) -> float:
+    """The kernel's own device time per launch: ``fn`` (a wrapper call
+    that launches it once) ``reps`` times under torch.profiler, and the
+    durations of the CUDA kernels whose name holds ``kernel`` summed
+    over their count.  The wrapper's other work (allocations, copies,
+    checks, host time between launches) is left out.  The profiler may
+    miss a launch's record (it did on an H100, 6 of 10 kept once), so
+    the mean is over the records it kept; more records than launches
+    means the name matched another kernel."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    found = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and kernel in e.key]
+    count = sum(e.count for e in found)
+    if not 0 < count <= reps:
+        raise AssertionError(f"the profiler saw {count} launches of "
+                             f"{kernel!r} in {reps} calls")
+    return sum(e.device_time_total for e in found) / count / 1e3
 
 
 def phase_tonemap() -> dict:
@@ -183,21 +245,28 @@ def phase_tonemap() -> dict:
                              f"bytes, max diff {worst}")
     acc = torch.from_numpy((r.normal(0.5, 0.6, size=TONEMAP_SHAPE)
                             * 3).astype(np.float32)).cuda()
-    runs = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        fn = (lambda: tm.tonemap_plain(acc, 3)) if name == "plain" else (
-            lambda: tm.tonemap_cuda(acc, 3))
-        runs[name].append(_time_ms(fn))
-    ms, plain_ms = float(np.mean(runs["kernel"])), float(
-        np.mean(runs["plain"]))
-    log(f"[tonemap] {list(TONEMAP_SHAPE)} f32: kernel {ms:.4f} ms "
-        f"(runs {runs['kernel']}), plain {plain_ms:.4f} ms "
-        f"(runs {runs['plain']}); {mismatches} differing bytes of {total}")
+    runs = {"plain": [], "wrapper": [], "kernel": []}
+    for name in ("plain", "wrapper", "kernel", "kernel", "wrapper", "plain"):
+        if name == "plain":
+            runs[name].append(_time_ms(lambda: tm.tonemap_plain(acc, 3)))
+        elif name == "wrapper":
+            runs[name].append(_time_ms(lambda: tm.tonemap_cuda(acc, 3)))
+        else:
+            runs[name].append(_kernel_ms(lambda: tm.tonemap_cuda(acc, 3),
+                                         "tonemap_kernel", reps=50))
+    ms, wrapper_ms, plain_ms = (float(np.mean(runs[k])) for k in
+                                ("kernel", "wrapper", "plain"))
     # 4 B read and 1 B written per float; scale, two clamps, powf (counted
     # as 20), scale, offset, truncation.
     n = acc.numel()
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=None,
-                **bound(5 * n, 26 * n))
+    out = dict(max_abs_err=worst, ms=ms, wrapper_ms=wrapper_ms,
+               plain_ms=plain_ms, library_ms=None, **bound(5 * n, 26 * n))
+    log(f"[tonemap] {list(TONEMAP_SHAPE)} f32: kernel's own time {ms:.4f} "
+        f"ms (runs {runs['kernel']}), wrapper {wrapper_ms:.4f} ms (runs "
+        f"{runs['wrapper']}), plain {plain_ms:.4f} ms (runs "
+        f"{runs['plain']}); bound {out['bound_ms']:.4f} ms by "
+        f"{out['bound_by']}; {mismatches} differing bytes of {total}")
+    return out
 
 
 def _load_fetch_script():
@@ -216,10 +285,12 @@ def phase_fetch(seed: int) -> dict:
     script = _load_fetch_script()
     rs = np.random.RandomState(seed + 1)
     worst = 0.0
+    first_inputs = None
     for m, w, dtype, dependent in fetch.VARIANTS:
         table, idx = fetch.make_inputs(rs, m, w, dtype, dependent,
                                        fetch.LANES)
         table, idx = table.cuda(), idx.cuda()
+        first_inputs = first_inputs or (table, idx)
         want = fetch.fetch_chain_plain(table, idx, fetch.STEPS)
         for placement in fetch.PLACEMENTS:
             name = f"{script.variant_name(m, w, dtype, dependent)} {placement}"
@@ -261,7 +332,13 @@ def phase_fetch(seed: int) -> dict:
     # index advance per step and one W-column sum, of the last row only.
     first = results[0]
     lanes, steps = first["lanes"], first["steps"]
-    return dict(max_abs_err=worst, ms=first["ms"]["global"],
+    table, idx = first_inputs
+    ms = _kernel_ms(lambda: fetch.fetch_chain_cuda(table, idx, fetch.STEPS,
+                                                   "global"),
+                    "fetch_chain_kernel")
+    log(f"[fetch] {first['name']}, device memory: kernel's own time "
+        f"{ms:.4f} ms, wrapper {first['ms']['global']:.4f} ms")
+    return dict(max_abs_err=worst, ms=ms, wrapper_ms=first["ms"]["global"],
                 plain_ms=first["plain_ms"], library_ms=None,
                 launches=launches, variants=results,
                 **bound(first["table_bytes"] + 12 * lanes,
@@ -323,71 +400,96 @@ def walk_state_bytes(n_traverse: int, n_shadow: int, n_other: int) -> int:
             + (8 + 44 + 53 + 28 + 12) * n_shadow)
 
 
+def _check_walk(label: str, rnd: int, s, inline, k: int, passes: int
+                ) -> dict:
+    """One state through the kernel and through walk_plain over the
+    walk-order rows: every written field and the row count must be
+    equal.  Then the kernel's own time and the wrapper's."""
+    table, levels, sentinel = inline.walk, inline.walk_levels, inline.sentinel
+    modes = torch.bincount(s["mode"], minlength=walk.TEXG + 1).tolist()
+    n_lanes = s["mode"].shape[0]
+    n_traverse, n_shadow = modes[walk.TRAVERSE], modes[walk.SHADOW]
+    torch.cuda.synchronize()
+    got, rows = walk.quad_walk_cuda(s, table, sentinel, k, passes, levels)
+    torch.cuda.synchronize()
+    plan = walk.quad_walk_cuda.plan
+    t1 = time.perf_counter()
+    want, want_rows = walk.walk_plain(s, table, sentinel, k, passes)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t1)
+    bad = [f for f in walk.WRITES if not _same(got[f], want[f])]
+    err = max(float((got[f].double() - want[f].double()).abs()
+                    .nan_to_num(0.0).max()) for f in walk.WRITES)
+    log(f"[walk] {label} state (round {rnd}): {n_traverse} TRAVERSE, "
+        f"{n_shadow} SHADOW, {modes[walk.DONE]} DONE of {n_lanes} lanes; "
+        f"rows fetched kernel {int(rows)} plain {int(want_rows)}; fields "
+        f"differing {bad} (-0.0 == 0.0, NaN == NaN), max abs err {err!r}")
+    if bad or int(rows) != int(want_rows):
+        raise AssertionError(f"quad_walk kernel disagrees with walk_plain "
+                             f"on the {label} state: {bad}")
+    launch = lambda: walk.quad_walk_cuda(s, table, sentinel, k, passes,
+                                         levels)
+    wrapper_ms = _time_ms(launch, reps=5)
+    ms = _kernel_ms(launch, "quad_walk_kernel", reps=10)
+    n_rows = int(rows)
+    # The walk-order rows once at their padded width (at most: a walk
+    # may leave some unvisited) and the lane state by mode.  Operations:
+    # the cheaper row kind, an internal row's four slab tests at 30 each.
+    out = dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
+               plain_ms=plain_ms, library_ms=None, rows_fetched=n_rows,
+               plan=plan,
+               **bound(sentinel * table.shape[1] * 4
+                       + walk_state_bytes(n_traverse, n_shadow,
+                                          n_lanes - n_traverse - n_shadow),
+                       120 * n_rows))
+    log(f"[walk] {label} state: kernel's own time {ms:.4f} ms, wrapper "
+        f"{wrapper_ms:.4f} ms, plain {plain_ms:.1f} ms; "
+        f"{n_rows / ms / 1e6:.3f} G rows/s; bound {out['bound_ms']:.5f} ms "
+        f"by {out['bound_by']}; staged {plan['staged_rows']} rows "
+        f"({plan['shared_bytes']} B of shared memory a block), grid "
+        f"{plan['grid']} blocks of {plan['threads']} ({plan['blocks_per_sm']}"
+        f" per SM)")
+    return out
+
+
 def phase_walk(r: Renderer, params) -> dict:
-    """quad_walk_cuda against walk_plain on the main-path scene: the
-    fresh 960,000-lane state (a closest-hit round), and the first round's
-    state with at least SHADOW_LANES_MIN lanes in SHADOW."""
+    """quad_walk_cuda against walk_plain over the walk-order rows on the
+    main-path scene in three states of one frame's rounds: the fresh
+    960,000-lane state (a closest-hit round), the first round with at
+    least SHADOW_LANES_MIN lanes in SHADOW, and the first round with at
+    least LATE_DONE_SHARE of its lanes DONE (threads skip most lanes
+    and refill often).  Returns the fresh state's numbers."""
     inline, k, cfg = r.inline, r.scene.leaf_size, r.cfg
-    table, sentinel = inline.table, inline.sentinel
     passes = max(1, cfg.quad_redirect_passes)
+    log(f"[walk] walk-order rows {tuple(inline.walk.shape)}, rows per level "
+        f"{list(inline.walk_levels)}")
     cam = params.to(r.device)
     fr = persistent._Frame(r.scene, inline, cfg, cam, 1, WIDTH, HEIGHT, 1)
     s = persistent.init_lane_ctx(
         1, 1, torch.arange(WIDTH * HEIGHT, device=r.device), cam, WIDTH,
         HEIGHT, cfg, with_tstash=inline.tex0 is not None)
-    out = None
+    todo = ["fresh", "shadow", "late"]
+    fresh = None
     for rnd in range(cfg.max_depth * 2 + 2):
-        n_shadow = int((s["mode"] == walk.SHADOW).sum())
-        n_traverse = int((s["mode"] == walk.TRAVERSE).sum())
-        if rnd > 0 and n_shadow < SHADOW_LANES_MIN:
-            s = persistent._round_quad(s, inline, k, fr, passes)[0]
-            continue
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got, rows = walk.quad_walk_cuda(s, table, sentinel, k, passes)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        want, want_rows = walk.walk_plain(s, table, sentinel, k, passes)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        bad = [f for f in walk.WRITES if not _same(got[f], want[f])]
-        err = max(float((got[f].double() - want[f].double()).abs()
-                        .nan_to_num(0.0).max()) for f in walk.WRITES)
-        log(f"[walk] round {rnd}: {n_traverse} TRAVERSE and {n_shadow} "
-            f"SHADOW lanes of {s['mode'].shape[0]}; rows fetched kernel "
-            f"{int(rows)} plain {int(want_rows)}; fields differing {bad} "
-            f"(-0.0 == 0.0, NaN == NaN), max abs err {err!r}; kernel "
-            f"{1e3 * (t1 - t0):.3f} ms, plain {1e3 * (t2 - t1):.1f} ms")
-        if bad or int(rows) != int(want_rows):
-            raise AssertionError(f"quad_walk kernel disagrees with "
-                                 f"walk_plain in round {rnd}: {bad}")
+        modes = torch.bincount(s["mode"], minlength=walk.TEXG + 1).tolist()
+        walking = modes[walk.TRAVERSE] + modes[walk.SHADOW]
         if rnd == 0:
-            ms = _time_ms(lambda: walk.quad_walk_cuda(s, table, sentinel, k,
-                                                      passes), reps=5)
-            n_rows = int(rows)
-            n_other = s["mode"].shape[0] - n_traverse - n_shadow
-            out = dict(max_abs_err=err, ms=ms, plain_ms=1e3 * (t2 - t1),
-                       library_ms=None, rows_fetched=n_rows,
-                       # The quad rows once (at most: a walk may leave
-                       # some unvisited) and the lane state by mode.
-                       # Operations: the cheaper row kind, an internal
-                       # row's four slab tests at 30 each.
-                       **bound(sentinel * table.shape[1] * 4
-                               + walk_state_bytes(n_traverse, n_shadow,
-                                                  n_other),
-                               120 * n_rows))
-            # Not a bound: every fetched row again at its 300 B over the
-            # device-memory rate (the table lives in L2, and a thread
-            # loads only the columns its row kind uses).
-            traffic_ms = 1e3 * n_rows * table.shape[1] * 4 / MEM_BYTES_PER_S
-            log(f"[walk] fresh state: kernel {ms:.3f} ms, "
-                f"{n_rows / ms / 1e6:.3f} G rows/s, bound {out['bound_ms']:.4f}"
-                f" ms by {out['bound_by']}, rows x row bytes over the "
-                f"device-memory rate {traffic_ms:.3f} ms")
-            s = persistent._round_quad(s, inline, k, fr, passes)[0]
-            continue
-        return out
-    raise AssertionError(f"no round had {SHADOW_LANES_MIN} lanes in SHADOW")
+            label = "fresh"
+        elif "shadow" in todo and modes[walk.SHADOW] >= SHADOW_LANES_MIN:
+            label = "shadow"
+        elif ("late" in todo and walking
+              and modes[walk.DONE] >= LATE_DONE_SHARE * WIDTH * HEIGHT):
+            label = "late"
+        else:
+            label = None
+        if label:
+            res = _check_walk(label, rnd, s, inline, k, passes)
+            fresh = fresh or res
+            todo.remove(label)
+            if not todo:
+                return fresh
+        s = persistent._round_quad(s, inline, k, fr, passes)[0]
+    raise AssertionError(f"no round gave the {todo} states")
 
 
 def phase_main_path(r: Renderer, params) -> dict:
@@ -445,6 +547,11 @@ def phase_main_path(r: Renderer, params) -> dict:
     if float(img.mean()) != MAIN_IMAGE_MEAN:
         raise AssertionError(f"image mean {float(img.mean())!r} is not "
                              f"{MAIN_IMAGE_MEAN!r}: the render changed")
+    counts = tuple((st["path"], st["shadow"], st["rows_fetched"],
+                    st["rounds"]) for st in steps)
+    if counts != MAIN_STEP_COUNTS:
+        raise AssertionError(f"steps traced {counts}, not "
+                             f"{MAIN_STEP_COUNTS}: the work changed")
     ms = float(np.mean([s["ms"] for s in steps]))
     return dict(steps=steps, launches=launches, walk_launches=walk_launches,
                 ms_per_step=ms,
@@ -458,8 +565,6 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     smi = phase_environment()
-    tone = phase_tonemap()
-    chain = phase_fetch(seed=0)
     phase_cuda_vs_cpu()
     t0 = time.perf_counter()
     arrays = main_path_arrays()
@@ -468,11 +573,16 @@ def main() -> int:
     log(f"[main] {arrays.num_objects} triangles, leaf {r.scene.leaf_size}, "
         f"quad rows {r.scene.quad_table.shape[0]}, unified table "
         f"{tuple(r.inline.table.shape)}; setup {time.perf_counter() - t0:.2f} s")
-    walked = phase_walk(r, params)
+    # The steps are timed before the first torch.profiler session
+    # (_kernel_ms): after one, the same process steps far slower
+    # (PERF.md; scripts/time_torch_step.py --profile-first).
     main_run = phase_main_path(r, params)
+    tone = phase_tonemap()
+    chain = phase_fetch(seed=0)
+    walked = phase_walk(r, params)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+    keys = ("max_abs_err", "ms", "wrapper_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     log(json.dumps({"kernels": [
         dict(name="tonemap", route="cuda",
              source="tryraytrace_tpu_torch/csrc/tonemap.cu",
@@ -488,7 +598,7 @@ def main() -> int:
              replaces="tryraytrace_tpu/engine/persistent.py:948",
              launches=main_run["walk_launches"],
              **{k: walked[k] for k in keys},
-             rows_fetched=walked["rows_fetched"])]}))
+             rows_fetched=walked["rows_fetched"], plan=walked["plan"])]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

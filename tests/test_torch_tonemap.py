@@ -68,3 +68,11 @@ def test_cuda_kernel_matches_plain_version():
             tm.tonemap_cuda(acc[:, :2], spp)
         with pytest.raises(ValueError):
             tm.tonemap_cuda(acc.t(), spp)
+    # A ragged tail past the last 16-byte piece, and a sum that does not
+    # start on a 16-byte boundary (every float takes the scalar loop).
+    acc = torch.from_numpy(_accum(5, 3, n=1001)).cuda()
+    assert torch.equal(tm.tonemap_cuda(acc, 3), tm.tonemap_plain(acc, 3))
+    flat = torch.from_numpy(_accum(6, 3, n=778)).cuda().reshape(-1)
+    acc = flat[1:2332].view(777, 3)
+    assert acc.is_contiguous() and acc.data_ptr() % 16
+    assert torch.equal(tm.tonemap_cuda(acc, 3), tm.tonemap_plain(acc, 3))

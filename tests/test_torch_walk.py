@@ -14,12 +14,14 @@ import pytest
 import torch
 
 from tryraytrace_tpu_torch.accel.bvh import (build_bvh, collapse_bvh,
-                                             pack_quad_table)
+                                             pack_quad_table,
+                                             walk_order_table)
 from tryraytrace_tpu_torch.camera.controller import CameraController
 from tryraytrace_tpu_torch.config import RenderConfig
 from tryraytrace_tpu_torch.engine import persistent
 from tryraytrace_tpu_torch.engine.renderer import Renderer
 from tryraytrace_tpu_torch.ops import walk
+from tryraytrace_tpu_torch.ops._build import KernelLibrary
 from tryraytrace_tpu_torch.ops.traverse import (MISS_T, any_hit_quad,
                                                 closest_hit_quad)
 
@@ -35,25 +37,26 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _walk_scene(seed, n_tris):
+def _rays(r, n=N):
+    """n rays from [-8, 8]^3 aimed at random points of [-4, 4]^3."""
+    o = r.uniform(-8, 8, size=(n, 3)).astype(np.float32)
+    d = r.uniform(-4, 4, size=(n, 3)).astype(np.float32) - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return _t(o), _t(d)
+
+
+def _walk_scene(seed, n_tris, k=K):
     """Random triangles in [-5, 5]^3, their quad table, and rays from
     [-8, 8]^3 aimed at random points among them."""
     r = np.random.RandomState(seed)
     base = r.uniform(-5, 5, size=(n_tris, 1, 3)).astype(np.float32)
     tri = base + r.uniform(-0.8, 0.8, size=(n_tris, 3, 3)).astype(np.float32)
     v0, v1, v2 = tri[:, 0], tri[:, 1], tri[:, 2]
-    bvh = build_bvh(v0, v1, v2, method="sah", leaf_size=K)
+    bvh = build_bvh(v0, v1, v2, method="sah", leaf_size=k)
     table = pack_quad_table(bvh, v0[bvh.perm], v1[bvh.perm], v2[bvh.perm],
-                            leaf_size=K,
+                            leaf_size=k,
                             children=collapse_bvh(bvh, criterion="dp"))
-
-    def rays():
-        o = r.uniform(-8, 8, size=(N, 3)).astype(np.float32)
-        d = r.uniform(-4, 4, size=(N, 3)).astype(np.float32) - o
-        d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
-        return _t(o), _t(d)
-
-    return _t(table), rays, r
+    return _t(table), lambda: _rays(r), r
 
 
 def _state(mode, o, d, so, sd, smax, pend, cont, regs):
@@ -190,37 +193,97 @@ def test_dispatch_on_cpu_uses_plain_version():
         walk.quad_walk_cuda(s, table, table.shape[0], K)
 
 
+def _card_case(case):
+    """(state, walk-order table, levels, k) on the card for one kernel
+    test case:
+      mixed  - every mode, shadow rays with 0 * inf in the slab test;
+      done   - 95% of the lanes DONE: threads skip them and refill;
+      wide   - 300,000 lanes, more than the grid holds threads, so
+               threads take lane after lane;
+      deep   - 20,000 triangles at 4 per leaf: the tree's top levels
+               outgrow the staged rows, and most rows come from L2."""
+    k, n_tris, n = {"deep": (4, 20000, N)}.get(case, (K, 2000, N))
+    if case == "wide":
+        n = 300000
+    table, _, r = _walk_scene(8, n_tris, k)
+    wt, levels = walk_order_table(table.numpy(), k)
+    o, d = _rays(r, n)
+    so, sd = _rays(r, n)
+    sd[::5, 1] = 0.0  # 0 * inf in the shadow walk's slab test
+    modes = [walk.TRAVERSE, walk.SHADOW, walk.SHADEG, walk.DONE]
+    p = [0.02, 0.03, 0.0, 0.95] if case == "done" else None
+    mode = _t(r.choice(modes, n, p=p).astype(np.int64))
+    s = _state(mode, o, d, so, sd,
+               _t(r.uniform(0.5, 12, n).astype(np.float32)),
+               _t(r.uniform(0.1, 2, (n, 3)).astype(np.float32)),
+               _t(r.rand(n) < 0.5), 3)
+    s["rad"] = _t(r.uniform(0, 1, (n, 3)).astype(np.float32))
+    s = {key: val.cuda() for key, val in s.items()}
+    return s, torch.from_numpy(wt).cuda(), levels, k
+
+
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain_version():
+@pytest.mark.parametrize("case", ["mixed", "done", "wide", "deep"])
+def test_cuda_kernel_matches_plain_version(case):
     if not torch.cuda.is_available():
         pytest.skip("the CUDA walk kernel runs only on a CUDA device")
-    table, rays, r = _walk_scene(8, 2000)
-    o, d = rays()
-    so, sd = rays()
-    sd[::5, 1] = 0.0  # 0 * inf in the shadow walk's slab test
-    mode = _t(r.choice([walk.TRAVERSE, walk.SHADOW, walk.SHADEG, walk.DONE],
-                       N).astype(np.int64))
-    s = _state(mode, o, d, so, sd,
-               _t(r.uniform(0.5, 12, N).astype(np.float32)),
-               _t(r.uniform(0.1, 2, (N, 3)).astype(np.float32)),
-               _t(r.rand(N) < 0.5), 3)
-    s = {key: val.cuda() for key, val in s.items()}
-    table = table.cuda()
+    s, table, levels, k = _card_case(case)
     before = walk.quad_walk_cuda.launches
-    got, rows = walk.quad_walk_cuda(s, table, table.shape[0], K)
+    got, rows = walk.quad_walk_cuda(s, table, table.shape[0], k, 1, levels)
     torch.cuda.synchronize()
+    plan = walk.quad_walk_cuda.plan
     assert walk.quad_walk_cuda.launches == before + 1
-    want, want_rows = walk.walk_plain(s, table, table.shape[0], K)
+    want, want_rows = walk.walk_plain(s, table, table.shape[0], k)
     # -0.0 == 0.0: see the signed-zero note in ops/walk.py.
     for f in walk.WRITES:
         assert bool((got[f] == want[f]).all()), f
     assert int(rows) == int(want_rows)
+    # The plan is worked out once per table: a second launch adds none.
+    plans = len(walk._plans)
+    walk.quad_walk_cuda(s, table, table.shape[0], k, 1, levels)
+    assert len(walk._plans) == plans and walk.quad_walk_cuda.plan == plan
+    # Whole levels are staged.
+    assert 0 < plan["staged_rows"] <= table.shape[0]
+    assert plan["staged_rows"] in np.cumsum(levels)
+    if case == "wide":
+        assert plan["grid"] * plan["threads"] < s["mode"].shape[0]
+    if case == "deep":
+        assert plan["staged_rows"] < table.shape[0] // 4
+
+
+def test_benchmark_builds_of_the_kernel_are_libraries_of_their_own():
+    variant = KernelLibrary("quad_walk", walk.LIBRARY.functions,
+                            defines=("TRT_WALK_REFILL_IDLE=8",))
+    assert "-DTRT_WALK_REFILL_IDLE=8" in variant.flags
+    assert variant.source == walk.LIBRARY.source
+    assert variant._target() != walk.LIBRARY._target()
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_refuses_what_the_kernel_cannot_take():
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA walk kernel runs only on a CUDA device")
+    s, table, levels, k = _card_case("mixed")
+    rows = table.shape[0]
     with pytest.raises(ValueError):
-        walk.quad_walk_cuda({**s, "o": s["o"].t()}, table, table.shape[0], K)
+        walk.quad_walk_cuda({**s, "o": s["o"].t()}, table, rows, k, 1,
+                            levels)
+    # Rows that are not 16 bytes wide (the unpadded quad rows), and a
+    # table that does not start on a 16-byte boundary.
+    with pytest.raises(ValueError, match="16-byte"):
+        walk.quad_walk_cuda(s, table[:, :-2].contiguous(), rows, k, 1,
+                            levels)
+    flat = torch.cat([table.new_zeros(1), table.reshape(-1)])
+    with pytest.raises(ValueError, match="16-byte"):
+        walk.quad_walk_cuda(s, flat[1:].view(table.shape), rows, k, 1,
+                            levels)
+    # Levels that are not the top of this tree.
+    with pytest.raises(ValueError, match="levels"):
+        walk.quad_walk_cuda(s, table, rows, k, 1, [rows, 1])
     # A lane caught mid-walk has skip registers the kernel cannot see.
     with pytest.raises(ValueError, match="mid-walk"):
         walk.quad_walk_cuda({**s, "cur": torch.ones_like(s["cur"])}, table,
-                            table.shape[0], K)
+                            rows, k, 1, levels)
     with pytest.raises(ValueError, match="skip registers"):
         walk.quad_walk_cuda({**s, "reg_e": s["reg_e"][:, :2].contiguous()},
-                            table, table.shape[0], K)
+                            table, rows, k, 1, levels)

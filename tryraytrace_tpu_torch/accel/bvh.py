@@ -609,6 +609,61 @@ def pack_quad_table(bvh: LinearBVH, v0: np.ndarray, v1: np.ndarray,
     return table
 
 
+def walk_order_table(quad_table, leaf_size: int):
+    """The walk's copy of a quad table (pack_quad_table): the same rows
+    in breadth-first order, root first and each row's children in slot
+    order, padded to a multiple of 4 floats (16-byte rows: 58 -> 60 at
+    leaf size 4).  Every row id inside a row is renamed with its row:
+    the entry columns of internal rows and the continuation of each
+    octant (``cont * 256 + perm``: ``cont`` renamed, ``perm`` kept).
+    Ids at or past the row count (the walk's done sentinel) are kept.
+
+    The walk reaches the same rows in the same order on either table:
+    the renaming fixes row 0 and the sentinel, and the walk only tests
+    ids for equality (the skip registers), for 0 and against the
+    sentinel.  The CUDA walk stages the top levels of this copy in
+    shared memory.
+
+    Returns (table [rows, width] float32 NumPy, rows per tree level)."""
+    src = np.asarray(quad_table, np.float32)
+    n, w = src.shape
+    if w != quad_row_width(leaf_size):
+        raise ValueError(f"quad rows of {w} floats, leaf size {leaf_size} "
+                         f"needs {quad_row_width(leaf_size)}")
+    width = -(-w // 4) * 4
+    if n == 0:
+        return np.zeros((0, width), np.float32), []
+    ent = slice(QUAD_COL_BODY + QB_ENT, QUAD_COL_BODY + QB_ENT + QUAD_WIDTH)
+    internal = src[:, 0] < 0
+    order, levels = [], []
+    level = np.zeros(1, np.int64)
+    while level.size:
+        order.append(level)
+        levels.append(int(level.size))
+        inner = level[internal[level]]
+        nslots = src[inner, QUAD_COL_BODY + QB_NSLOTS].astype(np.int64)
+        used = np.arange(QUAD_WIDTH)[None, :] < nslots[:, None]
+        level = src[inner, ent].astype(np.int64)[used]
+    order = np.concatenate(order)
+    if order.size != n or np.unique(order).size != n:
+        raise ValueError("the quad rows are not a tree under row 0")
+    new_id = np.empty(n + 1, np.int64)
+    new_id[order] = np.arange(n)
+    new_id[n] = n
+
+    def rename(ids):
+        return np.where(ids < n, new_id[np.minimum(ids, n)], ids)
+
+    out = np.zeros((n, width), np.float32)
+    out[:, :w] = src[order]
+    inner = out[:, 0] < 0
+    out[inner, ent] = rename(out[inner, ent].astype(np.int64))
+    conts = slice(QUAD_COL_CONT, QUAD_COL_CONT + NUM_OCTANTS)
+    packed = out[:, conts].astype(np.int64)
+    out[:, conts] = rename(packed >> 8) * 256 + (packed & 255)
+    return out, levels
+
+
 # Packed hit-data row layout (float32[37]): everything shading needs
 # about the hit primitive in one gather (rows are free to >= 112
 # floats on v5e, docs/PERFORMANCE.md).

@@ -1,5 +1,5 @@
-// Quad-row BVH walk for Hopper (sm_90a): one thread per lane runs the
-// lane's whole walk in one launch.
+// Quad-row BVH walk for Hopper (sm_90a): persistent blocks run every
+// walking lane's whole walk in one launch.
 //
 // On the TPU the walk is not a Pallas kernel: it is the walk half of
 // _step_quad (tryraytrace_tpu/engine/persistent.py), XLA-fused jnp that
@@ -21,19 +21,45 @@
 // walk past an entry when the thread order would enter it.  The registers
 // live in the thread.
 //
-// What bounds it: the rows.  Each step needs a table row (300 B wide on
-// the main path, read from L2: the 10 MB table stays resident) before it
-// knows the next row, so a lane is a chain of dependent fetches, and the
-// lanes of a warp read 32 different rows with 4-byte loads (a 300-byte
-// row is not 16-byte aligned).  Threads of a warp also walk for different
-// lengths.  Both are accepted here: right and simple first.  The kernel
-// counts the rows it fetches (a block reduce, then one 64-bit atomic add,
-// which is free of order), which gives the bound it is measured against.
+// What bounds it.  A walk needs a row before it knows the next one, the
+// lanes of a warp read 32 different rows (the quad rows, 2.2 MB on the
+// main path, stay in L2), and walks differ in length.  The design answers
+// each of these:
+//   - Rows: the kernel walks the walk-order copy of the quad rows
+//     (accel/bvh.py walk_order_table), 16-byte rows in breadth-first
+//     order, and loads a row with 16-byte loads, only the columns its kind
+//     needs: floats 0-39 in one batch of ten (all of an internal row, and
+//     a leaf row's header and first two triangles), then four loads per
+//     further triangle.
+//   - Top of the tree: every walk starts at the root, and most fetches hit
+//     the top levels.  Each block first copies the top levels of the copy
+//     into shared memory (whole levels, as many as fit beside the blocks
+//     its registers let an SM hold; see plan_walk), and a fetch of such
+//     a row reads shared memory, about 2.8x cheaper than L2 on this card
+//     (scripts/microbench_torch_fetch.py).  Rows are staged an odd number
+//     of 16-byte units apart, so rows in a quarter-warp's load spread over
+//     the banks.
+//   - Threads: a thread whose walk has ended would idle until its warp's
+//     longest walk ends.  Blocks are persistent (as many as the card holds
+//     at once, so each pays the copy once) and take lanes from a global
+//     counter: when kRefillIdle or more threads of a warp are idle (or
+//     all are), the warp claims that many lanes with one atomicAdd (ballot
+//     + popc), and each idle thread takes one (Aila and Laine,
+//     "Understanding the Efficiency of Ray Traversal on GPUs", HPG 2009:
+//     persistent threads that replace finished rays).  A lane outside
+//     TRAVERSE and SHADOW costs its thread one mode read.
+// Measured on an H100 (PERF.md, scripts/microbench_torch_walk.py), what
+// is left is the instructions a row costs a warp: staging the top rows
+// moves the time by no more than its noise, while one-instruction NaN
+// min/max (below) cut it by a sixth and the refill threshold, which sets
+// how full a warp runs, moves shadow walks by a quarter.
+// The kernel counts the rows it fetches (a block reduce, then one 64-bit
+// atomic add, which is free of order), which gives the bound it is
+// measured against.
 //
-// The row decode, the leaf test and the register file are __device__
-// functions in namespace trt, for the state-machine kernel that takes the
-// shading in as well.
-//
+// The launch's plan (staged rows, shared memory, grid) depends only on
+// the card, the kernel and the table, so trt_quad_walk_plan works it out
+// once and the caller keeps it; trt_quad_walk_launch only launches.
 // Launched on the caller's stream; allocates nothing.
 
 #include <cuda_runtime.h>
@@ -53,20 +79,63 @@ constexpr int kColBody = 10;    // 4 child boxes, or K leaf slots
 constexpr int kBodyEnt = 24;    // 4 child entry rows
 constexpr int kBodyNslots = 28; // number of valid children
 constexpr int kLeafStride = 12; // floats per Baldwin-Weber slot
+// Floats 0-39 as ten 16-byte chunks: an internal row (floats 0-38) whole,
+// a leaf row's header and slots 0 and 1.
+constexpr int kHeadChunks = 10;
+constexpr int kHeadSlots = 2;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+// A warp claims new lanes once this many of its threads are idle, or all
+// are: the fastest of 1, 8, 16 and 32 on an H100 (PERF.md).  The most
+// tree levels the plan stages.  A benchmark build may set either
+// (scripts/microbench_torch_walk.py); the port builds the defaults.
+#ifndef TRT_WALK_REFILL_IDLE
+#define TRT_WALK_REFILL_IDLE 16
+#endif
+#ifndef TRT_WALK_MAX_LEVELS
+#define TRT_WALK_MAX_LEVELS 64
+#endif
+constexpr int kRefillIdle = TRT_WALK_REFILL_IDLE;
+constexpr int kMaxLevels = TRT_WALK_MAX_LEVELS;
+static_assert(kRefillIdle >= 1 && kRefillIdle <= 32, "refill threshold");
 
 constexpr float kMissT = 1e20f;
 constexpr float kEps = 1e-5f;
 constexpr float kShadowTMin = 1e-3f;
 
+// The staged top rows, `stride4` 16-byte units apart.
+extern __shared__ float4 staged_rows[];
+
 // min and max that give NaN when either operand is NaN, as
 // torch.minimum / maximum / amax / amin do.  The shadow walk's plain 1/d
 // makes 0 * inf = NaN in the slab test, and the comparisons must then say
-// "miss"; fminf / fmaxf would drop the NaN and could say "hit".
+// "miss"; fminf / fmaxf would drop the NaN and could say "hit".  On the
+// card this is one instruction (min.NaN / max.NaN, sm_80 and later); the
+// slab tests take 40 of them per internal row.
 __device__ __forceinline__ float nan_min(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+#endif
 }
 __device__ __forceinline__ float nan_max(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+#endif
+}
+
+__device__ __forceinline__ float part(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
 struct Ray {
@@ -77,59 +146,101 @@ struct Ray {
   int octant;
 };
 
-// The walk's ray.  The closest-hit walk uses the sign-preserving safe
-// inverse (|d| < 1e-8 -> +-1e20), the shadow walk a plain reciprocal.
+// The walk's ray of lane `i` from o, d [n, 3].  The closest-hit walk uses
+// the sign-preserving safe inverse (|d| < 1e-8 -> +-1e20), the shadow walk
+// a plain reciprocal.
 __device__ __forceinline__ Ray make_ray(const float* __restrict__ o,
                                         const float* __restrict__ d,
-                                        bool shadow) {
+                                        long long i, bool shadow) {
   Ray r;
   r.octant = 0;
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    r.o[i] = o[i];
-    r.d[i] = d[i];
-    const bool tiny = fabsf(d[i]) < 1e-8f && !shadow;
-    const float q = 1.0f / (tiny ? 1.0f : d[i]);
-    r.inv[i] = tiny ? (d[i] >= 0.0f ? 1e20f : -1e20f) : q;
-    if (d[i] < 0.0f) r.octant |= 1 << i;
+  for (int a = 0; a < 3; ++a) {
+    r.o[a] = __ldg(o + 3 * i + a);
+    r.d[a] = __ldg(d + 3 * i + a);
+    const bool tiny = fabsf(r.d[a]) < 1e-8f && !shadow;
+    const float q = 1.0f / (tiny ? 1.0f : r.d[a]);
+    r.inv[a] = tiny ? (r.d[a] >= 0.0f ? 1e20f : -1e20f) : q;
+    if (r.d[a] < 0.0f) r.octant |= 1 << a;
   }
   r.t_min = shadow ? kShadowTMin : 0.0f;
   return r;
 }
 
+// Where a row is read: the first `staged` rows from shared memory, the
+// others from the table in device memory (width4 units a row).  The row's
+// address is chosen once; its loads are generic loads, which the card
+// sends to shared memory or L1/L2 by the address.
+struct Rows {
+  const float4* __restrict__ table;
+  int width4;
+  int stride4;
+  int staged;
+
+  __device__ __forceinline__ const float4* row(int r) const {
+    return r < staged ? staged_rows + r * stride4
+                      : table + static_cast<size_t>(r) * width4;
+  }
+};
+
 // Baldwin-Weber ray/triangle test on one 12-float slot (n, v0, bu, bv):
 // t, or 0 for a miss.  An all-zero pad slot misses by the parallel guard.
-__device__ __forceinline__ float baldwin_t(const float* __restrict__ s,
-                                           const Ray& r) {
-  const float n0 = __ldg(s + 0), n1 = __ldg(s + 1), n2 = __ldg(s + 2);
-  const float nd = (n0 * r.d[0] + n1 * r.d[1]) + n2 * r.d[2];
+__device__ __forceinline__ float baldwin_t(const float s[12], const Ray& r) {
+  const float nd = (s[0] * r.d[0] + s[1] * r.d[1]) + s[2] * r.d[2];
   const bool parallel = fabsf(nd) < kEps;
   const float f = 1.0f / (parallel ? 1.0f : nd);
-  const float s0 = r.o[0] - __ldg(s + 3);
-  const float s1 = r.o[1] - __ldg(s + 4);
-  const float s2 = r.o[2] - __ldg(s + 5);
-  const float t = (-f) * ((n0 * s0 + n1 * s1) + n2 * s2);
+  const float s0 = r.o[0] - s[3];
+  const float s1 = r.o[1] - s[4];
+  const float s2 = r.o[2] - s[5];
+  const float t = (-f) * ((s[0] * s0 + s[1] * s1) + s[2] * s2);
   const float p0 = s0 + t * r.d[0];
   const float p1 = s1 + t * r.d[1];
   const float p2 = s2 + t * r.d[2];
-  const float u = (__ldg(s + 6) * p0 + __ldg(s + 7) * p1) + __ldg(s + 8) * p2;
-  const float v =
-      (__ldg(s + 9) * p0 + __ldg(s + 10) * p1) + __ldg(s + 11) * p2;
+  const float u = (s[6] * p0 + s[7] * p1) + s[8] * p2;
+  const float v = (s[9] * p0 + s[10] * p1) + s[11] * p2;
   const bool valid =
       !parallel && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > kEps;
   return valid ? t : 0.0f;
 }
 
 // Closest hit among a leaf row's k slots inside the open window
-// (tlo, thi): the lowest slot wins a tie in t (strict <).  Returns the
-// slot, or -1 when none hits; best_t is then kMissT.
-__device__ __forceinline__ int leaf_test(const float* __restrict__ row, int k,
+// (tlo, thi): the lowest slot wins a tie in t (strict <).  Slots 0 and 1
+// come from the row's first chunks, the others are loaded here, 16 bytes
+// at a time where they are aligned (a slot starts 8 bytes into a 16-byte
+// unit).  Returns the slot, or -1 when none hits; best_t is then kMissT.
+__device__ __forceinline__ int leaf_test(const float4 (&c)[kHeadChunks],
+                                         const float4* row, int k,
                                          const Ray& r, float tlo, float thi,
                                          float& best_t) {
   best_t = kMissT;
   int best = -1;
-  for (int j = 0; j < k; ++j) {
-    const float t = baldwin_t(row + kColBody + kLeafStride * j, r);
+#pragma unroll
+  for (int j = 0; j < kHeadSlots; ++j) {
+    if (j < k) {
+      float s[12];
+#pragma unroll
+      for (int i = 0; i < 12; ++i) {
+        const int f = kColBody + kLeafStride * j + i;
+        s[i] = part(c[f >> 2], f & 3);
+      }
+      const float t = baldwin_t(s, r);
+      const float cand = (t > tlo && t < thi) ? t : kMissT;
+      if (cand < best_t) {
+        best_t = cand;
+        best = j;
+      }
+    }
+  }
+  for (int j = kHeadSlots; j < k; ++j) {
+    const int b = kColBody + kLeafStride * j;  // even, 16 B unit + 8 B
+    const float2* row2 = reinterpret_cast<const float2*>(row);
+    const float2 a = row2[b >> 1];
+    const float4 p = row[(b + 2) >> 2];
+    const float4 q = row[(b + 6) >> 2];
+    const float2 z = row2[(b + 10) >> 1];
+    const float s[12] = {a.x, a.y, p.x, p.y, p.z, p.w,
+                         q.x, q.y, q.z, q.w, z.x, z.y};
+    const float t = baldwin_t(s, r);
     const float cand = (t > tlo && t < thi) ? t : kMissT;
     if (cand < best_t) {
       best_t = cand;
@@ -139,14 +250,17 @@ __device__ __forceinline__ int leaf_test(const float* __restrict__ row, int k,
   return best;
 }
 
-// Slab test of one child box (min xyz, max xyz) against (t_min, t_max).
-__device__ __forceinline__ bool box_hit(const float* __restrict__ b,
-                                        const Ray& r, float t_max) {
+// Slab test of child box c (min xyz, max xyz) of an internal row against
+// (t_min, t_max).
+__device__ __forceinline__ bool box_hit(const float4 (&ch)[kHeadChunks],
+                                        int c, const Ray& r, float t_max) {
   float lo = 0.0f, hi = 0.0f;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    const float t1 = (__ldg(b + i) - r.o[i]) * r.inv[i];
-    const float t2 = (__ldg(b + 3 + i) - r.o[i]) * r.inv[i];
+    const int f0 = kColBody + 6 * c + i;
+    const int f1 = f0 + 3;
+    const float t1 = (part(ch[f0 >> 2], f0 & 3) - r.o[i]) * r.inv[i];
+    const float t2 = (part(ch[f1 >> 2], f1 & 3) - r.o[i]) * r.inv[i];
     const float near_i = nan_min(t1, t2);
     const float far_i = nan_max(t1, t2);
     lo = i == 0 ? near_i : nan_max(lo, near_i);
@@ -170,19 +284,20 @@ struct Decode {
   int succ[3];
 };
 
-__device__ __forceinline__ Decode quad_decode(const float* __restrict__ row,
-                                              const Ray& r, int cont,
-                                              int perm, float t_max) {
-  const float* body = row + kColBody;
+__device__ __forceinline__ Decode quad_decode(
+    const float4 (&ch)[kHeadChunks], const Ray& r, int cont, int perm,
+    float t_max) {
   int hits = 0;
   int ents[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    if (box_hit(body + 6 * c, r, t_max)) hits |= 1 << c;
-    ents[c] = static_cast<int>(__ldg(body + kBodyEnt + c));
+    if (box_hit(ch, c, r, t_max)) hits |= 1 << c;
+    const int f = kColBody + kBodyEnt + c;
+    ents[c] = static_cast<int>(part(ch[f >> 2], f & 3));
   }
+  const int fn = kColBody + kBodyNslots;
   const int nsl = static_cast<int>(
-      fminf(fmaxf(__ldg(body + kBodyNslots), 0.0f), 4.0f));
+      fminf(fmaxf(part(ch[fn >> 2], fn & 3), 0.0f), 4.0f));
   bool hit_p[4];
   int ent_p[4];
 #pragma unroll
@@ -255,33 +370,90 @@ struct RegFile {
   }
 };
 
-// One walk from row `cur` to its end.  Closest hit (shadow false): updates
-// d_min and hit_id.  Any hit (shadow true): returns true when occluded.
-// Counts the rows it fetched into `rows`.
+struct Params {
+  const float4* table;  // walk-order quad rows, width4 16-byte units a row
+  int width4;
+  int stride4;          // staged rows' spacing in shared memory
+  int staged;           // rows staged in shared memory
+  int sentinel;
+  int k;
+  int passes;
+  long long n;
+  long long* mode_io;
+  long long* cur_io;
+  long long* hit_id_io;
+  float* d_min_io;
+  float* rad_io;
+  const float* o;
+  const float* d;
+  const float* so;
+  const float* sd;
+  const float* smax;
+  const float* pend;
+  const unsigned char* cont_after_shadow;
+  unsigned long long* next_lane;  // counters[0]: lanes claimed
+  unsigned long long* rows_out;   // counters[1]: rows fetched
+};
+
+// A thread's current walk.
 template <int R>
-__device__ __forceinline__ bool walk(const float* __restrict__ table,
-                                     int width, int sentinel, int k,
-                                     int passes, const Ray& r, bool shadow,
-                                     float smax, int& cur, float& d_min,
-                                     long long& hit_id,
-                                     unsigned long long& rows) {
+struct Walk {
+  long long lane;  // -1: the thread is idle
+  bool shadow;
+  Ray r;
+  float smax;
+  float d_min;
+  int cur;
+  long long hit_id;
   RegFile<R> regs;
-  regs.clear();
-  for (;;) {
+
+  // Take lane i if it walks.  Costs one mode read when it does not.
+  __device__ __forceinline__ void start(const Params& p, long long i) {
+    const long long mode = p.mode_io[i];
+    if (mode != kTraverse && mode != kShadow) return;
+    lane = i;
+    shadow = mode == kShadow;
+    const long long cur64 = p.cur_io[i];
+    cur = cur64 < p.sentinel ? static_cast<int>(cur64) : p.sentinel;
+    d_min = p.d_min_io[i];
+    hit_id = p.hit_id_io[i];
+    r = shadow ? make_ray(p.so, p.sd, i, true) : make_ray(p.o, p.d, i, false);
+    smax = shadow ? __ldg(p.smax + i) : 0.0f;
+    regs.clear();
+  }
+
+  __device__ __forceinline__ void finish(const Params& p, long long mode) {
+    p.mode_io[lane] = mode;
+    p.cur_io[lane] = cur;
+    p.d_min_io[lane] = d_min;
+    p.hit_id_io[lane] = hit_id;
+    lane = -1;
+  }
+
+  // Fetch row `cur` and take one step of the walk; ends the walk (writes
+  // the lane back and goes idle) when it is over.
+  __device__ __forceinline__ void step(const Params& p, const Rows& rows) {
     if (cur == 0) regs.clear();
-    const int idx = cur < sentinel - 1 ? cur : sentinel - 1;
-    const float* row = table + static_cast<size_t>(idx) * width;
-    ++rows;
-    const int prim_start = static_cast<int>(__ldg(row));
-    const bool is_leaf = prim_start >= 0;
-    const int cpi = static_cast<int>(__ldg(row + kColCont + r.octant));
+    const float4* row =
+        rows.row(cur < p.sentinel - 1 ? cur : p.sentinel - 1);
+    float4 c[kHeadChunks];
+#pragma unroll
+    for (int i = 0; i < kHeadChunks; ++i) c[i] = row[i];
+    const int prim_start = static_cast<int>(c[0].x);
+    float cpf = part(c[kColCont >> 2], kColCont & 3);
+#pragma unroll
+    for (int oct = 1; oct < 8; ++oct) {
+      const int f = kColCont + oct;
+      if (r.octant == oct) cpf = part(c[f >> 2], f & 3);
+    }
+    const int cpi = static_cast<int>(cpf);
     const int cont = cpi >> 8;
     int next = cont;
     bool occluded = false;
-    if (is_leaf) {
+    if (prim_start >= 0) {
       float best_t;
       const float thi = shadow ? smax - kShadowTMin : d_min;
-      const int slot = leaf_test(row, k, r, r.t_min, thi, best_t);
+      const int slot = leaf_test(c, row, p.k, r, r.t_min, thi, best_t);
       if (slot >= 0 && best_t < kMissT) {
         if (shadow) {
           occluded = true;
@@ -292,137 +464,264 @@ __device__ __forceinline__ bool walk(const float* __restrict__ table,
       }
     } else {
       const Decode dec =
-          quad_decode(row, r, cont, cpi & 255, shadow ? smax : d_min);
+          quad_decode(c, r, cont, cpi & 255, shadow ? smax : d_min);
       next = dec.next;
       regs.push(dec);
     }
-    cur = regs.redirect(next, passes);
-    if (occluded) return true;
-    if (cur >= sentinel) return false;
+    cur = regs.redirect(next, p.passes);
+    if (shadow) {
+      if (!occluded && cur < p.sentinel) return;
+      // The plain step adds where(lit, pend, 0.0): a finished shadow
+      // lane's rad gets + 0.0 when occluded.
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        float* rad = p.rad_io + 3 * lane + a;
+        *rad = *rad + (occluded ? 0.0f : __ldg(p.pend + 3 * lane + a));
+      }
+      cur = 0;
+      d_min = kMissT;
+      hit_id = -1;
+      if (p.cont_after_shadow[lane]) {
+        // The path's next bounce: walk on for its closest hit.
+        shadow = false;
+        r = make_ray(p.o, p.d, lane, false);
+      } else {
+        finish(p, kRefill);
+      }
+    } else if (cur >= p.sentinel) {
+      finish(p, hit_id >= 0 ? kShadeG : kRefill);
+    }
   }
-}
+};
 
 template <int R>
-__global__ void quad_walk_kernel(
-    const float* __restrict__ table, int width, int sentinel, int k,
-    int passes, long long n, long long* __restrict__ mode_io,
-    long long* __restrict__ cur_io, long long* __restrict__ hit_id_io,
-    float* __restrict__ d_min_io, float* __restrict__ rad_io,
-    const float* __restrict__ o, const float* __restrict__ d,
-    const float* __restrict__ so, const float* __restrict__ sd,
-    const float* __restrict__ smax_in, const float* __restrict__ pend,
-    const unsigned char* __restrict__ cont_after_shadow,
-    unsigned long long* __restrict__ rows_out) {
-  const long long lane =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  unsigned long long rows = 0;
-  if (lane < n) {
-    long long mode = mode_io[lane];
-    if (mode == kTraverse || mode == kShadow) {
-      const long long cur64 = cur_io[lane];
-      int cur = cur64 < sentinel ? static_cast<int>(cur64) : sentinel;
-      float d_min = d_min_io[lane];
-      long long hit_id = hit_id_io[lane];
-      if (mode == kShadow) {
-        const Ray r = make_ray(so + 3 * lane, sd + 3 * lane, true);
-        const bool occluded = walk<R>(table, width, sentinel, k, passes, r,
-                                      true, smax_in[lane], cur, d_min, hit_id,
-                                      rows);
-        // The plain step adds where(lit, pend, 0.0): a finished shadow
-        // lane's rad gets + 0.0 when occluded.
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          rad_io[3 * lane + i] =
-              rad_io[3 * lane + i] + (occluded ? 0.0f : pend[3 * lane + i]);
+__global__ void __launch_bounds__(kThreads, 2)
+    quad_walk_kernel(const Params p) {
+  // Stage the top rows.
+  const int n4 = p.staged * p.width4;
+  for (int i = threadIdx.x; i < n4; i += kThreads) {
+    const int row = i / p.width4;
+    staged_rows[row * p.stride4 + (i - row * p.width4)] = __ldg(p.table + i);
+  }
+  __syncthreads();
+  const Rows rows{p.table, p.width4, p.stride4, p.staged};
+
+  const int lane_in_warp = threadIdx.x & 31;
+  const unsigned below = (1u << lane_in_warp) - 1u;
+  unsigned long long fetched = 0;
+  bool exhausted = false;  // the same in every thread of the warp
+  Walk<R> w;
+  w.lane = -1;
+  for (;;) {
+    unsigned busy = __ballot_sync(kFull, w.lane >= 0);
+    while (!exhausted &&
+           (busy == 0 || 32 - __popc(busy) >= kRefillIdle)) {
+      const unsigned idle = ~busy;
+      const unsigned want = static_cast<unsigned>(__popc(idle));
+      unsigned long long base = 0;
+      if (lane_in_warp == 0) {
+        base = atomicAdd(p.next_lane, static_cast<unsigned long long>(want));
+      }
+      base = __shfl_sync(kFull, base, 0);
+      exhausted = base + want >= static_cast<unsigned long long>(p.n);
+      if (w.lane < 0) {
+        const unsigned long long i = base + __popc(idle & below);
+        if (i < static_cast<unsigned long long>(p.n)) {
+          w.start(p, static_cast<long long>(i));
         }
-        mode = cont_after_shadow[lane] ? kTraverse : kRefill;
-        cur = 0;
-        d_min = kMissT;
-        hit_id = -1;
       }
-      if (mode == kTraverse) {
-        const Ray r = make_ray(o + 3 * lane, d + 3 * lane, false);
-        walk<R>(table, width, sentinel, k, passes, r, false, 0.0f, cur, d_min,
-                hit_id, rows);
-        mode = hit_id >= 0 ? kShadeG : kRefill;
-      }
-      mode_io[lane] = mode;
-      cur_io[lane] = cur;
-      d_min_io[lane] = d_min;
-      hit_id_io[lane] = hit_id;
+      busy = __ballot_sync(kFull, w.lane >= 0);
+    }
+    if (busy == 0) break;
+    if (w.lane >= 0) {
+      ++fetched;
+      w.step(p, rows);
     }
   }
 
   // Rows fetched: warp shuffle, one slot per warp, one atomic per block.
-  __shared__ unsigned long long warp_rows[32];
+  __shared__ unsigned long long warp_rows[kWarps];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    rows += __shfl_down_sync(0xffffffffu, rows, off);
+    fetched += __shfl_down_sync(kFull, fetched, off);
   }
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) warp_rows[warp] = rows;
+  if (lane_in_warp == 0) warp_rows[threadIdx.x >> 5] = fetched;
   __syncthreads();
   if (threadIdx.x == 0) {
     unsigned long long total = 0;
-    const int warps = (blockDim.x + 31) >> 5;
-    for (int i = 0; i < warps; ++i) total += warp_rows[i];
-    if (total) atomicAdd(rows_out, total);
+    for (int i = 0; i < kWarps; ++i) total += warp_rows[i];
+    if (total) atomicAdd(p.rows_out, total);
   }
 }
 
+// Shared memory per block for `staged` rows.
+inline size_t staged_bytes(int staged, int stride4) {
+  return static_cast<size_t>(staged) * stride4 * sizeof(float4);
+}
+
+// Rows an odd number of 16-byte units apart, so rows in a quarter-warp's
+// load spread over the banks.
+inline int staged_stride4(int width) { return (width / 4) | 1; }
+
+// The plan: stage whole levels, as many as fit beside the blocks that the
+// kernel's registers let an SM hold, and launch as many blocks as the
+// card then holds at once.
 template <int R>
-int launch_walk(const float* table, int width, int sentinel, int k,
-                int passes, long long n, long long* mode, long long* cur,
-                long long* hit_id, float* d_min, float* rad, const float* o,
-                const float* d, const float* so, const float* sd,
-                const float* smax, const float* pend,
-                const unsigned char* cont_after_shadow,
-                unsigned long long* rows_out, cudaStream_t stream) {
-  const int threads = 128;
-  const long long blocks = (n + threads - 1) / threads;
-  quad_walk_kernel<R><<<static_cast<unsigned int>(blocks), threads, 0,
-                        stream>>>(table, width, sentinel, k, passes, n, mode,
-                                  cur, hit_id, d_min, rad, o, d, so, sd, smax,
-                                  pend, cont_after_shadow, rows_out);
-  return static_cast<int>(cudaGetLastError());
+int plan_walk(int sentinel, int stride4, const long long* levels,
+              int n_levels, int* plan) {
+  auto kernel = quad_walk_kernel<R>;
+  int dev = 0, sms = 0, per_sm = 0, per_block = 0, reserved = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(
+        &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(
+        &per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(
+        &reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  }
+  int by_regs = 0;
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&by_regs, kernel,
+                                                      kThreads, 0);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (by_regs < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  long long budget = per_sm / by_regs - reserved;
+  if (budget > per_block) budget = per_block;
+  budget -= static_cast<long long>(kWarps * sizeof(unsigned long long));
+  long long staged = 0;
+  for (int l = 0; l < n_levels && l < kMaxLevels; ++l) {
+    const long long more = staged + levels[l];
+    if (more > sentinel ||
+        static_cast<long long>(staged_bytes(static_cast<int>(more),
+                                            stride4)) > budget) {
+      break;
+    }
+    staged = more;
+  }
+  const size_t smem = staged_bytes(static_cast<int>(staged), stride4);
+  // Raise the kernel's dynamic shared memory limit, never lower it: a
+  // plan made earlier for another table stays valid.
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, kernel);
+  if (e == cudaSuccess &&
+      static_cast<size_t>(attr.maxDynamicSharedSizeBytes) < smem) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  }
+  int blocks_per_sm = 0;
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_per_sm, kernel,
+                                                      kThreads, smem);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (blocks_per_sm < 1) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  plan[0] = static_cast<int>(staged);
+  plan[1] = static_cast<int>(smem);
+  plan[2] = sms * blocks_per_sm;
+  plan[3] = blocks_per_sm;
+  plan[4] = kThreads;
+  return 0;
 }
 
 }  // namespace trt
 
-// table [table_rows, width] float32, its first `sentinel` rows quad rows
-// with k triangles per leaf; n lanes.  mode, cur, hit_id (int64), d_min
-// [n] and rad [n, 3] (float32) are read and written; o, d, so, sd, pend
-// [n, 3], smax [n] (float32) and cont_after_shadow [n] (bool bytes) are
-// read; *rows_out (int64) is incremented by the rows fetched.  Returns the
-// CUDA error of the launch (0 = launched), 1 (cudaErrorInvalidValue) for
-// arguments it does not take.
-extern "C" int trt_quad_walk_launch(
-    const float* table, long long table_rows, int width, long long sentinel,
-    int k, int regs, int passes, long long n, long long* mode, long long* cur,
-    long long* hit_id, float* d_min, float* rad, const float* o,
-    const float* d, const float* so, const float* sd, const float* smax,
-    const float* pend, const unsigned char* cont_after_shadow,
-    long long* rows_out, void* stream) {
-  if (n <= 0) return 0;
-  if (sentinel < 1 || sentinel > table_rows || sentinel > 0x7fffffffLL ||
-      k < 1 || trt::kColBody + trt::kLeafStride * k > width ||
-      trt::kColBody + trt::kBodyNslots >= width || passes < 1 ||
-      n > 0x7fffffffLL * 128) {
+// The launch plan for a table of `sentinel` quad rows of `width` floats
+// whose top tree levels hold levels[0..n_levels) rows, for the kernel
+// with `regs` skip registers on the current device.  plan[0..5) receives
+// the rows to stage, shared bytes per block, the grid that fills the
+// card, blocks per SM and threads per block.  Returns a CUDA error (0 =
+// planned), 1 (cudaErrorInvalidValue) for arguments it does not take.
+extern "C" int trt_quad_walk_plan(long long sentinel, int width, int regs,
+                                  const long long* levels, int n_levels,
+                                  int* plan) {
+  if (sentinel < 1 || sentinel > 0x7fffffffLL || width % 4 != 0 ||
+      width < 4 * trt::kHeadChunks || n_levels < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  unsigned long long* rows = reinterpret_cast<unsigned long long*>(rows_out);
-  const int sent = static_cast<int>(sentinel);
-#define TRT_WALK(R)                                                        \
-  case R:                                                                  \
-    return trt::launch_walk<R>(table, width, sent, k, passes, n, mode, cur, \
-                               hit_id, d_min, rad, o, d, so, sd, smax,     \
-                               pend, cont_after_shadow, rows, st)
+  const int s = static_cast<int>(sentinel);
+  const int stride4 = trt::staged_stride4(width);
   switch (regs) {
-    TRT_WALK(0);
-    TRT_WALK(3);
+    case 0:
+      return trt::plan_walk<0>(s, stride4, levels, n_levels, plan);
+    case 3:
+      return trt::plan_walk<3>(s, stride4, levels, n_levels, plan);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef TRT_WALK
+}
+
+// table [sentinel, width] float32, 16-byte aligned, width a multiple of 4:
+// quad rows in walk order (accel/bvh.py walk_order_table) with k
+// triangles per leaf, its first `staged` rows staged in shared memory by
+// each of `grid` blocks (from trt_quad_walk_plan).  n lanes: mode, cur,
+// hit_id (int64), d_min [n] and rad [n, 3] (float32) are read and
+// written; o, d, so, sd, pend [n, 3], smax [n] (float32) and
+// cont_after_shadow [n] (bool bytes) are read.  counters: two int64,
+// zero at launch: [0] counts claimed lanes, [1] is incremented by the
+// rows fetched.  Returns the CUDA error of the launch (0 = launched), 1
+// (cudaErrorInvalidValue) for arguments it does not take.
+extern "C" int trt_quad_walk_launch(
+    const float* table, long long sentinel, int width, int k, int regs,
+    int passes, int staged, int grid, long long n,
+    long long* mode, long long* cur, long long* hit_id, float* d_min,
+    float* rad, const float* o, const float* d, const float* so,
+    const float* sd, const float* smax, const float* pend,
+    const unsigned char* cont_after_shadow, long long* counters,
+    void* stream) {
+  if (n <= 0) return 0;
+  if (sentinel < 1 || sentinel > 0x7fffffffLL || width % 4 != 0 ||
+      width < 4 * trt::kHeadChunks ||
+      reinterpret_cast<uintptr_t>(table) % 16 != 0 || k < 1 ||
+      trt::kColBody + trt::kLeafStride * k > width || passes < 1 ||
+      staged < 0 || staged > sentinel || grid < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  trt::Params p;
+  p.table = reinterpret_cast<const float4*>(table);
+  p.width4 = width / 4;
+  p.stride4 = trt::staged_stride4(width);
+  p.staged = staged;
+  p.sentinel = static_cast<int>(sentinel);
+  p.k = k;
+  p.passes = passes;
+  p.n = n;
+  p.mode_io = mode;
+  p.cur_io = cur;
+  p.hit_id_io = hit_id;
+  p.d_min_io = d_min;
+  p.rad_io = rad;
+  p.o = o;
+  p.d = d;
+  p.so = so;
+  p.sd = sd;
+  p.smax = smax;
+  p.pend = pend;
+  p.cont_after_shadow = cont_after_shadow;
+  p.next_lane = reinterpret_cast<unsigned long long*>(counters);
+  p.rows_out = reinterpret_cast<unsigned long long*>(counters) + 1;
+  const size_t smem = trt::staged_bytes(staged, p.stride4);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (regs) {
+    case 0:
+      trt::quad_walk_kernel<0><<<grid, trt::kThreads, smem, st>>>(p);
+      break;
+    case 3:
+      trt::quad_walk_kernel<3><<<grid, trt::kThreads, smem, st>>>(p);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

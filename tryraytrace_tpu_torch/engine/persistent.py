@@ -51,6 +51,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tryraytrace_tpu_torch.accel.bvh import walk_order_table
 from tryraytrace_tpu_torch.config import (INLINE_MAX_LIGHTS, RenderConfig,
                                           check_supported)
 from tryraytrace_tpu_torch.core import rng, vec
@@ -86,6 +87,8 @@ class InlineTable:
     pack: int             # trimat rows per table row (1 or 2)
     tex0: int | None      # first texture tile row, None without textures
     metas: list           # per-texture tile layout (build_texture_tiles)
+    walk: torch.Tensor    # the quad rows in walk order (walk_order_table)
+    walk_levels: tuple    # rows per tree level of ``walk``
 
 
 def build_inline_table(scene, textures) -> InlineTable:
@@ -97,7 +100,12 @@ def build_inline_table(scene, textures) -> InlineTable:
     The JAX engine leaves the tile rows out when they pass its 2 MB
     gather budget and then shades textured hits on its tick path; the
     port has no tick path and always appends them, which gives the
-    same image."""
+    same image.
+
+    The round loop's walks read a second copy of the quad rows, in
+    breadth-first order with 16-byte rows (accel/bvh.py
+    ``walk_order_table``); the service fetches and the interleaved loop
+    read the unified table."""
     table = scene.quad_table
     nw = table.shape[1]
     pack = 2 if nw >= 74 else 1
@@ -116,7 +124,10 @@ def build_inline_table(scene, textures) -> InlineTable:
         rows = torch.as_tensor(rows, device=table.device)
         parts.append(pad(rows, (0, wu - TEX_ROW)))
         tex0 = sentinel + int(packed.shape[0])
-    return InlineTable(torch.cat(parts, 0), sentinel, pack, tex0, metas)
+    walk, levels = walk_order_table(table.cpu().numpy(), scene.leaf_size)
+    return InlineTable(torch.cat(parts, 0), sentinel, pack, tex0, metas,
+                       torch.as_tensor(walk, device=table.device),
+                       tuple(levels))
 
 
 @dataclasses.dataclass
@@ -273,11 +284,12 @@ def _step_quad(s, inline: InlineTable, k: int, fr: _Frame,
 def _round_quad(s, inline: InlineTable, k: int, fr: _Frame,
                 redirect_passes: int = 1):
     """One round of the round loop: every TRAVERSE and SHADOW lane's walk
-    run to its end (the CUDA kernel on a card), then one service pass.
-    A lane the pass sends to TEXG is shaded by the next round's pass.
-    Returns (state', path rays started, shadow rays started, quad rows
-    fetched)."""
-    s, rows = quad_walk(s, inline.table, inline.sentinel, k, redirect_passes)
+    run to its end over the walk-order rows (the CUDA kernel on a card),
+    then one service pass.  A lane the pass sends to TEXG is shaded by
+    the next round's pass.  Returns (state', path rays started, shadow
+    rays started, quad rows fetched)."""
+    s, rows = quad_walk(s, inline.walk, inline.sentinel, k, redirect_passes,
+                        inline.walk_levels)
     idx, live_g, live_x = _service_select(s, torch.zeros_like(s["cur"]),
                                           inline)
     row = inline.table[idx]

@@ -50,12 +50,14 @@ class KernelLibrary:
 
     ``functions`` maps each exported C function to its ctypes argument
     types; every function returns the launch's ``cudaGetLastError()``
-    as an int."""
+    as an int.  A benchmark may build a variant of a kernel: ``defines``
+    are extra ``-D`` flags."""
 
-    def __init__(self, name: str, functions: dict):
+    def __init__(self, name: str, functions: dict, defines=()):
         self.name = name
         self.source = os.path.join(CSRC_DIR, f"{name}.cu")
         self.functions = functions
+        self.flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
         self.handle = None
         self.path = None
         self.build_seconds = None
@@ -66,7 +68,7 @@ class KernelLibrary:
 
     def _target(self) -> str:
         with open(self.source, "rb") as f:
-            tag = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()
+            tag = hashlib.sha1(f.read() + " ".join(self.flags).encode()
                                ).hexdigest()[:12]
         return os.path.join(BUILD_DIR, f"libtrt_{self.name}_{tag}.so")
 
@@ -83,7 +85,7 @@ class KernelLibrary:
         os.makedirs(BUILD_DIR, exist_ok=True)
         self._tmp = f"{self.path}.{os.getpid()}.tmp"
         self._proc = subprocess.Popen(
-            [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", self._tmp,
+            [nvcc(), *self.flags, "-Xptxas", "-v", "-o", self._tmp,
              self.source],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 

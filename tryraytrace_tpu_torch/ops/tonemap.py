@@ -5,9 +5,11 @@ Replaces the Pallas TPU kernel tryraytrace_tpu/ops/pallas_tonemap.py
 (``_tonemap_kernel``): average the radiance sum by the sample count,
 clamp to [0, 1], gamma 1/2.2, ``* 255 + 0.5``, truncate to uint8 (the
 reference's toInt, common.h:126-128).  It runs on the card so that
-only the 3 B/pixel image crosses to the host.  It is bound by bytes
-(12 B read and 3 B written per pixel), so it is one coalesced
-elementwise pass (csrc/tonemap.cu).
+only the 3 B/pixel image crosses to the host.  It reads 12 B and
+writes 3 B per pixel in 16-byte loads and 4-byte stores, in a
+grid-stride loop over as many blocks as the card holds
+(csrc/tonemap.cu); its IEEE ``powf`` per byte takes longer than the
+bytes on an H100.
 
 ``tonemap`` runs the plain version for a CPU tensor and the kernel for
 a CUDA tensor; there is no fallback between the two.  The kernel is
@@ -45,9 +47,11 @@ def tonemap_plain(accum: torch.Tensor, spp: int) -> torch.Tensor:
 
 
 LIBRARY = KernelLibrary("tonemap", {
+    "trt_tonemap_grid": (ctypes.c_void_p,),
     "trt_tonemap_launch": (ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_longlong, ctypes.c_float,
-                           ctypes.c_float, ctypes.c_void_p)})
+                           ctypes.c_float, ctypes.c_int, ctypes.c_void_p)})
+_grids = {}  # the grid that fills a device, by (library, device)
 
 
 def tonemap_cuda(accum: torch.Tensor, spp: int) -> torch.Tensor:
@@ -62,13 +66,22 @@ def tonemap_cuda(accum: torch.Tensor, spp: int) -> torch.Tensor:
         raise ValueError(f"accum must be [N, 3], got {tuple(accum.shape)}")
     if not accum.is_contiguous():
         raise ValueError("accum must be contiguous")
-    lib = LIBRARY.load()
+    library = LIBRARY
+    lib = library.load()
     out = torch.empty(accum.shape, dtype=torch.uint8, device=accum.device)
+    key = (library.path, accum.device.index)
     with torch.cuda.device(accum.device):
+        if key not in _grids:
+            grid = ctypes.c_int()
+            err = lib.trt_tonemap_grid(ctypes.byref(grid))
+            if err != 0:
+                raise RuntimeError(f"tonemap kernel cannot be planned: "
+                                   f"CUDA error {err}")
+            _grids[key] = grid.value
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.trt_tonemap_launch(accum.data_ptr(), out.data_ptr(),
                                      accum.numel(), inv_spp(spp), GAMMA_EXP,
-                                     stream)
+                                     _grids[key], stream)
     if err != 0:
         raise RuntimeError(f"tonemap kernel launch failed: CUDA error {err}")
     tonemap_cuda.launches += 1

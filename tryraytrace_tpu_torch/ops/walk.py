@@ -16,11 +16,15 @@ and the lane resumes its already chosen bounce (TRAVERSE) or ends
 
 ``walk_step`` is one such step for every lane at once; the engine's
 interleaved loop (its plain version of a whole frame) calls it once per
-iteration with the row fetch it shares with the service block.  ``walk_plain`` repeats it until no lane
-is TRAVERSE or SHADOW.  ``quad_walk_cuda`` (csrc/quad_walk.cu) does the
-same with one thread per lane in one launch.  The walk draws no random
-numbers and the lanes are independent, so a walk run to its end gives
-a lane the state the same walk gives it one row per iteration.
+iteration with the row fetch it shares with the service block.
+``walk_plain`` repeats it until no lane is TRAVERSE or SHADOW.
+``quad_walk_cuda`` (csrc/quad_walk.cu) does the same in one launch of
+persistent blocks whose threads take lanes until none is left, over
+the walk-order copy of the quad rows with its top levels in shared
+memory.  The walk draws no random numbers and the lanes are
+independent, so a walk run to its end gives a lane the state the same
+walk gives it one row per iteration, and it finds the same rows in
+either table (accel/bvh.py ``walk_order_table``).
 
 Both return the number of rows fetched, summed over the lanes, as an
 int64 tensor.
@@ -163,17 +167,24 @@ def walk_plain(s, table, sentinel: int, k: int, passes: int = 1):
 
 
 LIBRARY = KernelLibrary("quad_walk", {
+    "trt_quad_walk_plan": (
+        # sentinel, row width, regs, rows per top level (host array),
+        # levels, plan (host array)
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p),
     "trt_quad_walk_launch": (
-        # table, rows, row width, sentinel, leaf size, regs, passes
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        # lanes; mode, cur, hit_id, d_min, rad (read and written)
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
+        # table, sentinel, row width, leaf size, regs, passes, staged
+        # rows, grid, lanes
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong,
+        # mode, cur, hit_id, d_min, rad (read and written)
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
         # o, d, so, sd, smax, pend, cont_after_shadow (read)
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        # rows-fetched counter, stream
+        # counters (claimed lanes, rows fetched), stream
         ctypes.c_void_p, ctypes.c_void_p)})
 
 _FIELDS = (("mode", torch.int64, 1), ("cur", torch.int64, 1),
@@ -182,24 +193,53 @@ _FIELDS = (("mode", torch.int64, 1), ("cur", torch.int64, 1),
            ("d", torch.float32, 3), ("so", torch.float32, 3),
            ("sd", torch.float32, 3), ("smax", torch.float32, 1),
            ("pend", torch.float32, 3), ("cont_after_shadow", torch.bool, 1))
+_PLAN = ("staged_rows", "shared_bytes", "grid", "blocks_per_sm", "threads")
+# Launch plans by (library, device, regs, width, sentinel, levels): they
+# depend on nothing else, so each is worked out once.
+_plans = {}
 
 
-def quad_walk_cuda(s, table, sentinel: int, k: int, passes: int = 1):
-    """Launch the walk kernel on the current stream, one thread per lane.
+def _plan(library, lib, dev, regs: int, width: int, sentinel: int,
+          levels: tuple) -> dict:
+    key = (library.path, dev.index, regs, width, sentinel, levels)
+    if key not in _plans:
+        host_levels = (ctypes.c_longlong * max(1, len(levels)))(*levels)
+        plan = (ctypes.c_int * len(_PLAN))()
+        with torch.cuda.device(dev):
+            err = lib.trt_quad_walk_plan(sentinel, width, regs,
+                                         ctypes.addressof(host_levels),
+                                         len(levels), ctypes.addressof(plan))
+        if err != 0:
+            raise RuntimeError(f"quad_walk kernel cannot be planned: CUDA "
+                               f"error {err}")
+        _plans[key] = dict(zip(_PLAN, plan))
+    return _plans[key]
+
+
+def quad_walk_cuda(s, table, sentinel: int, k: int, passes: int = 1,
+                   levels=()):
+    """Launch the walk kernel on the current stream.
 
     ``s`` holds the engine's lane state on the table's CUDA device, every
-    field contiguous; ``table`` is the unified table [rows, width]
-    float32, whose first ``sentinel`` rows are quad rows with ``k``
-    triangles per leaf.  The skip registers (as many as the state's
-    ``reg_e`` has columns, one of KERNEL_REGS; none without that field)
-    live in the thread and ``reg_e`` / ``reg_s`` themselves are neither
-    read nor written.  That is the plain version's result only for walks
-    that start with an empty file, so with registers every TRAVERSE or
-    SHADOW lane must stand at row 0, as the engine's always do between
-    rounds; a state caught mid-walk raises (the one check that waits
-    for the device).  The five fields the walk writes are copied first,
-    so ``s`` itself is left as it was.  Returns (state', rows fetched as
-    an int64 tensor)."""
+    field contiguous.  ``table`` is the walk-order copy of the quad rows
+    (accel/bvh.py ``walk_order_table``): [rows, width] float32,
+    contiguous, 16-byte aligned, ``width`` a multiple of 4, its first
+    ``sentinel`` rows quad rows with ``k`` triangles per leaf.
+    ``levels`` are the rows of its top tree levels, as
+    ``walk_order_table`` gives them; each block stages the most whole
+    levels of them that fit in shared memory (none when empty).  The
+    launch's plan is worked out once per table and device.  The skip
+    registers (as many as the state's ``reg_e`` has columns, one of
+    KERNEL_REGS; none without that field) live in the thread and
+    ``reg_e`` / ``reg_s`` themselves are neither read nor written.  That
+    is the plain version's result only for walks that start with an
+    empty file, so with registers every TRAVERSE or SHADOW lane must
+    stand at row 0, as the engine's always do between rounds; a state
+    caught mid-walk raises (the one check that waits for the device).
+    The five fields the walk writes are copied first, so ``s`` itself is
+    left as it was.  The launch's shape is left in
+    ``quad_walk_cuda.plan``.  Returns (state', rows fetched as an int64
+    tensor)."""
     dev = table.device
     if dev.type != "cuda":
         raise ValueError(f"quad_walk_cuda needs CUDA tensors, got {dev}")
@@ -208,12 +248,20 @@ def quad_walk_cuda(s, table, sentinel: int, k: int, passes: int = 1):
         raise ValueError("table must be a contiguous [rows, width] float32 "
                          "tensor")
     width = table.shape[1]
+    if width % 4 or table.data_ptr() % 16:
+        raise ValueError(f"the kernel reads 16-byte rows: a row of {width} "
+                         "floats, or a table not 16-byte aligned, is not "
+                         "one (walk_order_table pads the rows)")
     if not 0 < sentinel <= table.shape[0]:
         raise ValueError(f"sentinel {sentinel} outside the table's "
                          f"{table.shape[0]} rows")
-    if k < 1 or 10 + max(29, 12 * k) > width:
+    if k < 1 or 10 + max(30, 12 * k) > width:
         raise ValueError(f"rows of {width} floats cannot hold quad rows "
                          f"with {k} triangles per leaf")
+    levels = tuple(int(v) for v in levels)
+    if min(levels, default=0) < 0 or sum(levels) > sentinel:
+        raise ValueError(f"levels {list(levels)} are not the top of a tree "
+                         f"of {sentinel} rows")
     regs = s["reg_e"].shape[1] if "reg_e" in s else 0
     if regs not in KERNEL_REGS:
         raise ValueError(f"the kernel is built for {KERNEL_REGS} skip "
@@ -232,37 +280,43 @@ def quad_walk_cuda(s, table, sentinel: int, k: int, passes: int = 1):
     if regs and bool((walking & (s["cur"] != 0)).any()):
         raise ValueError("a TRAVERSE or SHADOW lane stands mid-walk (cur != "
                          "0): its skip registers are not in the kernel")
-    lib = LIBRARY.load()
+    library = LIBRARY
+    lib = library.load()
     out = dict(s)
     for name in WRITES:
         out[name] = s[name].clone()
-    rows = torch.zeros((), dtype=torch.int64, device=dev)
+    counters = torch.zeros(2, dtype=torch.int64, device=dev)
     if w > 0:
+        plan = dict(_plan(library, lib, dev, regs, width, sentinel, levels))
+        plan["grid"] = min(plan["grid"], -(-w // plan["threads"]))
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.trt_quad_walk_launch(
-                table.data_ptr(), table.shape[0], width, sentinel, k, regs,
-                max(1, passes), w, out["mode"].data_ptr(),
-                out["cur"].data_ptr(), out["hit_id"].data_ptr(),
-                out["d_min"].data_ptr(), out["rad"].data_ptr(),
-                s["o"].data_ptr(), s["d"].data_ptr(), s["so"].data_ptr(),
-                s["sd"].data_ptr(), s["smax"].data_ptr(),
+                table.data_ptr(), sentinel, width, k, regs, max(1, passes),
+                plan["staged_rows"], plan["grid"], w,
+                out["mode"].data_ptr(), out["cur"].data_ptr(),
+                out["hit_id"].data_ptr(), out["d_min"].data_ptr(),
+                out["rad"].data_ptr(), s["o"].data_ptr(), s["d"].data_ptr(),
+                s["so"].data_ptr(), s["sd"].data_ptr(), s["smax"].data_ptr(),
                 s["pend"].data_ptr(), s["cont_after_shadow"].data_ptr(),
-                rows.data_ptr(), stream)
+                counters.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"quad_walk kernel launch failed: CUDA "
                                f"error {err}")
         quad_walk_cuda.launches += 1
-    return out, rows
+        quad_walk_cuda.plan = plan
+    return out, counters[1]
 
 
 quad_walk_cuda.launches = 0
+quad_walk_cuda.plan = None
 
 
-def quad_walk(s, table, sentinel: int, k: int, passes: int = 1):
+def quad_walk(s, table, sentinel: int, k: int, passes: int = 1, levels=()):
     """Run every TRAVERSE and SHADOW lane's walk to its end on the
     table's own device: the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors.  Returns (state', rows fetched)."""
+    kernel for CUDA tensors (``table`` then the walk-order copy and
+    ``levels`` its top levels).  Returns (state', rows fetched)."""
     if table.device.type == "cpu":
         return walk_plain(s, table, sentinel, k, passes)
-    return quad_walk_cuda(s, table, sentinel, k, passes)
+    return quad_walk_cuda(s, table, sentinel, k, passes, levels)
