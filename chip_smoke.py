@@ -15,6 +15,12 @@ after:
     round loop, one walk-kernel launch and one eager service pass per
     round.  It runs first, before any kernel is timed under
     torch.profiler;
+  - the progressive path (ProgressiveRenderer.step / snapshot) on the
+    same scene and raster, also before any profiler session: a capped
+    wave held bit for bit to a batch step, the same wave split across
+    calls, and an unbounded wave timed frame by frame; then
+    Renderer.step_tiled held to Renderer.step, and a .npz checkpoint
+    round trip held to the step it replaces;
   - the row-fetch microbenchmark (scripts/microbench_torch_fetch.py):
     65,536 lanes, 64 steps, six table variants, both placements.
 
@@ -25,8 +31,11 @@ plain version of the whole on the CPU (the interleaved eager loop, one
 row per lane per step).  Every phase prints its own lines; any failure
 raises and the script exits non-zero.  The last line is a JSON object
 {"ok": true, "device": {...}}, the line before it the card's name and
-power limit, and the line before that the kernel table.  Without a
-CUDA device it exits non-zero and prints no result.
+power limit, and the line before that the kernel table (the walk
+kernel's entry counts its launches on each path: ``launches`` on the
+main path, ``progressive_launches`` and ``tiled_launches``, each with
+the count set to 0 just before the path and read just after).  Without
+a CUDA device it exits non-zero and prints no result.
 
 A kernel's ``ms`` is its own device time per launch (torch.profiler's
 durations of the kernel itself), ``wrapper_ms`` the time per call of
@@ -46,6 +55,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -56,7 +66,9 @@ from torch.profiler import ProfilerActivity, profile
 from tryraytrace_tpu_torch.camera.controller import CameraController
 from tryraytrace_tpu_torch.config import RenderConfig
 from tryraytrace_tpu_torch.engine import persistent
+from tryraytrace_tpu_torch.engine.progressive import ProgressiveRenderer
 from tryraytrace_tpu_torch.engine.renderer import Renderer
+from tryraytrace_tpu_torch.engine.state import load_checkpoint, save_checkpoint
 from tryraytrace_tpu_torch.ops import _build, fetch
 from tryraytrace_tpu_torch.ops import tonemap as tm
 from tryraytrace_tpu_torch.ops import walk
@@ -84,6 +96,15 @@ MAIN_STEP_COUNTS = ((6993829, 4624618, 41696132, 39),
                     (6987560, 4620233, 41678448, 40),
                     (6996624, 4627199, 41692854, 39))
 SHADOW_LANES_MIN = 10000       # [walk]'s second state: this many in SHADOW
+# [progressive]: the capped runs render samples 0..CAP-1 of frame F (the
+# batch step's seeds at spp CAP); the unbounded run advances its wave
+# this many rounds per display frame, for the frames before and after
+# its reset.
+PROGRESSIVE_CAP = 2
+PROGRESSIVE_FRAME_SEED = 7
+PROGRESSIVE_ROUNDS = 8
+PROGRESSIVE_FRAMES = (6, 2)
+TILES = 4                      # [tiled]: step_tiled against step
 LATE_DONE_SHARE = 0.9          # [walk]'s third state: this share DONE
 
 # NVIDIA's published H100 SXM figures: device-memory rate and float32
@@ -464,7 +485,8 @@ def phase_walk(r: Renderer, params) -> dict:
     log(f"[walk] walk-order rows {tuple(inline.walk.shape)}, rows per level "
         f"{list(inline.walk_levels)}")
     cam = params.to(r.device)
-    fr = persistent._Frame(r.scene, inline, cfg, cam, 1, WIDTH, HEIGHT, 1)
+    fr = persistent._Frame(r.scene, inline, cfg, cam, 1, WIDTH, HEIGHT, 1,
+                           1)
     s = persistent.init_lane_ctx(
         1, 1, torch.arange(WIDTH * HEIGHT, device=r.device), cam, WIDTH,
         HEIGHT, cfg, with_tstash=inline.tex0 is not None)
@@ -559,6 +581,180 @@ def phase_main_path(r: Renderer, params) -> dict:
                 peak_bytes=peak, image_mean=float(img.mean()))
 
 
+def _progressive_steps(pr: ProgressiveRenderer, params, rounds) -> int:
+    """``pr.step(params, n)`` for each n of ``rounds`` while the wave is
+    not done, with a snapshot after each; the walk launches they made."""
+    launches = 0
+    for n in rounds:
+        if pr.done() and pr.wave is not None:
+            break
+        before = walk.quad_walk_cuda.launches
+        pr.step(params, n)
+        launches += walk.quad_walk_cuda.launches - before
+        pr.snapshot()
+    return launches
+
+
+def phase_progressive(r: Renderer, arrays, params) -> dict:
+    """ProgressiveRenderer on the main path's scene at full width:
+      (a) a capped run (PROGRESSIVE_CAP spp, frame PROGRESSIVE_FRAME_SEED)
+          to done(), equal bit for bit to a batch step of that frame at
+          that spp, sums and int64 ray counts;
+      (c) the same run split into calls of 1, 2, 3, ... rounds, with a
+          snapshot after each, equal to (a) bit for bit;
+      (b) an unbounded run: PROGRESSIVE_FRAMES[0] frames of
+          PROGRESSIVE_ROUNDS rounds, reset(), PROGRESSIVE_FRAMES[1] more;
+          counts only grow between resets, and reset() zeroes them.
+    Every round is one walk-kernel launch.  Returns the launches the
+    progressive renderers made and the unbounded frames."""
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT)
+    cap, seed = PROGRESSIVE_CAP, PROGRESSIVE_FRAME_SEED
+    n = WIDTH * HEIGHT
+    launches = 0
+    t0 = time.perf_counter()
+    pr = ProgressiveRenderer(arrays, cfg=cfg, spp_cap=cap, frame_seed=seed,
+                             seed_spp=cap, device=r.device)
+    t1 = time.perf_counter()
+    launches += _progressive_steps(pr, params, [1 << 20])
+    pr.block_until_ready()
+    t2 = time.perf_counter()
+    capped_rounds = pr.wave.rounds
+    accum, counts = pr.snapshot()
+    rays = (int(pr.wave.n_traced), int(pr.wave.n_shadow))
+    r.reset()
+    r.frame = seed
+    r.step(params, spp=cap)
+    want = r.state.accum.cpu().numpy()
+    want_rays = (int(r.last_stats["n_traced"]), int(r.last_stats["n_shadow"]))
+    log(f"[progressive] capped at {cap} spp, frame {seed}: setup "
+        f"{t1 - t0:.2f} s, {capped_rounds} rounds in "
+        f"{1e3 * (t2 - t1):.1f} ms, (path, shadow) rays {rays}; batch step "
+        f"{r.last_stats['iterations']} rounds, {want_rays}; sums equal "
+        f"{accum.tobytes() == want.tobytes()}")
+    if not pr.done() or not (counts == cap).all():
+        raise AssertionError(f"capped run: done {pr.done()}, counts "
+                             f"{counts.min()}..{counts.max()}, not {cap}")
+    if accum.tobytes() != want.tobytes() or rays != want_rays:
+        raise AssertionError("capped progressive run differs from the batch "
+                             f"step: rays {rays} vs {want_rays}")
+    pr.reset()
+    launches += _progressive_steps(pr, params, range(1, 1 << 20))
+    split = pr.snapshot()
+    log(f"[progressive] split into calls of 1, 2, 3, ... rounds: "
+        f"{pr.wave.rounds} rounds, sums equal "
+        f"{split[0].tobytes() == accum.tobytes()}, counts equal "
+        f"{bool((split[1] == counts).all())}")
+    if (split[0].tobytes() != accum.tobytes()
+            or not (split[1] == counts).all() or pr.rays_traced() != sum(rays)
+            or pr.wave.rounds != capped_rounds):
+        raise AssertionError("the split run differs from the one-call run")
+    del pr
+    pu = ProgressiveRenderer(arrays, cfg=cfg, device=r.device)
+    frames = []
+    prev = np.zeros(n, np.int32)
+    for i in range(sum(PROGRESSIVE_FRAMES)):
+        if i == PROGRESSIVE_FRAMES[0]:
+            pu.reset()
+            acc0, prev = pu.snapshot()
+            if acc0.any() or prev.any() or pu.rays_traced() != 0:
+                raise AssertionError("reset() left samples or rays")
+        tr0, sh0 = ((int(pu.wave.n_traced), int(pu.wave.n_shadow))
+                    if pu.wave is not None else (0, 0))
+        before = walk.quad_walk_cuda.launches
+        t0 = time.perf_counter()
+        pu.step(params, PROGRESSIVE_ROUNDS)
+        pu.block_until_ready()
+        dt = time.perf_counter() - t0
+        frame_launches = walk.quad_walk_cuda.launches - before
+        t1 = time.perf_counter()
+        acc, cnt = pu.snapshot()
+        snap_ms = 1e3 * (time.perf_counter() - t1)
+        path = int(pu.wave.n_traced) - tr0
+        shadow = int(pu.wave.n_shadow) - sh0
+        f = dict(ms=1e3 * dt, snapshot_ms=snap_ms, launches=frame_launches,
+                 mean_spp=float(cnt.mean()), min_spp=int(cnt.min()),
+                 max_spp=int(cnt.max()), path=path, shadow=shadow,
+                 mrays_per_s=(path + shadow) / dt / 1e6)
+        frames.append(f)
+        launches += frame_launches
+        log(f"[progressive] unbounded frame {i + 1}: {f['ms']:.1f} ms "
+            f"(snapshot {snap_ms:.1f} ms), {frame_launches} walk launches, "
+            f"spp mean {f['mean_spp']!r} min {f['min_spp']} max "
+            f"{f['max_spp']}, path rays {path}, shadow rays {shadow}, "
+            f"{f['mrays_per_s']:.3f} Mrays/s")
+        if frame_launches != PROGRESSIVE_ROUNDS or pu.done():
+            raise AssertionError(f"frame {i + 1}: {frame_launches} launches "
+                                 f"for {PROGRESSIVE_ROUNDS} rounds")
+        if not (cnt >= prev).all() or not cnt.sum() > prev.sum():
+            raise AssertionError(f"frame {i + 1}: a count fell or none grew")
+        if not np.isfinite(acc).all() or not path > 0:
+            raise AssertionError(f"frame {i + 1}: non-finite sums or no rays")
+        prev = cnt
+    if launches != 2 * capped_rounds + len(frames) * PROGRESSIVE_ROUNDS:
+        raise AssertionError(f"{launches} walk launches: a round is one")
+    return dict(launches=launches, frames=frames, capped_rounds=capped_rounds)
+
+
+def phase_tiled(r: Renderer, params) -> dict:
+    """step_tiled(TILES) against step at full width, bit for bit, and the
+    three image paths."""
+    r.reset()
+    r.step(params)
+    want, want_stats = r.state.accum.clone(), r.last_stats
+    r.reset()
+    before = walk.quad_walk_cuda.launches
+    t0 = time.perf_counter()
+    r.step_tiled(params, TILES)
+    r.block_until_ready()
+    dt = time.perf_counter() - t0
+    launches = walk.quad_walk_cuda.launches - before
+    st = r.last_stats
+    counts = [(int(x["n_traced"]), int(x["n_shadow"]), int(x["rows_fetched"]))
+              for x in (want_stats, st)]
+    equal = torch.equal(r.state.accum, want)
+    img = r.image()
+    off = int((r.image(on_device=False) != img).sum())
+    log(f"[tiled] {TILES} tiles: {1e3 * dt:.1f} ms, {st['iterations']} rounds "
+        f"({launches} walk launches; step: {want_stats['iterations']}), "
+        f"(path, shadow, rows) {counts[1]} vs step {counts[0]}; sums equal "
+        f"{equal}; image bytes off the host tonemap {off}")
+    if not equal or counts[0] != counts[1]:
+        raise AssertionError("step_tiled differs from step")
+    if launches != st["iterations"] or launches < TILES:
+        raise AssertionError(f"{launches} walk launches in "
+                             f"{st['iterations']} rounds")
+    if not np.array_equal(r.image(on_device=True), img):
+        raise AssertionError("image(on_device=True) differs from image()")
+    if off > MAX_BOUNDARY_SHARE * img.size:
+        raise AssertionError(f"{off} image bytes off the host tonemap")
+    return dict(launches=launches)
+
+
+def phase_checkpoint(r: Renderer, params) -> None:
+    """A step's state through a .npz checkpoint and back: the next step
+    from the loaded state equals the step from the state itself."""
+    cam = CameraController()
+    r.reset()
+    r.step(params)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        save_checkpoint(path, r.state, WIDTH, HEIGHT, camera=cam,
+                        frame_seed=r.frame)
+        r.step(params)
+        want = r.state.accum.clone()
+        state, w, h, frame_seed, cam2 = load_checkpoint(path)
+        size = os.path.getsize(path)
+    r.state, r.frame = state, frame_seed
+    r.step(cam2.get_params(WIDTH, HEIGHT))
+    equal = torch.equal(r.state.accum, want)
+    log(f"[checkpoint] {size} B .npz, {w}x{h}, frame {frame_seed}, state on "
+        f"{state.accum.device}; next step equal {equal}")
+    if (w, h) != (WIDTH, HEIGHT) or state.accum.device.type != "cuda":
+        raise AssertionError(f"loaded {w}x{h} on {state.accum.device}")
+    if not equal or r.spp() != 2:
+        raise AssertionError("the step after the round trip differs")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -577,6 +773,11 @@ def main() -> int:
     # (_kernel_ms): after one, the same process steps far slower
     # (PERF.md; scripts/time_torch_step.py --profile-first).
     main_run = phase_main_path(r, params)
+    walk.quad_walk_cuda.launches = 0
+    progressive = phase_progressive(r, arrays, params)
+    walk.quad_walk_cuda.launches = 0
+    tiled = phase_tiled(r, params)
+    phase_checkpoint(r, params)
     tone = phase_tonemap()
     chain = phase_fetch(seed=0)
     walked = phase_walk(r, params)
@@ -597,6 +798,8 @@ def main() -> int:
              source="tryraytrace_tpu_torch/csrc/quad_walk.cu",
              replaces="tryraytrace_tpu/engine/persistent.py:948",
              launches=main_run["walk_launches"],
+             progressive_launches=progressive["launches"],
+             tiled_launches=tiled["launches"],
              **{k: walked[k] for k in keys},
              rows_fetched=walked["rows_fetched"], plan=walked["plan"])]}))
     log(smi)

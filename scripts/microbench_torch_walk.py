@@ -55,7 +55,7 @@ def states(r: Renderer, params):
     w, h = chip_smoke.WIDTH, chip_smoke.HEIGHT
     inline, cfg = r.inline, r.cfg
     cam = params.to(r.device)
-    fr = persistent._Frame(r.scene, inline, cfg, cam, 1, w, h, 1)
+    fr = persistent._Frame(r.scene, inline, cfg, cam, 1, w, h, 1, 1)
     s = persistent.init_lane_ctx(1, 1, torch.arange(w * h, device=r.device),
                                  cam, w, h, cfg,
                                  with_tstash=inline.tex0 is not None)

@@ -191,7 +191,7 @@ def test_round_loop_walks_the_copy_and_the_unified_table_agrees(
     assert inline.walk_levels == tuple(levels) and levels[:2] == [1, 4]
     assert inline.walk.shape[1] % 4 == 0
     cam = CameraController().get_params(w, h).to("cpu")
-    fr = persistent._Frame(r.scene, inline, r.cfg, cam, 1, w, h, 1)
+    fr = persistent._Frame(r.scene, inline, r.cfg, cam, 1, w, h, 1, 1)
     s = persistent.init_lane_ctx(1, 1, torch.arange(w * h), cam, w, h,
                                  r.cfg, with_tstash=inline.tex0 is not None)
     seen = []

@@ -21,7 +21,11 @@ of ``quad_walk`` (ops/walk.py) runs every TRAVERSE and SHADOW lane's
 walk to its end (the hand-written CUDA kernel for CUDA tensors, its
 plain version for CPU tensors), then one service pass (a row fetch for
 the SHADEG and TEXG lanes, shade, texture, refill) in eager PyTorch;
-rounds repeat until every lane is DONE.
+rounds repeat until every lane is DONE.  The loop is a ``Wave``: its
+lane state lives across calls, it advances by a given number of rounds
+and is read without being consumed, so the progressive engine
+(engine/progressive.py) and tiled steps (a wave over a pixel subset)
+run the same code as a batch frame.
 
 ``render_frame_interleaved`` is the plain version of the whole: a Python
 ``while`` over eager tensor steps, each of which advances every walking
@@ -141,18 +145,20 @@ class _Frame:
     frame_seed: int
     width: int
     height: int
-    spp: int
+    spp_cap: int   # a lane retires once its pixel has this many samples
+    seed_spp: int  # the spp of the seed schedule (core/rng.py sample_seed)
 
 
-def init_lane_ctx(frame_seed: int, spp: int, pix0, cam, width: int,
+def init_lane_ctx(frame_seed: int, seed_spp: int, pix0, cam, width: int,
                   height: int, cfg: RenderConfig, with_tstash: bool) -> dict:
     """Fresh per-lane wave state: lane i renders pixel ``pix0[i]``,
-    starting with its sample 0."""
+    starting with its sample 0, whose seed is
+    ``sample_seed(frame_seed, seed_spp, 0)``."""
     w = int(pix0.shape[0])
     dev = pix0.device
     f3 = lambda: torch.zeros((w, 3), device=dev)
     sample0 = torch.zeros((w,), dtype=torch.int64, device=dev)
-    seed0 = rng.sample_seed(frame_seed, spp, sample0)
+    seed0 = rng.sample_seed(frame_seed, seed_spp, sample0)
     r_o, r_d = generate_rays(cam, width, height, seed0, pix0)
     st = {}
     if cfg.quad_regs > 0:
@@ -171,7 +177,7 @@ def init_lane_ctx(frame_seed: int, spp: int, pix0, cam, width: int,
         o=r_o, d=r_d,
         tp=torch.ones((w, 3), device=dev),
         rad=f3(),                 # current sample's radiance
-        sample=sample0,
+        sample=sample0,           # the pixel's samples completed so far
         seed=seed0,
         pix=pix0,
         depth=torch.zeros((w,), dtype=torch.int64, device=dev),
@@ -187,84 +193,138 @@ def init_lane_ctx(frame_seed: int, spp: int, pix0, cam, width: int,
 
 def render_frame_persistent(scene, inline: InlineTable, cam, frame_seed: int,
                             width: int, height: int, cfg: RenderConfig,
-                            spp: int):
+                            spp: int, pixels=None):
     """All ``spp`` samples of one frame in one regenerating wave on the
     scene's device, one lane per pixel, in rounds: every walk run to its
     end (the CUDA walk kernel on a CUDA device), then one service pass.
     ``inline`` is the scene's ``build_inline_table``; ``cam`` a
-    CameraParams (NumPy or tensors).
+    CameraParams (NumPy or tensors); ``pixels`` the pixel ids to render
+    (an int64 tensor on the scene's device; all ``width * height`` by
+    default).
 
-    Returns (radiance sum [width*height, 3], stats) with stats
-    ``n_traced`` and ``n_shadow`` (int64 tensors: path rays started,
-    camera rays included, and NEE shadow rays fired), ``iterations``
-    (rounds) and ``rows_fetched`` (int64 tensor: quad rows the walks
-    fetched)."""
+    Returns (radiance sum [len(pixels), 3] in the order of ``pixels``,
+    stats) with stats ``n_traced`` and ``n_shadow`` (int64 tensors: path
+    rays started, camera rays included, and NEE shadow rays fired),
+    ``iterations`` (rounds) and ``rows_fetched`` (int64 tensor: quad
+    rows the walks fetched)."""
     return _render_frame(scene, inline, cam, frame_seed, width, height, cfg,
-                         spp, _round_quad, 1)
+                         spp, pixels, _round_quad, 1)
 
 
 def render_frame_interleaved(scene, inline: InlineTable, cam, frame_seed: int,
                              width: int, height: int, cfg: RenderConfig,
                              spp: int):
-    """The plain version of ``render_frame_persistent``: one row per
-    walking lane per step, the service block in every step.  Same
-    arguments, same result; ``iterations`` counts steps."""
+    """The plain version of ``render_frame_persistent`` over every
+    pixel: one row per walking lane per step, the service block in
+    every step.  Same result; ``iterations`` counts steps."""
     return _render_frame(scene, inline, cam, frame_seed, width, height, cfg,
-                         spp, _step_quad, LIVE_CHECK_EVERY)
+                         spp, None, _step_quad, LIVE_CHECK_EVERY)
 
 
 def _render_frame(scene, inline: InlineTable, cam, frame_seed: int,
                   width: int, height: int, cfg: RenderConfig, spp: int,
-                  advance, check_every: int):
-    """The wave loop around ``advance`` (``_round_quad`` or
-    ``_step_quad``), which looks for a live lane every ``check_every``
-    calls."""
-    check_supported(cfg)
-    if scene.num_lights > INLINE_MAX_LIGHTS:
-        raise ValueError(f"{scene.num_lights} lights: the port covers at "
-                         f"most {INLINE_MAX_LIGHTS}")
-    dev = scene.quad_table.device
-    n = width * height
-    frame_seed = int(frame_seed) & rng.MASK32
-    cam = cam.to(dev)
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-    out = torch.zeros((n, 3), device=dev)
-    if scene.quad_table.shape[0] == 0:
-        # Empty scene: every ray misses, all samples contribute 0.
-        return out, dict(n_traced=zero + n * spp, n_shadow=zero,
-                         iterations=0, rows_fetched=zero)
-    fr = _Frame(scene, inline, cfg, cam, frame_seed, width, height, spp)
-    pos = torch.arange(n, device=dev)  # lane -> pixel
-    s = init_lane_ctx(frame_seed, spp, pos, cam, width, height, cfg,
-                      with_tstash=inline.tex0 is not None)
-    n_traced = zero + n  # camera rays
-    n_shadow = zero
-    rows_fetched = zero
-    passes = max(1, cfg.quad_redirect_passes)
-    iterations = 0
-    while True:
-        s, tr, sh, rows = advance(s, inline, scene.leaf_size, fr, passes)
-        n_traced = n_traced + tr
-        n_shadow = n_shadow + sh
-        rows_fetched = rows_fetched + rows
-        iterations += 1
-        if iterations % check_every:
-            continue
-        live = s["mode"] != DONE
-        n_live = int(live.sum())
-        w = int(live.shape[0])
-        if n_live == 0:
-            break
-        if n_live <= w // 2 and w > MIN_COMPACT_WIDTH:
-            # Retire the DONE lanes: their sums are final.
-            gone = ~live
-            out[pos[gone]] = s["out"][gone]
-            keep = live.nonzero()[:, 0]
-            s = {key: val[keep] for key, val in s.items()}
-            pos = pos[keep]
-    out[pos] = s["out"]
-    return out, dict(n_traced=n_traced, n_shadow=n_shadow,
-                     iterations=iterations, rows_fetched=rows_fetched)
+                  pixels, round_fn, check_every: int):
+    """One wave over ``pixels`` run until every lane is DONE."""
+    if pixels is None:
+        pixels = torch.arange(width * height, device=scene.quad_table.device)
+    wave = Wave(scene, inline, cam, frame_seed, width, height, cfg, pixels,
+                spp, spp, round_fn, check_every)
+    wave.advance()
+    return wave.read()[0], wave.stats()
+
+
+class Wave:
+    """A regenerating wave that lives across calls: lane i renders the
+    samples of pixel ``pixels[i]`` in order (seeds
+    ``sample_seed(frame_seed, seed_spp, sample)``) and retires once the
+    pixel has ``spp_cap`` of them.
+
+    ``advance`` runs rounds of ``round_fn`` (``_round_quad``, the
+    default: the walk kernel on a card, then a service pass; or
+    ``_step_quad``, the interleaved loop's step), looking for a live lane every
+    ``check_every`` of them; once at most half the lanes are live and
+    the wave is wider than ``MIN_COMPACT_WIDTH`` it keeps only the live
+    ones and holds the retired lanes' sums and counts itself.  ``read``
+    gives the per-pixel sums and completed-sample counts and leaves the
+    wave as it was, so a wave advanced in several calls ends where one
+    call takes it."""
+
+    def __init__(self, scene, inline: InlineTable, cam, frame_seed: int,
+                 width: int, height: int, cfg: RenderConfig, pixels,
+                 spp_cap: int, seed_spp: int, round_fn=None,
+                 check_every: int = 1):
+        check_supported(cfg)
+        if scene.num_lights > INLINE_MAX_LIGHTS:
+            raise ValueError(f"{scene.num_lights} lights: the port covers "
+                             f"at most {INLINE_MAX_LIGHTS}")
+        dev = scene.quad_table.device
+        frame_seed = int(frame_seed) & rng.MASK32
+        cam = cam.to(dev)
+        self._round = round_fn or _round_quad
+        self._check_every = check_every
+        self._fr = _Frame(scene, inline, cfg, cam, frame_seed, width, height,
+                          int(spp_cap), int(seed_spp))
+        n = int(pixels.shape[0])
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        self.n_traced = zero + n  # camera rays
+        self.n_shadow = zero
+        self.rows_fetched = zero
+        self.rounds = 0
+        self.done = n == 0
+        self.state = init_lane_ctx(frame_seed, seed_spp, pixels, cam, width,
+                                   height, cfg,
+                                   with_tstash=inline.tex0 is not None)
+        self._pos = torch.arange(n, device=dev)  # lane -> place in pixels
+        # Sums and counts of the lanes retired by compaction, by place.
+        self._out = torch.zeros((n, 3), device=dev)
+        self._count = torch.zeros((n,), dtype=torch.int64, device=dev)
+
+    def advance(self, max_rounds: int | None = None) -> bool:
+        """Run rounds until every lane is DONE, or at most ``max_rounds``
+        of them.  Returns whether every lane is DONE."""
+        fr = self._fr
+        passes = max(1, fr.cfg.quad_redirect_passes)
+        ran = 0
+        while not self.done and (max_rounds is None or ran < max_rounds):
+            s, tr, sh, rows = self._round(self.state, fr.inline,
+                                          fr.scene.leaf_size, fr, passes)
+            self.state = s
+            self.n_traced = self.n_traced + tr
+            self.n_shadow = self.n_shadow + sh
+            self.rows_fetched = self.rows_fetched + rows
+            self.rounds += 1
+            ran += 1
+            if self.rounds % self._check_every:
+                continue
+            live = s["mode"] != DONE
+            n_live = int(live.sum())
+            w = int(live.shape[0])
+            if n_live == 0:
+                self.done = True
+            elif n_live <= w // 2 and w > MIN_COMPACT_WIDTH:
+                # Retire the DONE lanes: their sums are final.
+                gone = ~live
+                self._out[self._pos[gone]] = s["out"][gone]
+                self._count[self._pos[gone]] = s["sample"][gone]
+                keep = live.nonzero()[:, 0]
+                self.state = {key: val[keep] for key, val in s.items()}
+                self._pos = self._pos[keep]
+        return self.done
+
+    def read(self):
+        """(radiance sums [n, 3], completed samples [n] int64) of the
+        wave's pixels, in the order of ``pixels``; the wave is left as
+        it was."""
+        out = self._out.clone()
+        out[self._pos] = self.state["out"]
+        count = self._count.clone()
+        count[self._pos] = self.state["sample"]
+        return out, count
+
+    def stats(self) -> dict:
+        """Rays and rows so far (int64 tensors) and rounds run."""
+        return dict(n_traced=self.n_traced, n_shadow=self.n_shadow,
+                    iterations=self.rounds, rows_fetched=self.rows_fetched)
 
 
 def _step_quad(s, inline: InlineTable, k: int, fr: _Frame,
@@ -574,10 +634,10 @@ def _refill(s, fr: _Frame):
     r3 = refill[:, None]
     flushed = _sanitize(s["rad"], fr.cfg)
     next_sample = s["sample"] + 1
-    exhausted = next_sample >= fr.spp
+    exhausted = next_sample >= fr.spp_cap
     new_sample = torch.where(refill, next_sample, s["sample"])
     start = refill & ~exhausted
-    new_seed = rng.sample_seed(fr.frame_seed, fr.spp, new_sample)
+    new_seed = rng.sample_seed(fr.frame_seed, fr.seed_spp, new_sample)
     r_o, r_d = generate_rays(fr.cam, fr.width, fr.height, new_seed, s["pix"])
 
     st3 = start[:, None]

@@ -6,10 +6,15 @@ tryraytrace_tpu/engine/renderer.py).
   - ``step(cam)`` = one progressive pass: render a frame's samples (the
     round loop; its walks run in the CUDA walk kernel on a card, in the
     kernel's plain version on the CPU) and add them to the accumulator,
-    which stays on the device;
+    which stays on the device; ``step_tiled(cam, tiles)`` the same pass
+    as one wave per pixel strip, bit-identical;
   - ``reset()`` on camera move;
   - ``image()`` tonemaps on the device (the CUDA kernel on a card, its
-    plain version on the CPU) and copies only the uint8 pixels out.
+    plain version on the CPU) and copies only the uint8 pixels out;
+    ``image(on_device=False)`` tonemaps on the host.
+
+A checkpoint of ``state`` and ``frame`` is engine/state.py's
+``save_checkpoint`` / ``load_checkpoint``.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ from tryraytrace_tpu_torch.engine.device_scene import upload_scene
 from tryraytrace_tpu_torch.engine.persistent import (build_inline_table,
                                                      render_frame_persistent)
 from tryraytrace_tpu_torch.engine.state import RenderState, resolve_device
-from tryraytrace_tpu_torch.ops.tonemap import tonemap
+from tryraytrace_tpu_torch.io.snapshot import tonemap_accum
+from tryraytrace_tpu_torch.ops.tonemap import tonemap, tonemap_cuda
 from tryraytrace_tpu_torch.scene.model import Scene, SceneArrays, flatten_scene
 
 
@@ -64,6 +70,39 @@ class Renderer:
 
     def step(self, cam, spp: int | None = None) -> None:
         """One progressive pass (launch_render_kernel analogue)."""
+        spp = self._begin_step(spp)
+        acc, self.last_stats = render_frame_persistent(
+            self.scene, self.inline, cam, self.frame, self.width,
+            self.height, self.cfg, spp)
+        self._accumulate(acc, spp)
+
+    def step_tiled(self, cam, tiles: int, spp: int | None = None) -> None:
+        """One progressive pass rendered as ``tiles`` waves over pixel
+        strips of ``ceil(n / tiles)`` pixels, one after another (tiles
+        clamped to [1, n]): each wave holds only its strip's lanes.
+
+        Bit-identical to ``step``: a lane's draws are keyed by absolute
+        (pixel, sample), its arithmetic is elementwise and its pixel's
+        sum is added in sample order, so which wave rendered a pixel
+        cannot change its sum (tests/test_torch_state.py).
+        ``last_stats`` holds the strips' totals."""
+        spp = self._begin_step(spp)
+        n = self.width * self.height
+        span = -(-n // max(1, min(int(tiles), n)))
+        parts, stats = [], []
+        for start in range(0, n, span):
+            pixels = torch.arange(start, min(start + span, n),
+                                  device=self.device)
+            part, st = render_frame_persistent(
+                self.scene, self.inline, cam, self.frame, self.width,
+                self.height, self.cfg, spp, pixels)
+            parts.append(part)
+            stats.append(st)
+        self.last_stats = {key: sum(st[key] for st in stats)
+                           for key in stats[0]}
+        self._accumulate(torch.cat(parts), spp)
+
+    def _begin_step(self, spp: int | None) -> int:
         spp = self.cfg.spp if spp is None else spp
         # The seed schedule 1984 + frame*spp + sample is collision-free
         # only at constant spp.
@@ -72,9 +111,9 @@ class Renderer:
                 f"spp changed {self._step_spp} -> {spp} mid-accumulation; "
                 "call reset() first (RNG streams would alias)")
         self._step_spp = spp
-        acc, self.last_stats = render_frame_persistent(
-            self.scene, self.inline, cam, self.frame, self.width,
-            self.height, self.cfg, spp)
+        return spp
+
+    def _accumulate(self, acc: torch.Tensor, spp: int) -> None:
         self.state = RenderState(self.state.accum + acc, self.state.spp + spp)
         self.frame += 1
 
@@ -92,10 +131,20 @@ class Renderer:
     def spp(self) -> int:
         return self.state.spp
 
-    def image(self) -> np.ndarray:
-        """Tonemapped uint8 [H, W, 3] of the current accumulation,
-        tonemapped on the accumulator's device."""
-        img = tonemap(self.state.accum, max(self.state.spp, 1))
+    def image(self, on_device: bool | None = None) -> np.ndarray:
+        """Tonemapped uint8 [H, W, 3] of the current accumulation.
+
+        ``on_device=True`` runs the CUDA tonemap kernel, so only the
+        uint8 pixels cross to the host (it raises for an accumulator on
+        the CPU); ``False`` copies the accumulator out and runs the
+        host ``tonemap_accum``; ``None`` (the default) tonemaps on the
+        accumulator's device: the kernel on a card, its plain version
+        on the CPU."""
+        spp = max(self.state.spp, 1)
+        if on_device is False:
+            return tonemap_accum(self.accum_host(), spp)
+        accum = self.state.accum
+        img = tonemap_cuda(accum, spp) if on_device else tonemap(accum, spp)
         return img.cpu().numpy().reshape(self.height, self.width, 3)
 
     def block_until_ready(self) -> None:
