@@ -21,6 +21,17 @@ after:
     calls, and an unbounded wave timed frame by frame; then
     Renderer.step_tiled held to Renderer.step, and a .npz checkpoint
     round trip held to the step it replaces;
+  - the entry points a user runs, also before any profiler session:
+    ``[cli]`` drives ``tpurt-torch render`` (cli.main, in this process)
+    at 1200x800 on the Cornell box with the icosphere written out as an
+    .obj and loaded through ``--obj``, held byte for byte to a Renderer
+    stepped by hand, a resume and a tiled run held to the plain run;
+    ``[app]`` runs the batch App (a camera move, a save, periodic
+    checkpoints) against a Renderer driven by hand, and the
+    ProgressiveApp for 16 ticks with a camera move, timing each tick's
+    render, snapshot and host ARGB packing; ``[bench]`` runs
+    benchmarks.py: cube256 at 256x256 against the NumPy oracle, the
+    interactive config, and the progressive interactive config;
   - the row-fetch microbenchmark (scripts/microbench_torch_fetch.py):
     65,536 lanes, 64 steps, six table variants, both placements.
 
@@ -33,9 +44,12 @@ raises and the script exits non-zero.  The last line is a JSON object
 {"ok": true, "device": {...}}, the line before it the card's name and
 power limit, and the line before that the kernel table (the walk
 kernel's entry counts its launches on each path: ``launches`` on the
-main path, ``progressive_launches`` and ``tiled_launches``, each with
-the count set to 0 just before the path and read just after).  Without
-a CUDA device it exits non-zero and prints no result.
+main path, ``progressive_launches``, ``tiled_launches``,
+``cli_launches``, ``app_launches`` and ``bench_launches``, each with
+the count set to 0 just before the path and read just after; the
+tonemap's and the fetch chain's entries carry the three new keys,
+counted the same way on the same runs).  Without a CUDA device it
+exits non-zero and prints no result.
 
 A kernel's ``ms`` is its own device time per launch (torch.profiler's
 durations of the kernel itself), ``wrapper_ms`` the time per call of
@@ -49,7 +63,9 @@ rate, both NVIDIA's published figures for the H100 SXM.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
+import io
 import json
 import os
 import re
@@ -63,12 +79,18 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from tryraytrace_tpu_torch import benchmarks, cli
 from tryraytrace_tpu_torch.camera.controller import CameraController
 from tryraytrace_tpu_torch.config import RenderConfig
+from tryraytrace_tpu_torch.display import pipeline as display_pipeline
+from tryraytrace_tpu_torch.display.app import App, ProgressiveApp
+from tryraytrace_tpu_torch.display.input import ScriptedInput
 from tryraytrace_tpu_torch.engine import persistent
 from tryraytrace_tpu_torch.engine.progressive import ProgressiveRenderer
 from tryraytrace_tpu_torch.engine.renderer import Renderer
 from tryraytrace_tpu_torch.engine.state import load_checkpoint, save_checkpoint
+from tryraytrace_tpu_torch.io.ppm import load_ppm
+from tryraytrace_tpu_torch.io.snapshot import tonemap_accum
 from tryraytrace_tpu_torch.ops import _build, fetch
 from tryraytrace_tpu_torch.ops import tonemap as tm
 from tryraytrace_tpu_torch.ops import walk
@@ -106,6 +128,15 @@ PROGRESSIVE_ROUNDS = 8
 PROGRESSIVE_FRAMES = (6, 2)
 TILES = 4                      # [tiled]: step_tiled against step
 LATE_DONE_SHARE = 0.9          # [walk]'s third state: this share DONE
+CLI_FRAMES = 4                 # [cli]: frames of the plain render
+# [app]: the batch App's script (a camera move on tick 3, a save on tick
+# 5) and checkpoint period; the ProgressiveApp's ticks, with a camera
+# move on tick PROGRESSIVE_MOVE.
+APP_SCRIPT = [{}, {}, {"keys": ["w"]}, {}, {"save": True}, {}]
+APP_CHECKPOINT_EVERY = 3
+PROGRESSIVE_TICKS = 16
+PROGRESSIVE_MOVE = 8
+ORACLE_MSE = 1e-9              # [bench]: cube256 against the NumPy oracle
 
 # NVIDIA's published H100 SXM figures: device-memory rate and float32
 # rate outside the tensor cores.
@@ -755,6 +786,276 @@ def phase_checkpoint(r: Renderer, params) -> None:
         raise AssertionError("the step after the round trip differs")
 
 
+def write_icosphere_obj(path: str) -> int:
+    """icosphere_mesh(5) (unit radius) as an .obj with shared vertices,
+    each float32 coordinate written so that it parses back exactly."""
+    tris = np.stack(icosphere_mesh(5), axis=1)           # [T, 3, 3]
+    verts, faces = np.unique(tris.reshape(-1, 3), axis=0,
+                             return_inverse=True)
+    faces = faces.reshape(-1, 3) + 1
+    with open(path, "w") as f:
+        for v in verts.astype(np.float64):
+            f.write(f"v {v[0]!r} {v[1]!r} {v[2]!r}\n")
+        for a, b, c in faces:
+            f.write(f"f {a} {b} {c}\n")
+    return int(faces.shape[0])
+
+
+# The wrappers whose launches the entry-point phases count, by the name
+# of their key in those phases' results.
+COUNTED = dict(tonemap=tm.tonemap_cuda, fetch_chain=fetch.fetch_chain_cuda,
+               walk=walk.quad_walk_cuda)
+
+
+def _zero_counts() -> None:
+    for wrapper in COUNTED.values():
+        wrapper.launches = 0
+
+
+def _counts() -> dict:
+    return {name: wrapper.launches for name, wrapper in COUNTED.items()}
+
+
+def _cli(argv: list) -> dict:
+    """cli.main(argv) in this process: its stdout, host seconds and the
+    kernels it launched (the counts set to 0 just before)."""
+    _zero_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli.main({argv}) returned {rc}")
+    return dict(stdout=out.getvalue().strip(), seconds=seconds, **_counts())
+
+
+def phase_cli(tmp: str) -> dict:
+    """``tpurt-torch render`` at 1200x800 on the Cornell box plus the
+    icosphere loaded from an .obj: the PPM against a Renderer over the
+    CLI's own scene stepped by hand, byte for byte; 2 + 2 frames through
+    a checkpoint and --tiles against the plain run, bit for bit."""
+    obj = os.path.join(tmp, "icosphere.obj")
+    n_tris = write_icosphere_obj(obj)
+    scene = ["--scene", "cornell-nomesh", "--obj", f"{obj}:15:50,20,50",
+             "--width", str(WIDTH), "--height", str(HEIGHT)]
+    path = lambda name: os.path.join(tmp, name)
+
+    def render(name, frames, *extra):
+        res = _cli(["render", *scene, "--frames", str(frames), "--out",
+                    path(f"{name}.ppm"), "--checkpoint", path(f"{name}.npz"),
+                    *extra])
+        with np.load(path(f"{name}.npz")) as z:
+            res["ck"] = {k: z[k] for k in z.files}
+        res["ppm"] = load_ppm(path(f"{name}.ppm"))
+        dt = float(re.search(r"spp, ([0-9.]+)s\)$", res["stdout"]).group(1))
+        res["ms_per_frame"] = 1e3 * dt / frames
+        log(f"[cli] {name}: {res['stdout']}; {res['ms_per_frame']:.1f} ms a "
+            f"frame, {res['seconds']:.2f} s in all; launches: tonemap "
+            f"{res['tonemap']}, fetch_chain {res['fetch_chain']}, walk "
+            f"{res['walk']}")
+        return res
+
+    plain = render("plain", CLI_FRAMES)
+    args = cli.build_parser().parse_args(["render", *scene])
+    arrays = cli.build_scene_arrays(args)
+    r = Renderer(arrays, cfg=RenderConfig(width=WIDTH, height=HEIGHT, spp=1))
+    params = CameraController().get_params(WIDTH, HEIGHT)
+    rounds = 0
+    for _ in range(CLI_FRAMES):
+        r.step(params)
+        rounds += r.last_stats["iterations"]
+    want = r.image()
+    host = tonemap_accum(plain["ck"]["accum"].reshape(HEIGHT, WIDTH, 3),
+                         CLI_FRAMES)
+    off = int((plain["ppm"] != host).sum())
+    log(f"[cli] {arrays.num_objects} triangles ({n_tris} from the .obj); "
+        f"PPM equal to the hand-driven Renderer's image "
+        f"{plain['ppm'].tobytes() == want.tobytes()}, sums equal "
+        f"{plain['ck']['accum'].tobytes() == r.state.accum.cpu().numpy().tobytes()}"
+        f"; {off} of {host.size} bytes off the host tonemap_accum of its "
+        f"checkpoint; {rounds} rounds in the hand-driven steps")
+    if n_tris != 20480 or arrays.num_objects != 7 + n_tris:
+        raise AssertionError(f"{arrays.num_objects} triangles in the scene")
+    if plain["ppm"].tobytes() != want.tobytes():
+        raise AssertionError("the CLI's image differs from the Renderer's")
+    if plain["ck"]["accum"].tobytes() != r.state.accum.cpu().numpy().tobytes():
+        raise AssertionError("the CLI's sums differ from the Renderer's")
+    if plain["tonemap"] != 1 or plain["walk"] != rounds:
+        raise AssertionError(f"{plain['tonemap']} tonemap and {plain['walk']}"
+                             f" walk launches for {rounds} rounds")
+    if off > MAX_BOUNDARY_SHARE * host.size:
+        raise AssertionError(f"{off} image bytes off the host tonemap")
+    if not np.isfinite(plain["ck"]["accum"]).all() or not want.max() > 0:
+        raise AssertionError("non-finite sums or a black image")
+    del r
+    first = render("first", CLI_FRAMES // 2)
+    resumed = render("resumed", CLI_FRAMES - CLI_FRAMES // 2, "--resume",
+                     path("first.npz"))
+    tiled = render("tiled", CLI_FRAMES, "--tiles", str(TILES))
+    for name, got in (("resumed", resumed), ("tiled", tiled)):
+        same = (got["ppm"].tobytes() == plain["ppm"].tobytes()
+                and all(got["ck"][k].tobytes() == plain["ck"][k].tobytes()
+                        for k in ("accum", "spp", "frame_seed")))
+        log(f"[cli] {name} equal to the plain run: {same}")
+        if not same:
+            raise AssertionError(f"the {name} render differs from the plain")
+    runs = (plain, first, resumed, tiled)
+    return dict({k: sum(x[k] for x in runs) for k in COUNTED},
+                ms_per_frame=plain["ms_per_frame"],
+                tiled_ms_per_frame=tiled["ms_per_frame"],
+                offhost_bytes=off)
+
+
+def phase_app(arrays, tmp: str) -> dict:
+    """The batch App (APP_SCRIPT, checkpoints every APP_CHECKPOINT_EVERY
+    frames) against a Renderer driven by hand, bit for bit; then the
+    ProgressiveApp for PROGRESSIVE_TICKS ticks, a camera move on tick
+    PROGRESSIVE_MOVE, with its round budget, render, snapshot and host
+    ARGB packing timed tick by tick."""
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=1)
+    ck = os.path.join(tmp, "app.npz")
+    _zero_counts()
+    t0 = time.perf_counter()
+    app = App(arrays, cfg, input_source=ScriptedInput(APP_SCRIPT),
+              out_dir=os.path.join(tmp, "app"),
+              checkpoint_every=APP_CHECKPOINT_EVERY, checkpoint_path=ck)
+    t1 = time.perf_counter()
+    app.run()
+    t2 = time.perf_counter()
+    launches = _counts()
+    cam = CameraController()
+    r = Renderer(arrays, cfg=cfg)
+    rounds = 0
+    for i in range(len(APP_SCRIPT)):
+        if i == 2:
+            r.reset()
+            cam.update(1.0, {"w"})
+        r.step(cam.get_params(WIDTH, HEIGHT))
+        rounds += r.last_stats["iterations"]
+        if i == 3:
+            at_checkpoint = r.state.accum.cpu().numpy()
+    state, w, h, frame_seed, _ = load_checkpoint(ck)
+    equal = torch.equal(app.renderer.state.accum, r.state.accum)
+    ck_equal = state.accum.cpu().numpy().tobytes() == at_checkpoint.tobytes()
+    log(f"[app] batch App: setup {t1 - t0:.2f} s, {len(APP_SCRIPT)} ticks in "
+        f"{t2 - t1:.2f} s, {app.frames_displayed} frames displayed, "
+        f"snapshots {len(app.snapshots)}; sums equal to the hand-driven "
+        f"Renderer {equal}; last checkpoint frame {frame_seed}, spp "
+        f"{state.spp}, equal {ck_equal}; launches: tonemap "
+        f"{launches['tonemap']}, fetch_chain {launches['fetch_chain']}, walk"
+        f" {launches['walk']} ({rounds} rounds)")
+    if not equal or not ck_equal or (frame_seed, state.spp) != (3, 2):
+        raise AssertionError("the App differs from the hand-driven Renderer")
+    if len(app.snapshots) != 2 or app.frames_displayed < 1:
+        raise AssertionError(f"{len(app.snapshots)} snapshots, "
+                             f"{app.frames_displayed} frames displayed")
+    if launches != dict(tonemap=0, fetch_chain=0, walk=rounds):
+        raise AssertionError(f"launches {launches} for {rounds} rounds")
+    del app, r
+
+    script = [{}] * PROGRESSIVE_TICKS
+    script[PROGRESSIVE_MOVE - 1] = {"keys": ["w"]}
+    _zero_counts()
+    papp = ProgressiveApp(arrays, RenderConfig(width=WIDTH, height=HEIGHT),
+                          input_source=ScriptedInput(script),
+                          out_dir=os.path.join(tmp, "papp"))
+    pr = papp.renderer
+    ticks, snaps, packs = [], [], []
+    step, snapshot = pr.step, pr.snapshot
+    pack = display_pipeline.tonemap_to_argb
+
+    def timed_step(params, iters):
+        t = time.perf_counter()
+        step(params, iters)
+        pr.block_until_ready()
+        ticks.append(dict(rounds=int(iters), render_ms=1e3 * (
+            time.perf_counter() - t), snapshot_ms=None, mean_spp=None))
+        if len(ticks) in (PROGRESSIVE_MOVE - 1, PROGRESSIVE_MOVE):
+            # Read on both sides of the move whether or not the pipeline
+            # takes a frame; outside the tick's timed render.
+            ticks[-1]["move_spp"] = float(snapshot()[1].mean())
+
+    def timed_snapshot():
+        t = time.perf_counter()
+        out = snapshot()
+        snaps.append((len(ticks) - 1, 1e3 * (time.perf_counter() - t),
+                      float(out[1].mean())))
+        return out
+
+    def timed_pack(accum, frame):
+        t = time.perf_counter()
+        out = pack(accum, frame)
+        packs.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    pr.step, pr.snapshot = timed_step, timed_snapshot
+    display_pipeline.tonemap_to_argb = timed_pack
+    try:
+        t0 = time.perf_counter()
+        papp.run()
+        seconds = time.perf_counter() - t0
+    finally:
+        display_pipeline.tonemap_to_argb = pack
+    plaunches = _counts()
+    # The last snapshot is the exit snapshot's; the others are the ticks'.
+    for i, ms, mean in snaps[:-1]:
+        ticks[i].update(snapshot_ms=ms, mean_spp=mean)
+    for i, t in enumerate(ticks):
+        log(f"[app] progressive tick {i + 1}: budget {t['rounds']} rounds, "
+            f"render {t['render_ms']:.1f} ms, "
+            + (f"snapshot {t['snapshot_ms']:.1f} ms, mean spp "
+               f"{t['mean_spp']!r}" if t["snapshot_ms"] is not None
+               else "no snapshot (pipeline busy: frame dropped)"))
+    dropped = sum(t["snapshot_ms"] is None for t in ticks)
+    log(f"[app] ProgressiveApp: {len(ticks)} ticks in {seconds:.2f} s, "
+        f"{papp.frames_displayed} frames displayed, {dropped} dropped; host "
+        f"ARGB packing {len(packs)} x {np.mean(packs):.2f} ms (min "
+        f"{min(packs):.2f}, max {max(packs):.2f}); launches {plaunches} for "
+        f"{sum(t['rounds'] for t in ticks)} rounds")
+    if len(ticks) != PROGRESSIVE_TICKS or plaunches != dict(
+            tonemap=0, fetch_chain=0, walk=sum(t["rounds"] for t in ticks)):
+        raise AssertionError("a round is one walk launch, a tick one step")
+    if not all(4 <= t["rounds"] <= 4096 for t in ticks) or not packs:
+        raise AssertionError("budget out of [4, 4096] or nothing displayed")
+    before, after = (ticks[PROGRESSIVE_MOVE - 2]["move_spp"],
+                     ticks[PROGRESSIVE_MOVE - 1]["move_spp"])
+    log(f"[app] mean spp after tick {PROGRESSIVE_MOVE - 1} {before!r}, "
+        f"after tick {PROGRESSIVE_MOVE} (the camera move) {after!r}")
+    if not after < before:
+        raise AssertionError("the camera move did not restart the wave")
+    return dict({k: launches[k] + plaunches[k] for k in COUNTED}, ticks=ticks,
+                pack_ms=packs, dropped=dropped,
+                displayed=papp.frames_displayed)
+
+
+def phase_bench() -> dict:
+    """benchmarks.py: cube256 against the oracle, the interactive config
+    and the progressive interactive config."""
+    _zero_counts()
+    t0 = time.perf_counter()
+    cube = benchmarks.run_config("cube256")
+    t1 = time.perf_counter()
+    batch = benchmarks.run_config("interactive", frames=3)
+    prog = benchmarks.run_progressive("interactive", frames=5)
+    launches = _counts()
+    for rec in (cube, batch, prog):
+        log(f"[bench] {json.dumps(rec)}")
+    log(f"[bench] cube256 with its oracle check {t1 - t0:.1f} s; launches: "
+        f"tonemap {launches['tonemap']}, fetch_chain "
+        f"{launches['fetch_chain']}, walk {launches['walk']}")
+    if not cube["mse_vs_oracle"] < ORACLE_MSE:
+        raise AssertionError(f"cube256 MSE {cube['mse_vs_oracle']!r} vs the "
+                             "oracle")
+    for rec in (cube, batch, prog):
+        if not rec["mrays_per_s"] > 0 or rec["device"] != (
+                torch.cuda.get_device_name(0)):
+            raise AssertionError(f"bad record {rec}")
+    if not prog["spp_per_frame"] > 0 or launches["walk"] < 1:
+        raise AssertionError("the progressive bench did not advance")
+    return dict(launches, records=[cube, batch, prog])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -778,6 +1079,10 @@ def main() -> int:
     walk.quad_walk_cuda.launches = 0
     tiled = phase_tiled(r, params)
     phase_checkpoint(r, params)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_run = phase_cli(tmp)
+        app_run = phase_app(arrays, tmp)
+    bench_run = phase_bench()
     tone = phase_tonemap()
     chain = phase_fetch(seed=0)
     walked = phase_walk(r, params)
@@ -788,11 +1093,17 @@ def main() -> int:
         dict(name="tonemap", route="cuda",
              source="tryraytrace_tpu_torch/csrc/tonemap.cu",
              replaces="tryraytrace_tpu/ops/pallas_tonemap.py:33",
-             launches=main_run["launches"], **{k: tone[k] for k in keys}),
+             launches=main_run["launches"], cli_launches=cli_run["tonemap"],
+             app_launches=app_run["tonemap"],
+             bench_launches=bench_run["tonemap"],
+             **{k: tone[k] for k in keys}),
         dict(name="fetch_chain", route="cuda",
              source="tryraytrace_tpu_torch/csrc/fetch_chain.cu",
              replaces="scripts/microbench_pallas_fetch.py:34",
-             launches=chain["launches"], **{k: chain[k] for k in keys},
+             launches=chain["launches"], cli_launches=cli_run["fetch_chain"],
+             app_launches=app_run["fetch_chain"],
+             bench_launches=bench_run["fetch_chain"],
+             **{k: chain[k] for k in keys},
              variants=chain["variants"]),
         dict(name="quad_walk", route="cuda",
              source="tryraytrace_tpu_torch/csrc/quad_walk.cu",
@@ -800,6 +1111,8 @@ def main() -> int:
              launches=main_run["walk_launches"],
              progressive_launches=progressive["launches"],
              tiled_launches=tiled["launches"],
+             cli_launches=cli_run["walk"], app_launches=app_run["walk"],
+             bench_launches=bench_run["walk"],
              **{k: walked[k] for k in keys},
              rows_fetched=walked["rows_fetched"], plan=walked["plan"])]}))
     log(smi)

@@ -47,6 +47,18 @@ class LinearBVH:
     def num_nodes(self) -> int:
         return int(self.bounds.shape[0])
 
+    def max_depth(self) -> int:
+        """Tree depth (root = 1)."""
+        if self.num_nodes == 0:
+            return 0
+        depth = np.zeros(self.num_nodes, dtype=np.int32)
+        depth[0] = 1
+        for i in range(self.num_nodes):
+            if self.left[i] >= 0:
+                depth[self.left[i]] = depth[i] + 1
+                depth[self.right[i]] = depth[i] + 1
+        return int(depth.max())
+
 
 def primitive_bounds(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray) -> np.ndarray:
     """Padded per-triangle AABBs [N, 6] (get_object_bounds, bvh.cpp:11-29)."""

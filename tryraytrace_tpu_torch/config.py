@@ -14,8 +14,8 @@ texturing.  ``check_supported`` says how it treats the other knobs:
   ``shadow_pred``, ``inline_shade``, ``inline_tex=False``,
   ``quad_layout`` and ``quad_select="rank"``.
 * Features this slice does not cover raise too, rather than render a
-  wrong image: ``smooth_shading``, ``uv_mapping`` and
-  ``leaf_isect != "bw"`` (``bvh_method="sbvh"`` raises in the build).
+  wrong image: ``smooth_shading``, ``uv_mapping``,
+  ``leaf_isect != "bw"`` and ``bvh_method="sbvh"``.
 * Knobs that only schedule work are accepted and ignored, because the
   image does not depend on them: ``shade_every``, ``step_unroll``,
   ``inline_service_steps``, ``shade_ready_frac``, ``tail_spill``,
@@ -86,6 +86,9 @@ class RenderConfig:
     def with_size(self, width: int, height: int) -> "RenderConfig":
         return dataclasses.replace(self, width=width, height=height)
 
+    def replace(self, **kw) -> "RenderConfig":
+        return dataclasses.replace(self, **kw)
+
 
 # Lights the inline NEE pick selects among (config.py of the JAX
 # package); past this bound the JAX engine leaves the inline path.
@@ -102,6 +105,7 @@ _PORTED_VALUES = {
     "inline_tex": (None, True),
     "quad_layout": ("mux",),
     "leaf_isect": ("bw",),
+    "bvh_method": ("sah", "median"),
     "smooth_shading": (False,),
     "uv_mapping": (False,),
 }

@@ -61,3 +61,17 @@ def save_ppm(path, img: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(b"P6\n%d %d\n255\n" % (w, h))
         f.write(img.tobytes())
+
+
+def save_image(path, img: np.ndarray) -> None:
+    """Write uint8 [H, W, 3] by path suffix: ``.ppm`` (and anything
+    unrecognized) uses the reference-parity P6 writer; ``.png`` /
+    ``.jpg`` / ``.jpeg`` / ``.bmp`` go through PIL (the reference only
+    ever writes P6, image_io.cpp:73-86)."""
+    suffix = str(path).lower().rsplit(".", 1)[-1]
+    if suffix in ("png", "jpg", "jpeg", "bmp"):
+        from PIL import Image
+
+        Image.fromarray(np.ascontiguousarray(img, dtype=np.uint8)).save(path)
+        return
+    save_ppm(path, img)

@@ -21,11 +21,18 @@ from tryraytrace_tpu_torch.io.ppm import save_ppm
 GAMMA_EXP = np.float32(1.0 / 2.2)
 
 
+def to_int(x: np.ndarray) -> np.ndarray:
+    """Linear float32 -> gamma-corrected 0..255 int32 (the reference's
+    toInt, common.h:126-128; core/vec.py ``to_int`` of the JAX
+    package)."""
+    return (np.power(np.clip(x, 0.0, 1.0), GAMMA_EXP) * 255.0
+            + 0.5).astype(np.int32)
+
+
 def tonemap_accum(h_accum: np.ndarray, frame: int) -> np.ndarray:
     """Average by sample count + gamma quantize -> uint8 [..., 3]."""
     avg = np.asarray(h_accum, dtype=np.float32) * np.float32(1.0 / max(frame, 1))
-    x = np.clip(avg, 0.0, 1.0)
-    return (np.power(x, GAMMA_EXP) * 255.0 + 0.5).astype(np.int32).astype(np.uint8)
+    return to_int(avg).astype(np.uint8)
 
 
 def snapshot_filename(frame: int, focus_dist: float, aperture: float,

@@ -1,5 +1,6 @@
 """ctypes bindings for the shared native C++ host runtime
-(csrc/trt_native.cpp): the OBJ parser and the BVH builders.
+(csrc/trt_native.cpp): the OBJ parser, the BVH builders and the host
+tonemaps of the display pipeline.
 
 A jax-free copy of tryraytrace_tpu/native.py restricted to what the
 port's host layer calls.  It loads the same ``csrc/libtrt_native.so``
@@ -65,6 +66,7 @@ def _load():
 
 
 def _configure(lib) -> None:
+    u8p = ctypes.POINTER(ctypes.c_uint8)
     f32p = ctypes.POINTER(ctypes.c_float)
     i32p = ctypes.POINTER(ctypes.c_int32)
 
@@ -72,6 +74,12 @@ def _configure(lib) -> None:
     lib.trt_parse_obj.argtypes = [
         ctypes.c_char_p, f32p, i32p, ctypes.c_int64,
         ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.trt_tonemap.restype = None
+    lib.trt_tonemap.argtypes = [f32p, u8p, ctypes.c_int64, ctypes.c_float]
+    lib.trt_tonemap_argb.restype = None
+    lib.trt_tonemap_argb.argtypes = [
+        f32p, ctypes.POINTER(ctypes.c_uint32), ctypes.c_int64, ctypes.c_float
     ]
     lib.trt_bvh_build.restype = ctypes.c_int64
     lib.trt_bvh_build.argtypes = [
@@ -118,6 +126,39 @@ def parse_obj(path):
     if rc != 0:
         return None
     return verts[: nv.value].copy(), faces[: nf.value].copy()
+
+
+def tonemap(accum: np.ndarray, frame: int) -> np.ndarray | None:
+    """Native average+gamma+quantize -> uint8 RGB, or None."""
+    lib = _load()
+    if lib is None:
+        return None
+    flat = np.ascontiguousarray(accum, dtype=np.float32).reshape(-1)
+    n = flat.shape[0] // 3
+    out = np.empty(n * 3, dtype=np.uint8)
+    lib.trt_tonemap(
+        flat.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        n, ctypes.c_float(1.0 / max(frame, 1)),
+    )
+    return out.reshape(accum.shape[:-1] + (3,)) if accum.ndim > 1 else out
+
+
+def tonemap_argb(accum: np.ndarray, frame: int) -> np.ndarray | None:
+    """Native tonemap to packed 0xAARRGGBB uint32 [n] (pipeline.cpp:59-71
+    parity), or None."""
+    lib = _load()
+    if lib is None:
+        return None
+    flat = np.ascontiguousarray(accum, dtype=np.float32).reshape(-1)
+    n = flat.shape[0] // 3
+    out = np.empty(n, dtype=np.uint32)
+    lib.trt_tonemap_argb(
+        flat.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        n, ctypes.c_float(1.0 / max(frame, 1)),
+    )
+    return out
 
 
 def bvh_build_sah(centroids: np.ndarray, prim_bounds: np.ndarray,
