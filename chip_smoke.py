@@ -32,23 +32,37 @@ after:
     render, snapshot and host ARGB packing; ``[bench]`` runs
     benchmarks.py: cube256 at 256x256 against the NumPy oracle, the
     interactive config, and the progressive interactive config;
+  - the features past the default path, also before any profiler
+    session: ``[features]`` drives ``tpurt-torch render --smooth --uv
+    --leaf-isect mt --bvh-method sbvh`` at 1200x800 on the Cornell box
+    with the icosphere and per-vertex UVs from an .obj, held byte for
+    byte to a Renderer stepped by hand; an SBVH build of the main path's
+    scene, bit-identical to its SAH render; ``Renderer.refit`` after a
+    seed-made displacement of the icosphere, against a fresh build; and
+    each feature alone (smooth shading, UV mapping, "mt" leaves, SBVH,
+    17 lights, a texture past 2 MB of tile rows) at 64x48, the card
+    against the CPU bit for bit and against the port's NumPy oracle;
   - the row-fetch microbenchmark (scripts/microbench_torch_fetch.py):
     65,536 lanes, 64 steps, six table variants, both placements.
 
-The walk kernel is held to its plain version on three states of the
-main path's rounds (fresh, many shadow walks, mostly done).  It also
-checks the port's render on the card (round loop, kernel) against the
-plain version of the whole on the CPU (the interleaved eager loop, one
-row per lane per step).  Every phase prints its own lines; any failure
+The walk kernel is held to its plain version on three states of a
+path's rounds (fresh, many shadow walks, mostly done): the main path's
+tree with its Baldwin-Weber leaf slots, and the [features] path's SBVH
+with its Moller-Trumbore ("mt") slots at the auto leaf size.  It also checks the port's render on the card
+(round loop, kernel) against the plain version of the whole on the CPU
+(the interleaved eager loop, one row per lane per step), bit for bit
+at 64x64 and 64x48.  Every phase prints its own lines; any failure
 raises and the script exits non-zero.  The last line is a JSON object
 {"ok": true, "device": {...}}, the line before it the card's name and
 power limit, and the line before that the kernel table (the walk
 kernel's entry counts its launches on each path: ``launches`` on the
 main path, ``progressive_launches``, ``tiled_launches``,
-``cli_launches``, ``app_launches`` and ``bench_launches``, each with
-the count set to 0 just before the path and read just after; the
-tonemap's and the fetch chain's entries carry the three new keys,
-counted the same way on the same runs).  Without a CUDA device it
+``cli_launches``, ``app_launches``, ``bench_launches`` and
+``features_launches``, each with the count set to 0 just before the
+path and read just after, and ``features_mt_launches``, the launches
+over "mt" leaves in ``[features]``; its ``mt`` entry holds the "mt"
+walk's own numbers; the tonemap's and the fetch chain's entries carry
+the entry points' and ``[features]``' counts the same way).  Without a CUDA device it
 exits non-zero and prints no result.
 
 A kernel's ``ms`` is its own device time per launch (torch.profiler's
@@ -64,6 +78,7 @@ rate, both NVIDIA's published figures for the H100 SXM.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib.util
 import io
 import json
@@ -94,10 +109,13 @@ from tryraytrace_tpu_torch.io.snapshot import tonemap_accum
 from tryraytrace_tpu_torch.ops import _build, fetch
 from tryraytrace_tpu_torch.ops import tonemap as tm
 from tryraytrace_tpu_torch.ops import walk
+from tryraytrace_tpu_torch.ops.texture import TEX_ROW
+from tryraytrace_tpu_torch.oracle import oracle_render
 from tryraytrace_tpu_torch.scene.assets import (checker_texture, cube_mesh,
                                                 icosphere_mesh)
 from tryraytrace_tpu_torch.scene.cornell import create_cornell_box
 from tryraytrace_tpu_torch.scene.model import Object, flatten_scene
+from tryraytrace_tpu_torch.scene.objloader import load_obj
 
 WIDTH, HEIGHT = 1200, 800      # reference main.cpp:49-50
 TIMED_STEPS = 4
@@ -106,17 +124,16 @@ TONEMAP_SHAPE = (WIDTH * HEIGHT, 3)
 # p * 255 + 0.5 sits within a float32 ulp of an integer (a powf
 # rounding boundary), and in at most this share of the bytes.
 MAX_BOUNDARY_SHARE = 1e-5
-RENDER_MSE = 1e-9              # port on the card vs port on the CPU
 # The main path is deterministic: warm-up + TIMED_STEPS steps of this
 # scene at this raster tonemap to this mean on every run.
-MAIN_IMAGE_MEAN = 79.99850451388889
+MAIN_IMAGE_MEAN = 79.99852708333333
 # ... and each timed step traces these (path rays, shadow rays, rows
 # fetched, rounds): the walk's table layout, launch shape and lane order
 # may change, the rows a step reads may not.
-MAIN_STEP_COUNTS = ((6993829, 4624618, 41696132, 39),
-                    (6990291, 4622330, 41665341, 40),
-                    (6987560, 4620233, 41678448, 40),
-                    (6996624, 4627199, 41692854, 39))
+MAIN_STEP_COUNTS = ((6993820, 4624618, 41695872, 39),
+                    (6990289, 4622327, 41665360, 40),
+                    (6987560, 4620238, 41678080, 40),
+                    (6996627, 4627204, 41692751, 39))
 SHADOW_LANES_MIN = 10000       # [walk]'s second state: this many in SHADOW
 # [progressive]: the capped runs render samples 0..CAP-1 of frame F (the
 # batch step's seeds at spp CAP); the unbounded run advances its wave
@@ -137,6 +154,28 @@ APP_CHECKPOINT_EVERY = 3
 PROGRESSIVE_TICKS = 16
 PROGRESSIVE_MOVE = 8
 ORACLE_MSE = 1e-9              # [bench]: cube256 against the NumPy oracle
+# [features]: the four features together through ``tpurt-torch render``;
+# a refit after moving the icosphere's vertices by a seed-made normal
+# displacement; each feature alone at a small raster (card against CPU,
+# and the oracle) on an icosphere of this subdivision.
+FEATURE_CFG = dict(smooth_shading=True, uv_mapping=True, leaf_isect="mt",
+                   bvh_method="sbvh")
+FEATURE_FRAMES = 2
+REFIT_SEED, REFIT_SIGMA = 8, 0.3
+SMALL_W, SMALL_H = 64, 48
+SMALL_SUBDIV = 1
+SMALL_FEATURES = {
+    "smooth": dict(smooth_shading=True),
+    "uv": dict(uv_mapping=True),
+    "mt": dict(leaf_isect="mt"),
+    "sbvh": dict(bvh_method="sbvh"),
+    "lights": {},
+    "big_texture": dict(uv_mapping=True),
+}
+
+# Profiler sessions _kernel_ms runs before it gives up on a kernel whose
+# launches the profiler recorded none of.
+PROFILE_TRIES = 3
 
 # NVIDIA's published H100 SXM figures: device-memory rate and float32
 # rate outside the tensor cores.
@@ -247,21 +286,29 @@ def _kernel_ms(fn, kernel: str, reps: int = 20) -> float:
     over their count.  The wrapper's other work (allocations, copies,
     checks, host time between launches) is left out.  The profiler may
     miss a launch's record (it did on an H100, 6 of 10 kept once), so
-    the mean is over the records it kept; more records than launches
-    means the name matched another kernel."""
+    the mean is over the records it kept; a session that kept none of
+    them (once on an H100, for the walk after two earlier sessions) is
+    run again, at most PROFILE_TRIES times in all.  More records than
+    launches means the name matched another kernel."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    found = [e for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and kernel in e.key]
-    count = sum(e.count for e in found)
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and kernel in e.key]
+        count = sum(e.count for e in found)
+        if count:
+            break
     if not 0 < count <= reps:
+        seen = sorted({e.key for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA})
         raise AssertionError(f"the profiler saw {count} launches of "
-                             f"{kernel!r} in {reps} calls")
+                             f"{kernel!r} in {reps} calls; CUDA records: "
+                             f"{seen[:8]}")
     return sum(e.device_time_total for e in found) / count / 1e3
 
 
@@ -397,11 +444,17 @@ def phase_fetch(seed: int) -> dict:
                         lanes * (2 * steps + first["w"])))
 
 
-def phase_cuda_vs_cpu() -> float:
+def phase_cuda_vs_cpu() -> None:
     """The renderer on the card (round loop, walk kernel) against the
-    plain version of the whole on the CPU (interleaved eager loop)."""
+    plain version of the whole on the CPU (interleaved eager loop), bit
+    for bit, at 64x64 and at 64x48 (a side that is not a power of two:
+    the camera rays divide by it)."""
     arrays = cube256_arrays()
-    w = h = 64
+    for w, h in ((64, 64), (64, 48)):
+        _card_vs_cpu(arrays, w, h)
+
+
+def _card_vs_cpu(arrays, w: int, h: int) -> None:
     cfg = RenderConfig(width=w, height=h, spp=1)
     params = CameraController().get_params(w, h)
     t0 = time.perf_counter()
@@ -415,21 +468,23 @@ def phase_cuda_vs_cpu() -> float:
     on_cpu = acc.numpy().reshape(h, w, 3)
     t2 = time.perf_counter()
     mse = float(((on_card - on_cpu) ** 2).mean())
+    n_off = int((on_card != on_cpu).sum())
     counts = {dev: (int(st["n_traced"]), int(st["n_shadow"]),
                     int(st["rows_fetched"]))
               for dev, st in (("card", card_stats), ("cpu", cpu_stats))}
-    log(f"[cube256 64x64] card vs CPU MSE {mse!r} (card {t1 - t0:.2f} s in "
+    log(f"[cube256 {w}x{h}] card vs CPU: {n_off} of {on_card.size} sum "
+        f"floats differ, MSE {mse!r} (card {t1 - t0:.2f} s in "
         f"{card_stats['iterations']} rounds, CPU {t2 - t1:.2f} s in "
         f"{cpu_stats['iterations']} steps, mean radiance "
         f"{float(on_card.mean())!r}); (path rays, shadow rays, rows "
         f"fetched) card {counts['card']} CPU {counts['cpu']}")
-    if not np.isfinite(on_card).all() or not mse < RENDER_MSE:
-        raise AssertionError(f"card render disagrees with the CPU: {mse}")
+    if not np.isfinite(on_card).all() or on_card.tobytes() != on_cpu.tobytes():
+        raise AssertionError(f"card render differs from the CPU's at {w}x{h}:"
+                             f" {n_off} floats, MSE {mse}")
     if counts["card"] != counts["cpu"]:
         raise AssertionError(f"ray or row counts differ: {counts}")
     if not on_card.mean() > 0.0:
         raise AssertionError("cube256 render is black")
-    return mse
 
 
 def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -452,21 +507,24 @@ def walk_state_bytes(n_traverse: int, n_shadow: int, n_other: int) -> int:
             + (8 + 44 + 53 + 28 + 12) * n_shadow)
 
 
-def _check_walk(label: str, rnd: int, s, inline, k: int, passes: int
-                ) -> dict:
+def _check_walk(label: str, rnd: int, s, inline, k: int, passes: int,
+                fmt: str) -> dict:
     """One state through the kernel and through walk_plain over the
-    walk-order rows: every written field and the row count must be
-    equal.  Then the kernel's own time and the wrapper's."""
+    walk-order rows (leaf slots of format ``fmt``): every written field
+    and the row count must be equal.  Then the kernel's own time and the
+    wrapper's."""
     table, levels, sentinel = inline.walk, inline.walk_levels, inline.sentinel
     modes = torch.bincount(s["mode"], minlength=walk.TEXG + 1).tolist()
     n_lanes = s["mode"].shape[0]
     n_traverse, n_shadow = modes[walk.TRAVERSE], modes[walk.SHADOW]
     torch.cuda.synchronize()
-    got, rows = walk.quad_walk_cuda(s, table, sentinel, k, passes, levels)
+    got, rows = walk.quad_walk_cuda(s, table, sentinel, k, passes, levels,
+                                    fmt=fmt)
     torch.cuda.synchronize()
     plan = walk.quad_walk_cuda.plan
     t1 = time.perf_counter()
-    want, want_rows = walk.walk_plain(s, table, sentinel, k, passes)
+    want, want_rows = walk.walk_plain(s, table, sentinel, k, passes,
+                                      fmt=fmt)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t1)
     bad = [f for f in walk.WRITES if not _same(got[f], want[f])]
@@ -480,7 +538,7 @@ def _check_walk(label: str, rnd: int, s, inline, k: int, passes: int
         raise AssertionError(f"quad_walk kernel disagrees with walk_plain "
                              f"on the {label} state: {bad}")
     launch = lambda: walk.quad_walk_cuda(s, table, sentinel, k, passes,
-                                         levels)
+                                         levels, fmt=fmt)
     wrapper_ms = _time_ms(launch, reps=5)
     ms = _kernel_ms(launch, "quad_walk_kernel", reps=10)
     n_rows = int(rows)
@@ -505,15 +563,18 @@ def _check_walk(label: str, rnd: int, s, inline, k: int, passes: int
 
 
 def phase_walk(r: Renderer, params) -> dict:
-    """quad_walk_cuda against walk_plain over the walk-order rows on the
-    main-path scene in three states of one frame's rounds: the fresh
-    960,000-lane state (a closest-hit round), the first round with at
-    least SHADOW_LANES_MIN lanes in SHADOW, and the first round with at
-    least LATE_DONE_SHARE of its lanes DONE (threads skip most lanes
-    and refill often).  Returns the fresh state's numbers."""
+    """quad_walk_cuda against walk_plain over the walk-order rows of
+    ``r`` (a path's Renderer, with its tree and leaf format) in three
+    states of one frame's rounds: the fresh 960,000-lane state (a
+    closest-hit round), the first round with at least SHADOW_LANES_MIN
+    lanes in SHADOW, and the first round with at least LATE_DONE_SHARE
+    of its lanes DONE (threads skip most lanes and refill often).
+    Returns the fresh state's numbers."""
     inline, k, cfg = r.inline, r.scene.leaf_size, r.cfg
+    fmt = r.scene.leaf_fmt
     passes = max(1, cfg.quad_redirect_passes)
-    log(f"[walk] walk-order rows {tuple(inline.walk.shape)}, rows per level "
+    log(f"[walk] {fmt} leaves x{k}: walk-order rows "
+        f"{tuple(inline.walk.shape)}, rows per level "
         f"{list(inline.walk_levels)}")
     cam = params.to(r.device)
     fr = persistent._Frame(r.scene, inline, cfg, cam, 1, WIDTH, HEIGHT, 1,
@@ -536,7 +597,8 @@ def phase_walk(r: Renderer, params) -> dict:
         else:
             label = None
         if label:
-            res = _check_walk(label, rnd, s, inline, k, passes)
+            res = _check_walk(f"{label} ({fmt})", rnd, s, inline, k, passes,
+                              fmt)
             fresh = fresh or res
             todo.remove(label)
             if not todo:
@@ -786,18 +848,26 @@ def phase_checkpoint(r: Renderer, params) -> None:
         raise AssertionError("the step after the round trip differs")
 
 
-def write_icosphere_obj(path: str) -> int:
-    """icosphere_mesh(5) (unit radius) as an .obj with shared vertices,
-    each float32 coordinate written so that it parses back exactly."""
-    tris = np.stack(icosphere_mesh(5), axis=1)           # [T, 3, 3]
+def write_icosphere_obj(path: str, subdiv: int = 5, uv: bool = False) -> int:
+    """icosphere_mesh(subdiv) (unit radius) as an .obj with shared
+    vertices, each float32 coordinate written so that it parses back
+    exactly; with ``uv``, one spherical ``vt`` per vertex and faces
+    ``f a/a b/b c/c``."""
+    tris = np.stack(icosphere_mesh(subdiv), axis=1)      # [T, 3, 3]
     verts, faces = np.unique(tris.reshape(-1, 3), axis=0,
                              return_inverse=True)
     faces = faces.reshape(-1, 3) + 1
     with open(path, "w") as f:
-        for v in verts.astype(np.float64):
+        for v in verts.astype(np.float64).tolist():
             f.write(f"v {v[0]!r} {v[1]!r} {v[2]!r}\n")
-        for a, b, c in faces:
-            f.write(f"f {a} {b} {c}\n")
+        if uv:
+            us = 0.5 + np.arctan2(verts[:, 2], verts[:, 0]) / (2 * np.pi)
+            vs = 0.5 - np.arcsin(np.clip(verts[:, 1], -1, 1)) / np.pi
+            for a, b in zip(us.tolist(), vs.tolist()):
+                f.write(f"vt {a!r} {b!r}\n")
+        for a, b, c in faces.tolist():
+            f.write(f"f {a}/{a} {b}/{b} {c}/{c}\n" if uv
+                    else f"f {a} {b} {c}\n")
     return int(faces.shape[0])
 
 
@@ -1056,6 +1126,221 @@ def phase_bench() -> dict:
     return dict(launches, records=[cube, batch, prog])
 
 
+def _feature_scene(tmp: str, kind: str):
+    """A small scene for the card-against-CPU and oracle checks of
+    [features]: the Cornell box and a subdivision-SMALL_SUBDIV icosphere
+    with UVs from an .obj (loaded as ``tpurt-torch --uv`` does: texture
+    slot 0, the loader's vertex normals); "lights" adds 16 small
+    emitters under the ceiling (17 lights), "big_texture" a 512x512
+    checker (4.9 MB of tile rows).  Returns (arrays, config fields)."""
+    obj = os.path.join(tmp, "small_uv.obj")
+    if not os.path.exists(obj):
+        write_icosphere_obj(obj, SMALL_SUBDIV, uv=True)
+    scene = create_cornell_box(mesh=None)
+    load_obj(obj, scene.objects, offset=(50.0, 25.0, 60.0), scale=20.0,
+             parse_uv=True, tex_id=0)
+    if kind == "lights":
+        for i in range(16):
+            x = 10.0 + 4 * i
+            scene.objects.append(Object(
+                v0=(x, 99.0, 40), v1=(x + 2, 99.0, 40), v2=(x + 1, 99.0, 42),
+                emission=(5.0, 5.0, 5.0)))
+    tex = checker_texture(512 if kind == "big_texture" else 64)
+    arrays = flatten_scene(scene, textures=[tex])
+    return arrays, SMALL_FEATURES[kind]
+
+
+def _small_feature_checks(tmp: str) -> dict:
+    """Each feature alone at SMALL_W x SMALL_H: the card's Renderer
+    against the CPU's, bit for bit, sums and ray counts, and both against
+    the port's copy of the NumPy oracle (MSE < ORACLE_MSE)."""
+    w, h = SMALL_W, SMALL_H
+    params = CameraController().get_params(w, h)
+    out = {}
+    for kind in SMALL_FEATURES:
+        arrays, knobs = _feature_scene(tmp, kind)
+        cfg = RenderConfig(width=w, height=h, spp=1, **knobs)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            r = Renderer(arrays, cfg=cfg, device=dev)
+            r.step(params)
+            st = r.last_stats
+            got[dev] = (r.accum_host().reshape(-1, 3),
+                        (int(st["n_traced"]), int(st["n_shadow"]),
+                         int(st["rows_fetched"])),
+                        time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ora = oracle_render(arrays, params, w, h, frame_seed=1, cfg=cfg)
+        t_ora = time.perf_counter() - t0
+        card, cpu = got["cuda"][0], got["cpu"][0]
+        mse = float(((card - ora) ** 2).mean())
+        n_off = int((card != cpu).sum())
+        tile_mb = (r.inline.table.shape[0] - r.inline.tex0) * TEX_ROW * 4 / 2**20
+        log(f"[features] {kind} ({knobs}) at {w}x{h}: {arrays.num_objects} "
+            f"triangles, {arrays.num_lights} lights, leaf {r.scene.leaf_fmt}"
+            f" x{r.scene.leaf_size}, {tile_mb:.2f} MiB of tile rows; card vs "
+            f"CPU {n_off} of {card.size} sum floats differ, (path, shadow, "
+            f"rows) card {got['cuda'][1]} CPU {got['cpu'][1]}; MSE vs the "
+            f"oracle {mse!r}; seconds card {got['cuda'][2]:.2f} CPU "
+            f"{got['cpu'][2]:.2f} oracle {t_ora:.2f}")
+        if card.tobytes() != cpu.tobytes() or got["cuda"][1] != got["cpu"][1]:
+            raise AssertionError(f"[features] {kind}: the card differs from "
+                                 "the CPU")
+        if not np.isfinite(card).all() or not card.mean() > 0:
+            raise AssertionError(f"[features] {kind}: non-finite or black")
+        if not mse < ORACLE_MSE:
+            raise AssertionError(f"[features] {kind}: MSE {mse} vs the oracle")
+        if kind == "big_texture" and not tile_mb > 2:
+            raise AssertionError(f"{tile_mb} MiB of tile rows")
+        if kind == "lights" and arrays.num_lights != 17:
+            raise AssertionError(f"{arrays.num_lights} lights")
+        out[kind] = dict(mse_vs_oracle=mse)
+    return out
+
+
+def phase_features(r: Renderer, params, tmp: str) -> dict:
+    """The features past the default path.
+      - ``tpurt-torch render --scene cornell --obj <icosphere(5) with UVs>
+        --smooth --uv --leaf-isect mt --bvh-method sbvh`` at full width,
+        FEATURE_FRAMES frames, held byte for byte (PPM and sums) to a
+        Renderer over the CLI's scene stepped by hand;
+      - the main path's scene built as an SBVH (at its leaf size),
+        bit-identical to its SAH step;
+      - a refit after a seed-made displacement of the icosphere against
+        a fresh build of the moved scene (MSE < ORACLE_MSE, equal rays);
+      - each feature alone at SMALL_W x SMALL_H, card against CPU bit for
+        bit and against the port's oracle.
+    Every kernel's launches are counted over the phase.  Returns its
+    numbers and the hand-driven Renderer, whose walk-order table [walk]
+    checks."""
+    _zero_counts()
+    t_phase = time.perf_counter()
+    obj = os.path.join(tmp, "icosphere_uv.obj")
+    n_tris = write_icosphere_obj(obj, 5, uv=True)
+    scene = ["--scene", "cornell", "--obj", f"{obj}:15:50,20,50",
+             "--smooth", "--uv", "--leaf-isect", "mt", "--bvh-method",
+             "sbvh", "--width", str(WIDTH), "--height", str(HEIGHT)]
+    ppm, npz = os.path.join(tmp, "features.ppm"), os.path.join(tmp, "f.npz")
+    res = _cli(["render", *scene, "--frames", str(FEATURE_FRAMES), "--out",
+                ppm, "--checkpoint", npz])
+    cli_counts = {k: res[k] for k in COUNTED}
+    dt = float(re.search(r"spp, ([0-9.]+)s\)$", res["stdout"]).group(1))
+    with np.load(npz) as z:
+        sums = z["accum"]
+    args = cli.build_parser().parse_args(["render", *scene])
+    arrays = cli.build_scene_arrays(args)
+    mesh = arrays.uv_mask > 0
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=1, **FEATURE_CFG)
+    t0 = time.perf_counter()
+    rf = Renderer(arrays, cfg=cfg)
+    setup = time.perf_counter() - t0
+    rounds, path, shadow = 0, 0, 0
+    before = walk.quad_walk_cuda.launches
+    for _ in range(FEATURE_FRAMES):
+        rf.step(params)
+        st = rf.last_stats
+        rounds += st["iterations"]
+        path += int(st["n_traced"])
+        shadow += int(st["n_shadow"])
+    hand_walks = walk.quad_walk_cuda.launches - before
+    img = rf.image()
+    same_ppm = load_ppm(ppm).tobytes() == img.tobytes()
+    same_sums = sums.tobytes() == rf.state.accum.cpu().numpy().tobytes()
+    log(f"[features] render {' '.join(scene[:3])} icosphere_uv.obj "
+        f"({n_tris} triangles, {int(mesh.sum())} with UVs on texture slot 0"
+        f") --smooth --uv --leaf-isect mt --bvh-method sbvh at "
+        f"{WIDTH}x{HEIGHT}: {1e3 * dt / FEATURE_FRAMES:.1f} ms a frame, "
+        f"{res['seconds']:.2f} s in all; leaf {rf.scene.leaf_fmt} x"
+        f"{rf.scene.leaf_size}, {rf.scene.quad_table.shape[0]} quad rows, "
+        f"walk rows of {rf.inline.walk.shape[1]} floats, {rf.bvh.perm.size} "
+        f"references; hand-driven setup {setup:.2f} s, {rounds} rounds, "
+        f"path rays {path}, shadow rays {shadow}; launches: walk "
+        f"{cli_counts['walk']} (hand-driven {hand_walks}), tonemap "
+        f"{cli_counts['tonemap']}, fetch_chain {cli_counts['fetch_chain']};"
+        f" PPM equal {same_ppm}, sums equal {same_sums}")
+    if n_tris != 20480 or int(mesh.sum()) != n_tris or not (
+            arrays.tex_id[mesh] == 0).all():
+        raise AssertionError("the icosphere's triangles do not all carry UVs "
+                             "on texture slot 0")
+    if not same_ppm or not same_sums:
+        raise AssertionError("the features render differs from the Renderer")
+    if (cli_counts["walk"] != rounds or hand_walks != rounds
+            or cli_counts["tonemap"] != 1 or cli_counts["fetch_chain"]):
+        raise AssertionError(f"launches {cli_counts} for {rounds} rounds")
+    if rf.scene.leaf_fmt != "mt" or not np.isfinite(sums).all():
+        raise AssertionError("not an mt render, or non-finite sums")
+
+    # SBVH against SAH on the main path's scene.
+    main_arrays = main_path_arrays()
+    r.reset()
+    r.step(params)
+    sah, sah_stats = r.state.accum.cpu().numpy(), r.last_stats
+    t0 = time.perf_counter()
+    rs = Renderer(main_arrays, cfg=RenderConfig(
+        width=WIDTH, height=HEIGHT, spp=1, bvh_method="sbvh",
+        bvh_leaf_size=r.scene.leaf_size))
+    sbvh_setup = time.perf_counter() - t0
+    rs.step(params)
+    sbvh_equal = sah.tobytes() == rs.state.accum.cpu().numpy().tobytes()
+    counts = [(int(x["n_traced"]), int(x["n_shadow"]), int(x["rows_fetched"]),
+               x["iterations"]) for x in (sah_stats, rs.last_stats)]
+    log(f"[features] SBVH of the main path (leaf {rs.scene.leaf_size}): "
+        f"build and upload {sbvh_setup:.2f} s, {rs.bvh.perm.size} references"
+        f" for {main_arrays.num_objects} triangles, "
+        f"{rs.scene.quad_table.shape[0]} quad rows (SAH "
+        f"{r.scene.quad_table.shape[0]}); (path, shadow, rows, rounds) SBVH "
+        f"{counts[1]} SAH {counts[0]}; sums bit-identical {sbvh_equal}")
+    if not sbvh_equal or counts[0][:2] != counts[1][:2]:
+        raise AssertionError("the SBVH render differs from the SAH render")
+    del rs
+
+    # Refit against a fresh build of the moved scene.
+    ico = np.arange(main_arrays.num_objects) >= main_arrays.num_objects - n_tris
+    moved = dataclasses.replace(main_arrays)
+    rng = np.random.RandomState(REFIT_SEED)
+    for name in ("tri_v0", "tri_v1", "tri_v2"):
+        v = getattr(main_arrays, name).copy()
+        v[ico] += rng.normal(0.0, REFIT_SIGMA, (int(ico.sum()), 3)).astype(
+            np.float32)
+        setattr(moved, name, v)
+    main_cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=1)
+    rr = Renderer(main_arrays, cfg=main_cfg)
+    rr.step(params)
+    t0 = time.perf_counter()
+    rr.refit(moved)
+    rr.block_until_ready()
+    refit_s = time.perf_counter() - t0
+    rr.step(params)
+    t0 = time.perf_counter()
+    fresh = Renderer(moved, cfg=main_cfg)
+    fresh.block_until_ready()
+    fresh_s = time.perf_counter() - t0
+    fresh.step(params)
+    a, b = rr.state.accum.cpu().numpy(), fresh.state.accum.cpu().numpy()
+    refit_mse = float(((a - b) ** 2).mean())
+    rays = [(int(x.last_stats["n_traced"]), int(x.last_stats["n_shadow"]))
+            for x in (rr, fresh)]
+    log(f"[features] refit after moving {int(ico.sum())} triangles (seed "
+        f"{REFIT_SEED}, sigma {REFIT_SIGMA}): refit {refit_s:.3f} s against "
+        f"a fresh build's setup {fresh_s:.3f} s; step vs the fresh build's: "
+        f"MSE {refit_mse!r}, bit-equal {a.tobytes() == b.tobytes()}, "
+        f"(path, shadow) refit {rays[0]} fresh {rays[1]}")
+    if not refit_mse < ORACLE_MSE or rays[0] != rays[1]:
+        raise AssertionError("the refit step differs from the fresh build's")
+    del rr, fresh
+
+    small = _small_feature_checks(tmp)
+    launches = _counts()
+    seconds = time.perf_counter() - t_phase
+    log(f"[features] {seconds:.1f} s in all; launches: tonemap "
+        f"{launches['tonemap']}, fetch_chain {launches['fetch_chain']}, walk "
+        f"{launches['walk']} (mt leaves {cli_counts['walk'] + hand_walks})")
+    return dict(launches, mt_walk=cli_counts["walk"] + hand_walks,
+                ms_per_frame=1e3 * dt / FEATURE_FRAMES, refit_s=refit_s,
+                fresh_setup_s=fresh_s, small=small, seconds=seconds), rf
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1082,10 +1367,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         cli_run = phase_cli(tmp)
         app_run = phase_app(arrays, tmp)
-    bench_run = phase_bench()
+        bench_run = phase_bench()
+        features_run, features_r = phase_features(r, params, tmp)
     tone = phase_tonemap()
     chain = phase_fetch(seed=0)
     walked = phase_walk(r, params)
+    # The Moller-Trumbore leaf slots on the table the features path walks.
+    walked_mt = phase_walk(features_r, params)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     keys = ("max_abs_err", "ms", "wrapper_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
@@ -1096,6 +1384,7 @@ def main() -> int:
              launches=main_run["launches"], cli_launches=cli_run["tonemap"],
              app_launches=app_run["tonemap"],
              bench_launches=bench_run["tonemap"],
+             features_launches=features_run["tonemap"],
              **{k: tone[k] for k in keys}),
         dict(name="fetch_chain", route="cuda",
              source="tryraytrace_tpu_torch/csrc/fetch_chain.cu",
@@ -1103,6 +1392,7 @@ def main() -> int:
              launches=chain["launches"], cli_launches=cli_run["fetch_chain"],
              app_launches=app_run["fetch_chain"],
              bench_launches=bench_run["fetch_chain"],
+             features_launches=features_run["fetch_chain"],
              **{k: chain[k] for k in keys},
              variants=chain["variants"]),
         dict(name="quad_walk", route="cuda",
@@ -1113,8 +1403,11 @@ def main() -> int:
              tiled_launches=tiled["launches"],
              cli_launches=cli_run["walk"], app_launches=app_run["walk"],
              bench_launches=bench_run["walk"],
+             features_launches=features_run["walk"],
+             features_mt_launches=features_run["mt_walk"],
              **{k: walked[k] for k in keys},
-             rows_fetched=walked["rows_fetched"], plan=walked["plan"])]}))
+             rows_fetched=walked["rows_fetched"], plan=walked["plan"],
+             mt={k: walked_mt[k] for k in (*keys, "rows_fetched", "plan")})]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

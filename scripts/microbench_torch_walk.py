@@ -82,7 +82,7 @@ def main() -> int:
     r = Renderer(chip_smoke.main_path_arrays(),
                  cfg=RenderConfig(width=w, height=h, spp=1), device="cuda")
     params = CameraController().get_params(w, h)
-    inline, k = r.inline, r.scene.leaf_size
+    inline, k, fmt = r.inline, r.scene.leaf_size, r.scene.leaf_fmt
     passes = max(1, r.cfg.quad_redirect_passes)
     table, sentinel = inline.walk, inline.sentinel
     print(f"[walkbench] {torch.cuda.get_device_name(0)}; walk-order rows "
@@ -99,7 +99,7 @@ def main() -> int:
         walk.LIBRARY = libraries[build]
         try:
             launch = lambda: walk.quad_walk_cuda(  # noqa: E731
-                s, table, sentinel, k, passes, inline.walk_levels)
+                s, table, sentinel, k, passes, inline.walk_levels, fmt=fmt)
             got, rows = launch()
             plan = walk.quad_walk_cuda.plan
             exact = (int(rows) == int(want_rows) and all(
@@ -121,7 +121,8 @@ def main() -> int:
 
     order = [label for label, _ in BUILDS]
     for label, s in states(r, params):
-        want, want_rows = walk.walk_plain(s, table, sentinel, k, passes)
+        want, want_rows = walk.walk_plain(s, table, sentinel, k, passes,
+                                          fmt=fmt)
         for build in order + order[::-1]:
             run(label, s, want, want_rows, build)
         if label != "fresh":
@@ -129,7 +130,7 @@ def main() -> int:
         for share in LANE_SHARES:
             part = {key: val[::share].contiguous() for key, val in s.items()}
             want, want_rows = walk.walk_plain(part, table, sentinel, k,
-                                              passes)
+                                              passes, fmt=fmt)
             run(label, part, want, want_rows, "port")
     print(json.dumps({"walk_variants": results}))
     return 0

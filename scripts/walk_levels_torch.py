@@ -41,7 +41,7 @@ def main() -> int:
     inline = r.inline
     counts = torch.zeros(inline.sentinel, dtype=torch.int64)
 
-    def counting_walk(s, table, sentinel, k, passes=1, levels=()):
+    def counting_walk(s, table, sentinel, k, passes=1, levels=(), *, fmt):
         """walk_plain, counting the rows it fetches."""
         rows = torch.zeros((), dtype=torch.int64)
         while True:
@@ -51,7 +51,7 @@ def main() -> int:
                 return s, rows
             counts.add_(torch.bincount(idx[stepping], minlength=sentinel))
             rows = rows + n
-            s = walk.walk_step(s, table[idx], sentinel, k, passes)
+            s = walk.walk_step(s, table[idx], sentinel, k, passes, fmt=fmt)
 
     persistent.quad_walk = counting_walk
     r.step(CameraController().get_params(w, h))

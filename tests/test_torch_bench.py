@@ -17,9 +17,9 @@ from tryraytrace_tpu_torch.camera.controller import CameraController
 from tryraytrace_tpu_torch.config import RenderConfig
 from tryraytrace_tpu_torch.engine.renderer import Renderer
 from tryraytrace_tpu_torch.oracle import oracle_render
-from tryraytrace_tpu_torch.scene.assets import checker_texture
+from tryraytrace_tpu_torch.scene.assets import checker_texture, cube_mesh
 from tryraytrace_tpu_torch.scene.cornell import create_cornell_box
-from tryraytrace_tpu_torch.scene.model import flatten_scene
+from tryraytrace_tpu_torch.scene.model import Object, flatten_scene
 
 torch.set_num_threads(1)
 
@@ -108,14 +108,38 @@ def test_oracle_is_byte_equal_to_jax(scene, frame_seed, spp, aperture):
     assert ours.mean() > 0
 
 
+def _featured_cornell():
+    """The Cornell box and a textured cube whose corners carry normals
+    (the cube's vertex directions) and UVs."""
+    scene = create_cornell_box(mesh=None)
+    v0, v1, v2 = cube_mesh()
+    for tri in zip(v0, v1, v2):
+        corners = [np.asarray(v, np.float32) for v in tri]
+        scene.objects.append(Object(
+            *(tuple(c * 15 + [50, 25, 55]) for c in corners),
+            albedo=(0.8, 0.8, 0.8), roughness=1.0, tex_id=0,
+            n0=tuple(corners[0] / np.linalg.norm(corners[0])),
+            n1=tuple(corners[1] / np.linalg.norm(corners[1])),
+            n2=tuple(corners[2] / np.linalg.norm(corners[2])),
+            uv0=(0.1, 0.2), uv1=(0.9, 0.3), uv2=(0.4, 0.8)))
+    return flatten_scene(scene, textures=[checker_texture(32)])
+
+
 @pytest.mark.parametrize("knob", [dict(smooth_shading=True),
                                   dict(uv_mapping=True),
                                   dict(leaf_isect="mt")])
-def test_oracle_refuses_what_the_port_does_not_render(knob):
+def test_oracle_features_are_byte_equal_to_jax(knob):
+    arrays = _featured_cornell()
     params = CameraController().get_params(W, H)
-    with pytest.raises(ValueError, match="not ported"):
-        oracle_render(_textured_cornell(), params, W, H, frame_seed=1,
-                      cfg=RenderConfig(width=W, height=H, **knob))
+    cfg = RenderConfig(width=W, height=H, **knob)
+    ours = oracle_render(arrays, params, W, H, frame_seed=2, cfg=cfg)
+    theirs = joracle(arrays, params, W, H, frame_seed=2, cfg=cfg)
+    assert ours.tobytes() == theirs.tobytes()
+    plain = oracle_render(arrays, params, W, H, frame_seed=2,
+                          cfg=RenderConfig(width=W, height=H))
+    assert ours.mean() > 0
+    if "leaf_isect" not in knob:   # the leaf format changes no pixel here
+        assert ours.tobytes() != plain.tobytes()
 
 
 def test_run_config_holds_the_render_to_the_oracle(small):

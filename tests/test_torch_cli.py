@@ -146,10 +146,6 @@ def test_info_matches_jax_bvh(tmp_path, capsys):
     (["--process-id", "1"], "--process-id: the port"),
     (["--cpu-devices", "4"], "--cpu-devices: the port"),
     (["--engine", "bounce"], "RenderConfig.engine='bounce' is not ported"),
-    (["--smooth"], "RenderConfig.smooth_shading=True is not ported"),
-    (["--uv"], "RenderConfig.uv_mapping=True is not ported"),
-    (["--leaf-isect", "mt"], "RenderConfig.leaf_isect='mt' is not ported"),
-    (["--bvh-method", "sbvh"], "RenderConfig.bvh_method='sbvh' is not"),
     (["--traversal", "pair"], "RenderConfig.traversal='pair' is not"),
     (["--scheduler", "pool"], "RenderConfig.scheduler='pool' is not"),
     (["--checkpoint", "state.orbax"], "writes .npz checkpoints only"),
@@ -162,6 +158,27 @@ def test_refused_flags_exit_with_a_message(argv, message, tmp_path, capsys):
     said = str(e.value.code) + capsys.readouterr().err
     assert e.value.code not in (0, None) and message in said
     assert not out.exists() and not list(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("flag", [["--smooth"], ["--uv"],
+                                  ["--leaf-isect", "mt"],
+                                  ["--bvh-method", "sbvh"]])
+def test_feature_flags_render(flag, tmp_path):
+    """Each feature flag renders the Renderer's image under the config
+    it asks for (tests/test_torch_features.py holds the features to the
+    oracle)."""
+    out = tmp_path / "x.ppm"
+    obj = tmp_path / "octa.obj"
+    obj.write_text(OCTAHEDRON)
+    argv = [*SCENE, "--obj", f"{obj}:12:50,25,60", "--device", "cpu", *flag]
+    assert cli.main(["render", *argv, "--frames", "1", "--out",
+                     str(out)]) == 0
+    args = cli.build_parser().parse_args(["render", *argv])
+    cfg = cli._cfg_from_args(args)
+    assert cfg != RenderConfig(width=W, height=H)
+    r = Renderer(cli.build_scene_arrays(args), cfg=cfg, device="cpu")
+    r.step(CameraController().get_params(W, H))
+    assert load_ppm(str(out)).tobytes() == r.image().tobytes()
 
 
 def test_bench_without_config_is_refused(capsys):

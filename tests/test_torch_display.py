@@ -11,7 +11,6 @@ import signal
 import sys
 import threading
 import time
-from unittest import mock
 
 import numpy as np
 import pytest
@@ -349,56 +348,21 @@ def test_app_windowed_dummy_driver(cls, arrays, tmp_path, monkeypatch):
     assert logged == ["frame"]  # the HUD of the tenth frame
 
 
-def _with_cuda_scalar_division(fn):
-    """``fn`` computing as torch's CUDA kernels do where a float32 tensor
-    is divided by a Python number: a multiply by the number's float32
-    reciprocal (ATen's div_true_kernel_cuda), which the CPU's division
-    does not round the same."""
-    div = torch.Tensor.__truediv__
-
-    def cuda_div(a, b):
-        if (isinstance(b, (int, float)) and not isinstance(b, bool)
-                and a.dtype == torch.float32):
-            return a * float(np.float32(1.0) / np.float32(b))
-        return div(a, b)
-
-    def wrapped(*args, **kwargs):
-        with mock.patch.object(torch.Tensor, "__truediv__", cuda_div):
-            return fn(*args, **kwargs)
-
-    return wrapped
-
-
 @pytest.mark.cuda
-def test_cuda_app_equals_cpu_app(arrays, tmp_path, monkeypatch):
+def test_cuda_app_equals_cpu_app(arrays, tmp_path):
     """On the card: the App's accumulator after a scripted run is a
-    hand-driven card Renderer's bit for bit, and the CPU App's within the
-    port's card-against-CPU bound (chip_smoke.py RENDER_MSE), with equal
-    ray counts.  Not bit for bit, and this records the fault (ROADMAP
-    Queue C): at 64x48, sides that are not powers of two, the card's
-    camera rays differ from the CPU's in the last bit, because
-    engine/camera_rays.py divides by Python numbers, which torch's CUDA
-    kernel turns into a multiply by the reciprocal
-    (scripts/diff_torch_devices.py).  The card's App is the CPU App's
-    bit for bit once the CPU's camera rays divide that way, so that rule
-    is the only difference.  When camera_rays divides as the CPU does on
-    both devices, the assertion that the two differ fails: then hold the
-    card to the plain CPU App bit for bit."""
+    hand-driven card Renderer's bit for bit, and the CPU App's bit for
+    bit, with equal ray counts, at 64x48 (sides that are not powers of
+    two: the camera rays divide by tensors on their device, so the
+    card's division is the CPU's)."""
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernels run only on a CUDA device")
-    from tryraytrace_tpu_torch.engine import camera_rays, persistent
-
     w, h = 64, 48
     cfg = RenderConfig(width=w, height=h, spp=1)
     out, rays = {}, {}
-    for run in ("cuda", "cpu", "cpu-cuda-division"):
-        if run == "cpu-cuda-division":
-            monkeypatch.setattr(persistent, "generate_rays",
-                                _with_cuda_scalar_division(
-                                    camera_rays.generate_rays))
+    for run in ("cuda", "cpu"):
         app = App(arrays, cfg, input_source=ScriptedInput(SCRIPT),
-                  out_dir=str(tmp_path / run),
-                  device="cuda" if run == "cuda" else "cpu")
+                  out_dir=str(tmp_path / run), device=run)
         app.run()
         out[run] = app.renderer.state.accum.cpu().numpy()
         st = app.renderer.last_stats
@@ -412,10 +376,6 @@ def test_cuda_app_equals_cpu_app(arrays, tmp_path, monkeypatch):
     r.step(cam.get_params(w, h))
     r.step(cam.get_params(w, h))
     assert out["cuda"].tobytes() == r.state.accum.cpu().numpy().tobytes()
-    assert rays["cuda"] == rays["cpu"] == rays["cpu-cuda-division"]
-    mse = float(((out["cuda"] / 2 - out["cpu"] / 2) ** 2).mean())
-    assert mse < 1e-9 and out["cuda"].mean() > 0
-    assert out["cuda"].tobytes() == out["cpu-cuda-division"].tobytes()
-    assert out["cuda"].tobytes() != out["cpu"].tobytes(), (
-        "the card's App now equals the CPU's bit for bit: the camera-ray "
-        "fault is fixed; hold the two equal here")
+    assert rays["cuda"] == rays["cpu"]
+    assert out["cuda"].mean() > 0
+    assert out["cuda"].tobytes() == out["cpu"].tobytes()

@@ -60,7 +60,6 @@ def test_port_imports_no_jax():
 def test_render_config_defaults_match():
     assert (dataclasses.asdict(tconfig.RenderConfig())
             == dataclasses.asdict(jconfig.RenderConfig()))
-    assert tconfig.INLINE_MAX_LIGHTS == jconfig.INLINE_MAX_LIGHTS
     for kw in ({}, {"quad_regs": 2}, {"quad_select": "perm"}):
         assert (tconfig.quad_select_resolved(tconfig.RenderConfig(**kw))
                 == jconfig.quad_select_resolved(jconfig.RenderConfig(**kw)))
@@ -71,12 +70,18 @@ def test_render_config_defaults_match():
     {"shadow_pred": True}, {"inline_shade": False},
     {"quad_layout": "octant"}, {"quad_layout": None},
     {"quad_select": "rank", "quad_regs": 0}, {"engine": "bounce"},
-    {"smooth_shading": True}, {"uv_mapping": True}, {"leaf_isect": "mt"},
-    {"inline_tex": False},
+    {"inline_tex": False}, {"leaf_isect": "xx"}, {"bvh_method": "xx"},
 ])
 def test_unported_knobs_raise(kw):
     with pytest.raises(ValueError):
         tconfig.check_supported(tconfig.RenderConfig(**kw))
+
+
+@pytest.mark.parametrize("kw", [
+    {"smooth_shading": True}, {"uv_mapping": True}, {"leaf_isect": "mt"},
+])
+def test_feature_knobs_are_accepted(kw):
+    tconfig.check_supported(tconfig.RenderConfig(**kw))
 
 
 def test_scheduling_knobs_are_accepted():
@@ -185,8 +190,13 @@ def test_upload_and_inline_table_match_jax(kind):
     carried = DeviceScene.from_numpy(fields, statics, "cpu")
     for name in DeviceScene.ARRAYS:
         assert torch.equal(getattr(carried, name), getattr(tdev, name))
+    assert DeviceScene.from_numpy(fields, dict(statics, leaf_fmt="mt"),
+                                  "cpu").leaf_fmt == "mt"
     with pytest.raises(ValueError):
-        DeviceScene.from_numpy(fields, dict(statics, leaf_fmt="mt"), "cpu")
+        DeviceScene.from_numpy(fields, dict(statics, leaf_fmt="xx"), "cpu")
+    with pytest.raises(ValueError):
+        DeviceScene.from_numpy(fields, dict(statics, quad_layout="octant"),
+                               "cpu")
 
 
 @pytest.mark.parametrize("method,leaf_size", [("sah", 4), ("median", 1)])

@@ -247,7 +247,7 @@ def test_closest_hit_quad_matches_jax():
     jt, jid = jax.jit(jclosest, static_argnames=("k", "fmt"))(
         jnp.asarray(table), k=8, r_o=jnp.asarray(o), r_d=jnp.asarray(d),
         active=jnp.asarray(active), fmt="bw")
-    tt, tid = tclosest(_t(table), 8, _t(o), _t(d), _t(active))
+    tt, tid = tclosest(_t(table), 8, _t(o), _t(d), _t(active), fmt="bw")
     jt, jid, tt, tid = (np.asarray(jt), np.asarray(jid), tt.numpy(),
                         tid.numpy())
     assert (tid[:64] == -1).all() and (tid >= 0).mean() > 0.3
@@ -276,6 +276,7 @@ def test_any_hit_quad_matches_jax():
         jnp.asarray(table), k=8, r_o=jnp.asarray(o), r_d=jnp.asarray(d),
         max_dist=jnp.asarray(max_dist), active=jnp.asarray(active),
         fmt="bw")
-    got = tany(_t(table), 8, _t(o), _t(d), _t(max_dist), _t(active))
+    got = tany(_t(table), 8, _t(o), _t(d), _t(max_dist), _t(active),
+               fmt="bw")
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
     assert 0.1 < got.numpy().mean() < 0.9

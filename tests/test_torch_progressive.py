@@ -163,7 +163,10 @@ def test_rejects_what_the_jax_class_rejects(arrays):
             ProgressiveRenderer(arrays, cfg=RenderConfig(width=W, height=H,
                                                          **bad),
                                 device="cpu")
-    # More lights than the inline NEE pick covers (inline shading off).
+    # More lights than the JAX engine's inline NEE pick covers: the JAX
+    # class refuses them (its tick-free engine needs that pick); the
+    # port's pick gathers the row at any light count, so it renders
+    # them, and a capped wave equals the batch step.
     scene = create_cornell_box(mesh=None)
     for i in range(16):
         x = 10.0 + 4 * i
@@ -172,9 +175,16 @@ def test_rejects_what_the_jax_class_rejects(arrays):
                                     emission=(5.0, 5.0, 5.0)))
     many = flatten_scene(scene, textures=[checker_texture(8)])
     assert many.num_lights == 17
-    with pytest.raises(ValueError, match="lights"):
-        ProgressiveRenderer(many, cfg=RenderConfig(width=8, height=8),
-                            device="cpu")
+    cfg = RenderConfig(width=8, height=8)
+    pr = ProgressiveRenderer(many, cfg=cfg, spp_cap=1, frame_seed=1,
+                             seed_spp=1, device="cpu")
+    params = CameraController().get_params(8, 8)
+    pr.step(params, 1 << 20)
+    accum, counts = pr.snapshot()
+    r = Renderer(many, cfg=cfg, device="cpu")
+    r.step(params)
+    assert pr.done() and (counts == 1).all()
+    assert accum.tobytes() == r.state.accum.numpy().tobytes()
 
 
 def test_default_device_is_the_card():

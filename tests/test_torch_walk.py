@@ -45,9 +45,10 @@ def _rays(r, n=N):
     return _t(o), _t(d)
 
 
-def _walk_scene(seed, n_tris, k=K):
-    """Random triangles in [-5, 5]^3, their quad table, and rays from
-    [-8, 8]^3 aimed at random points among them."""
+def _walk_scene(seed, n_tris, k=K, fmt="bw"):
+    """Random triangles in [-5, 5]^3, their quad table (leaf slots of
+    format ``fmt``), and rays from [-8, 8]^3 aimed at random points
+    among them."""
     r = np.random.RandomState(seed)
     base = r.uniform(-5, 5, size=(n_tris, 1, 3)).astype(np.float32)
     tri = base + r.uniform(-0.8, 0.8, size=(n_tris, 3, 3)).astype(np.float32)
@@ -55,7 +56,8 @@ def _walk_scene(seed, n_tris, k=K):
     bvh = build_bvh(v0, v1, v2, method="sah", leaf_size=k)
     table = pack_quad_table(bvh, v0[bvh.perm], v1[bvh.perm], v2[bvh.perm],
                             leaf_size=k,
-                            children=collapse_bvh(bvh, criterion="dp"))
+                            children=collapse_bvh(bvh, criterion="dp"),
+                            leaf_fmt=fmt)
     return _t(table), lambda: _rays(r), r
 
 
@@ -82,8 +84,9 @@ def test_fresh_walk_matches_closest_hit_quad(regs, passes):
     zeros3 = torch.zeros((N, 3))
     s = _state(mode, o, d, zeros3, zeros3, torch.zeros(N), zeros3,
                torch.zeros(N, dtype=torch.bool), regs)
-    out, rows = walk.walk_plain(s, table, table.shape[0], K, passes)
-    want_t, want_id = closest_hit_quad(table, K, o, d, active)
+    out, rows = walk.walk_plain(s, table, table.shape[0], K, passes,
+                                fmt="bw")
+    want_t, want_id = closest_hit_quad(table, K, o, d, active, fmt="bw")
     assert torch.equal(out["d_min"], want_t)
     assert torch.equal(out["hit_id"], want_id)
     hit = want_id >= 0
@@ -99,7 +102,7 @@ def test_fresh_walk_matches_closest_hit_quad(regs, passes):
         with_regs, fewer = walk.walk_plain(
             {**s, "reg_e": torch.full((N, 3), -1, dtype=torch.int64),
              "reg_s": torch.full((N, 3), -1, dtype=torch.int64)},
-            table, table.shape[0], K, passes)
+            table, table.shape[0], K, passes, fmt="bw")
         assert int(fewer) < int(rows)
         assert torch.equal(with_regs["hit_id"], want_id)
 
@@ -116,9 +119,9 @@ def test_shadow_walk_matches_any_hit_quad_and_walks_on():
     mode = torch.where(shadow, walk.SHADOW, walk.REFILL)
     s = _state(mode, o, d, so, sd, smax, pend, cont, 3)
     s["rad"] = _t(r.uniform(0, 1, (N, 3)).astype(np.float32))
-    out, rows = walk.walk_plain(s, table, table.shape[0], K)
+    out, rows = walk.walk_plain(s, table, table.shape[0], K, fmt="bw")
 
-    occluded = any_hit_quad(table, K, so, sd, smax, shadow)
+    occluded = any_hit_quad(table, K, so, sd, smax, shadow, fmt="bw")
     assert 0.1 < float(occluded.float().mean()) < 0.9
     lit = shadow & ~occluded
     assert torch.equal(out["rad"],
@@ -126,7 +129,7 @@ def test_shadow_walk_matches_any_hit_quad_and_walks_on():
     # A lane whose path continues walks on for its closest hit along
     # (o, d); the others end with the walk fields reset.
     walked_on = shadow & cont
-    want_t, want_id = closest_hit_quad(table, K, o, d, walked_on)
+    want_t, want_id = closest_hit_quad(table, K, o, d, walked_on, fmt="bw")
     assert torch.equal(out["d_min"], want_t)
     assert torch.equal(out["hit_id"], want_id)
     want_mode = torch.where(
@@ -165,9 +168,9 @@ def test_renderer_takes_the_round_loop_on_every_device(monkeypatch):
     calls = []
     real = persistent.quad_walk
 
-    def spy(s, table, *args):
+    def spy(s, table, *args, **kwargs):
         calls.append(table.device.type)
-        return real(s, table, *args)
+        return real(s, table, *args, **kwargs)
 
     monkeypatch.setattr(persistent, "quad_walk", spy)
     r = Renderer(_mesh_scene(), cfg=RenderConfig(width=8, height=8),
@@ -184,18 +187,18 @@ def test_dispatch_on_cpu_uses_plain_version():
     s = _state(torch.full((N,), walk.TRAVERSE), o, d, zeros3, zeros3,
                torch.zeros(N), zeros3, torch.zeros(N, dtype=torch.bool), 3)
     before = walk.quad_walk_cuda.launches
-    got, rows = walk.quad_walk(s, table, table.shape[0], K)
-    want, want_rows = walk.walk_plain(s, table, table.shape[0], K)
+    got, rows = walk.quad_walk(s, table, table.shape[0], K, fmt="bw")
+    want, want_rows = walk.walk_plain(s, table, table.shape[0], K, fmt="bw")
     assert all(torch.equal(got[f], want[f]) for f in walk.WRITES)
     assert int(rows) == int(want_rows)
     assert walk.quad_walk_cuda.launches == before
     with pytest.raises(ValueError):
-        walk.quad_walk_cuda(s, table, table.shape[0], K)
+        walk.quad_walk_cuda(s, table, table.shape[0], K, fmt="bw")
 
 
-def _card_case(case):
+def _card_case(case, fmt="bw"):
     """(state, walk-order table, levels, k) on the card for one kernel
-    test case:
+    test case, over leaf slots of format ``fmt``:
       mixed  - every mode, shadow rays with 0 * inf in the slab test;
       done   - 95% of the lanes DONE: threads skip them and refill;
       wide   - 300,000 lanes, more than the grid holds threads, so
@@ -205,8 +208,8 @@ def _card_case(case):
     k, n_tris, n = {"deep": (4, 20000, N)}.get(case, (K, 2000, N))
     if case == "wide":
         n = 300000
-    table, _, r = _walk_scene(8, n_tris, k)
-    wt, levels = walk_order_table(table.numpy(), k)
+    table, _, r = _walk_scene(8, n_tris, k, fmt)
+    wt, levels = walk_order_table(table.numpy(), k, fmt)
     o, d = _rays(r, n)
     so, sd = _rays(r, n)
     sd[::5, 1] = 0.0  # 0 * inf in the shadow walk's slab test
@@ -229,18 +232,19 @@ def test_cuda_kernel_matches_plain_version(case):
         pytest.skip("the CUDA walk kernel runs only on a CUDA device")
     s, table, levels, k = _card_case(case)
     before = walk.quad_walk_cuda.launches
-    got, rows = walk.quad_walk_cuda(s, table, table.shape[0], k, 1, levels)
+    got, rows = walk.quad_walk_cuda(s, table, table.shape[0], k, 1, levels,
+                                    fmt="bw")
     torch.cuda.synchronize()
     plan = walk.quad_walk_cuda.plan
     assert walk.quad_walk_cuda.launches == before + 1
-    want, want_rows = walk.walk_plain(s, table, table.shape[0], k)
+    want, want_rows = walk.walk_plain(s, table, table.shape[0], k, fmt="bw")
     # -0.0 == 0.0: see the signed-zero note in ops/walk.py.
     for f in walk.WRITES:
         assert bool((got[f] == want[f]).all()), f
     assert int(rows) == int(want_rows)
     # The plan is worked out once per table: a second launch adds none.
     plans = len(walk._plans)
-    walk.quad_walk_cuda(s, table, table.shape[0], k, 1, levels)
+    walk.quad_walk_cuda(s, table, table.shape[0], k, 1, levels, fmt="bw")
     assert len(walk._plans) == plans and walk.quad_walk_cuda.plan == plan
     # Whole levels are staged.
     assert 0 < plan["staged_rows"] <= table.shape[0]
@@ -249,6 +253,30 @@ def test_cuda_kernel_matches_plain_version(case):
         assert plan["grid"] * plan["threads"] < s["mode"].shape[0]
     if case == "deep":
         assert plan["staged_rows"] < table.shape[0] // 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mixed", "done", "deep"])
+def test_cuda_mt_kernel_matches_plain_version(case):
+    """The Moller-Trumbore leaf format: 9-float slots, three in a row's
+    first 40 floats and the rest (leaf size 8 in "mixed" and "done")
+    loaded one float at a time at every 16-byte offset."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA walk kernel runs only on a CUDA device")
+    s, table, levels, k = _card_case(case, "mt")
+    assert table.shape[1] == -(-(10 + 9 * k) // 4) * 4
+    got, rows = walk.quad_walk_cuda(s, table, table.shape[0], k, 1, levels,
+                                    fmt="mt")
+    want, want_rows = walk.walk_plain(s, table, table.shape[0], k, 1,
+                                      fmt="mt")
+    for f in walk.WRITES:
+        assert bool((got[f] == want[f]).all()), f
+    assert int(rows) == int(want_rows)
+    assert bool((got["hit_id"] >= 0).any())
+    # A leaf size the rows cannot hold is refused.
+    with pytest.raises(ValueError, match="cannot hold"):
+        walk.quad_walk_cuda(s, table, table.shape[0], k + 1, 1, levels,
+                            fmt="mt")
 
 
 def test_benchmark_builds_of_the_kernel_are_libraries_of_their_own():
@@ -267,23 +295,23 @@ def test_cuda_wrapper_refuses_what_the_kernel_cannot_take():
     rows = table.shape[0]
     with pytest.raises(ValueError):
         walk.quad_walk_cuda({**s, "o": s["o"].t()}, table, rows, k, 1,
-                            levels)
+                            levels, fmt="bw")
     # Rows that are not 16 bytes wide (the unpadded quad rows), and a
     # table that does not start on a 16-byte boundary.
     with pytest.raises(ValueError, match="16-byte"):
         walk.quad_walk_cuda(s, table[:, :-2].contiguous(), rows, k, 1,
-                            levels)
+                            levels, fmt="bw")
     flat = torch.cat([table.new_zeros(1), table.reshape(-1)])
     with pytest.raises(ValueError, match="16-byte"):
         walk.quad_walk_cuda(s, flat[1:].view(table.shape), rows, k, 1,
-                            levels)
+                            levels, fmt="bw")
     # Levels that are not the top of this tree.
     with pytest.raises(ValueError, match="levels"):
-        walk.quad_walk_cuda(s, table, rows, k, 1, [rows, 1])
+        walk.quad_walk_cuda(s, table, rows, k, 1, [rows, 1], fmt="bw")
     # A lane caught mid-walk has skip registers the kernel cannot see.
     with pytest.raises(ValueError, match="mid-walk"):
         walk.quad_walk_cuda({**s, "cur": torch.ones_like(s["cur"])}, table,
-                            rows, k, 1, levels)
+                            rows, k, 1, levels, fmt="bw")
     with pytest.raises(ValueError, match="skip registers"):
         walk.quad_walk_cuda({**s, "reg_e": s["reg_e"][:, :2].contiguous()},
-                            table, rows, k, 1, levels)
+                            table, rows, k, 1, levels, fmt="bw")

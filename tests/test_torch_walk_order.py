@@ -158,9 +158,10 @@ def test_walk_over_the_copy_equals_walk_over_the_table(kind, regs, passes):
     table = torch.from_numpy(src)
     copy, _ = walk_order_table(src, k)
     s = _state(kind, regs, r)
-    want, want_rows = walk.walk_plain(s, table, table.shape[0], k, passes)
+    want, want_rows = walk.walk_plain(s, table, table.shape[0], k, passes,
+                                      fmt="bw")
     got, rows = walk.walk_plain(s, torch.from_numpy(copy), copy.shape[0], k,
-                                passes)
+                                passes, fmt="bw")
     _assert_same_walk(got, rows, want, want_rows)
     moved = want["mode"] != s["mode"]
     assert int(moved.sum()) > N // 3 and int(rows) > N
@@ -197,17 +198,19 @@ def test_round_loop_walks_the_copy_and_the_unified_table_agrees(
     seen = []
     real = persistent.quad_walk
 
-    def spy(s, table, sentinel, k, passes, levels):
-        seen.append((table is inline.walk, levels == inline.walk_levels))
-        return real(s, table, sentinel, k, passes, levels)
+    def spy(s, table, sentinel, k, passes, levels, *, fmt):
+        seen.append((table is inline.walk, levels == inline.walk_levels,
+                     fmt == "bw"))
+        return real(s, table, sentinel, k, passes, levels, fmt=fmt)
 
     monkeypatch.setattr(persistent, "quad_walk", spy)
     shadow_rounds = 0
     for _ in range(6):
         want, want_rows = walk.walk_plain(s, inline.table, inline.sentinel,
-                                          k)
-        got, rows = walk.walk_plain(s, inline.walk, inline.sentinel, k)
+                                          k, fmt="bw")
+        got, rows = walk.walk_plain(s, inline.walk, inline.sentinel, k,
+                                    fmt="bw")
         _assert_same_walk(got, rows, want, want_rows)
         shadow_rounds += bool((s["mode"] == walk.SHADOW).any())
         s = persistent._round_quad(s, inline, k, fr)[0]
-    assert seen == [(True, True)] * 6 and shadow_rounds >= 2
+    assert seen == [(True, True, True)] * 6 and shadow_rounds >= 2

@@ -1,14 +1,17 @@
 """Host-side BVH builder and table packers (jax-free copy of the parts
 of tryraytrace_tpu/accel/bvh.py on the port's main path).
 
-The build (median split, binned SAH) emits the same *threaded* linear
-BVH as the JAX package: preorder layout, miss links, contiguous fat
-leaves, and an explicit primitive permutation.  The packers produce
-the quad-row traversal table (``pack_quad_table`` over the collapsed
-4-ary tree, ``collapse_bvh``) and the fused triangle+material rows
-(``pack_trimat_table``) byte for byte as the JAX package does, so
-both engines walk identical tables.  Spatial splits (SBVH), refit and
-the threaded/pair/fat-node/octant tables are not ported.
+The builds (median split, binned SAH, SAH with spatial splits) emit
+the same *threaded* linear BVH as the JAX package: preorder layout,
+miss links, contiguous fat leaves, and an explicit primitive
+permutation (surjective for the spatial-split build, whose straddling
+triangles are referenced from both sides).  ``refit_bvh`` recomputes
+the bounds of a tree over moved vertices.  The packers produce the
+quad-row traversal table (``pack_quad_table`` over the collapsed 4-ary
+tree, ``collapse_bvh``, with "bw" or "mt" leaf slots) and the fused
+triangle+material rows (``pack_trimat_table``) byte for byte as the
+JAX package does, so both engines walk identical tables.  The
+threaded/pair/fat-node/octant tables are not ported.
 """
 
 from __future__ import annotations
@@ -85,7 +88,13 @@ def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
     method="sah": binned surface-area-heuristic build -- same node
     layout and traversal contract, typically 25-50% fewer node visits
     on mesh scenes.  Closest-hit results are identical either way.
-    Any other method (the JAX package's "sbvh") raises ValueError.
+    method="sbvh": SAH plus spatial splits (Stich et al. 2009 style):
+    overlapping nodes may be split by a plane, with straddling
+    triangles *referenced* from both sides under clipped bounds --
+    ``perm`` then maps reference slots to primitives surjectively
+    (duplicates allowed).  Results identical (duplicate references
+    carry identical triangle data; closest-hit is order-independent).
+    Any other method raises ValueError.
     ``use_native=False`` takes the NumPy builders, which give the same
     tree as the native library (tests/test_torch_host.py).
     """
@@ -110,9 +119,11 @@ def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
                     return LinearBVH(bounds, leaf_prim, leaf_count,
                                      miss, left, right, axis, perm)
         return _build_sah(pb, cent, leaf_size)
+    if method == "sbvh":
+        return _build_sbvh(pb, v0, v1, v2, leaf_size)
     if method != "median":
-        raise ValueError(f"bvh_method {method!r} is not ported "
-                         "(expected 'sah' or 'median')")
+        raise ValueError(f"unknown bvh_method {method!r} "
+                         "(expected 'sah', 'median' or 'sbvh')")
 
     if use_native and leaf_size == 1:
         from tryraytrace_tpu_torch import native
@@ -377,6 +388,337 @@ def _build_sah(pb: np.ndarray, cent: np.ndarray, leaf_size: int,
                              t_start, t_count, order)
 
 
+def _clip_tri_slab(v0, v1, v2, axis: int, lo_p, hi_p):
+    """Bounds of each triangle clipped to the slab
+    ``lo_p <= x[axis] <= hi_p`` -> (lo[R,3], hi[R,3]).
+
+    The clipped polygon's vertices are exactly: original vertices
+    inside the slab, plus triangle-edge intersections with the two
+    slab planes -- bounds over that candidate set are the exact
+    clipped-triangle bounds (no polygon bookkeeping needed).
+    Empty intersections yield lo > hi.
+    """
+    pts = np.stack([v0, v1, v2], axis=1)          # [R, 3, 3]
+    r = pts.shape[0]
+    cands = [pts]
+    masks = [(pts[:, :, axis] >= lo_p[:, None])
+             & (pts[:, :, axis] <= hi_p[:, None])]
+    edges = ((0, 1), (1, 2), (2, 0))
+    for plane in (lo_p, hi_p):
+        for a, b in edges:
+            pa, pb = pts[:, a], pts[:, b]
+            da = pa[:, axis] - plane
+            db = pb[:, axis] - plane
+            cross = (da * db) < 0.0  # strict: endpoints handled above
+            denom = np.where(cross, pb[:, axis] - pa[:, axis], 1.0)
+            t = np.clip((plane - pa[:, axis]) / denom, 0.0, 1.0)
+            p = pa + (pb - pa) * t[:, None]
+            cands.append(p[:, None, :])
+            masks.append(cross[:, None])
+    cand = np.concatenate(cands, axis=1)          # [R, 9, 3]
+    mask = np.concatenate(masks, axis=1)[..., None]
+    lo = np.where(mask, cand, np.inf).min(axis=1).astype(np.float32)
+    hi = np.where(mask, cand, -np.inf).max(axis=1).astype(np.float32)
+    return lo, hi
+
+
+def _pad_thin(lo: np.ndarray, hi: np.ndarray):
+    """Degenerate-extent padding, same rule as primitive_bounds."""
+    thin = (hi - lo) < AABB_PAD
+    return (np.where(thin, lo - AABB_PAD, lo),
+            np.where(thin, hi + AABB_PAD, hi))
+
+
+def _sweep(blo, bhi, n_left, n_right):
+    """The binned SAH sweep over the split planes 1..n_bins-1, as
+    arrays: per split the cost ``A(left) * n_left + A(right) * n_right``
+    (float64, from float32 areas, as the scalar sweep rounds them) and
+    the two sides' bounds.  Splits that leave a side empty are marked
+    invalid.  Returns (split, cost, llo, lhi, rlo, rhi) of the first
+    cheapest valid split (the scalar sweep's strict ``<``), or None."""
+    llo = np.minimum.accumulate(blo, axis=0)[:-1]
+    lhi = np.maximum.accumulate(bhi, axis=0)[:-1]
+    rlo = np.minimum.accumulate(blo[::-1], axis=0)[::-1][1:]
+    rhi = np.maximum.accumulate(bhi[::-1], axis=0)[::-1][1:]
+    valid = (n_left > 0) & (n_right > 0)
+    if not valid.any():
+        return None
+
+    def area(lo, hi):
+        d = np.maximum(hi - lo, 0.0)
+        return d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 2] * d[:, 0]
+
+    cost = area(llo, lhi) * n_left + area(rlo, rhi) * n_right
+    j = int(np.argmin(np.where(valid, cost, np.inf)))
+    return j + 1, cost[j], llo[j], lhi[j], rlo[j], rhi[j]
+
+
+def _build_sbvh(pb: np.ndarray, v0: np.ndarray, v1: np.ndarray,
+                v2: np.ndarray, leaf_size: int, n_bins: int = 16,
+                c_trav: float = 1.0, c_isect: float = 0.4,
+                alpha: float = 1e-5, max_ref_factor: float = 2.0
+                ) -> LinearBVH:
+    """Spatial-split BVH (Stich et al., "Spatial Splits in Bounding
+    Volume Hierarchies", HPG 2009) adapted to the fused-row threaded
+    layout: object splits exactly as _build_sah, plus chopped-binning
+    spatial split candidates whenever the object split's children
+    overlap by more than ``alpha`` of the root area.  A straddling
+    triangle is *referenced* on both sides with exact clipped bounds
+    (_clip_tri_slab); total references are capped at
+    ``max_ref_factor * n`` after which spatial splits stop.
+
+    Same node/traversal contract as the other builders; ``perm`` maps
+    leaf slots to primitive ids surjectively.
+
+    The same tree as the JAX package's builder, byte for byte
+    (tests/test_torch_features.py); its per-bin loops and split sweeps
+    run here as array operations: the bins' bounds as unbuffered
+    minimum / maximum, every (reference, bin) clip of an axis in one
+    ``_clip_tri_slab`` call (its rows are independent), and each sweep
+    in ``_sweep``.  Min and max are exact, and the costs are rounded
+    as the scalar code rounds them.
+    """
+    n = pb.shape[0]
+    max_refs = int(max_ref_factor * n)
+    # Reference pool (grows on spatial splits): the first n_refs rows.
+    cap = max(n, max_refs)
+    ref_prim = np.zeros(cap, np.int64)
+    ref_prim[:n] = np.arange(n)
+    ref_lo = np.zeros((cap, 3), np.float32)
+    ref_hi = np.zeros((cap, 3), np.float32)
+    ref_lo[:n] = pb[:, :3]
+    ref_hi[:n] = pb[:, 3:]
+    n_refs = n
+
+    t_lo: list[np.ndarray] = []
+    t_hi: list[np.ndarray] = []
+    t_left: list[int] = []
+    t_right: list[int] = []
+    t_axis: list[int] = []
+    t_refs: list[list[int] | None] = []  # leaf reference lists
+
+    def half_area(lo, hi):
+        d = np.maximum(hi - lo, 0.0)
+        return d[0] * d[1] + d[1] * d[2] + d[2] * d[0]
+
+    root_lo = pb[:, :3].min(axis=0)
+    root_hi = pb[:, 3:].max(axis=0)
+    root_area = max(half_area(root_lo, root_hi), 1e-30)
+
+    def rec(refs: np.ndarray) -> int:
+        nonlocal n_refs
+        idx = len(t_lo)
+        rlo = ref_lo[refs]
+        rhi = ref_hi[refs]
+        lo = rlo.min(axis=0)
+        hi = rhi.max(axis=0)
+        t_lo.append(lo)
+        t_hi.append(hi)
+        t_left.append(-1)
+        t_right.append(-1)
+        t_axis.append(0)
+        t_refs.append(None)
+        m = len(refs)
+        if m <= 1:
+            t_refs[idx] = refs.tolist()
+            return idx
+
+        cent = (rlo + rhi) * 0.5
+        clo = cent.min(axis=0)
+        chi = cent.max(axis=0)
+
+        # --- object split (binned SAH over reference bounds) ---
+        best_obj = None  # (cost, axis, bins, split, llo, lhi, rlo, rhi)
+        for ax in range(3):
+            extent = chi[ax] - clo[ax]
+            if extent <= 0:
+                continue
+            bins = np.minimum(
+                ((cent[:, ax] - clo[ax]) / extent * n_bins).astype(np.int64),
+                n_bins - 1)
+            counts = np.bincount(bins, minlength=n_bins)
+            blo = np.full((n_bins, 3), np.inf, np.float32)
+            bhi = np.full((n_bins, 3), -np.inf, np.float32)
+            np.minimum.at(blo, bins, rlo)
+            np.maximum.at(bhi, bins, rhi)
+            n_left = np.cumsum(counts)[:-1]
+            best = _sweep(blo, bhi, n_left, m - n_left)
+            if best is not None and (best_obj is None
+                                     or best[1] < best_obj[0]):
+                split, cost, llo, lhi, rlo2, rhi2 = best
+                best_obj = (cost, ax, bins, split, llo, lhi, rlo2, rhi2)
+
+        # --- spatial split (chopped binning), gated by child overlap ---
+        best_sp = None  # (cost, axis, plane)
+        try_spatial = n_refs < max_refs and best_obj is not None
+        if try_spatial:
+            _, _, _, _, ollo, olhi, orlo, orhi = best_obj
+            o_lo = np.maximum(ollo, orlo)
+            o_hi = np.minimum(olhi, orhi)
+            if np.all(o_hi > o_lo):
+                overlap = half_area(o_lo, o_hi)
+            else:
+                overlap = 0.0
+            try_spatial = overlap / root_area > alpha
+        if try_spatial:
+            prims = ref_prim[refs]
+            for ax in range(3):
+                extent = hi[ax] - lo[ax]
+                if extent <= 0:
+                    continue
+                width = extent / n_bins
+                b0 = np.minimum(((rlo[:, ax] - lo[ax]) / width)
+                                .astype(np.int64), n_bins - 1)
+                b1 = np.minimum(((rhi[:, ax] - lo[ax]) / width)
+                                .astype(np.int64), n_bins - 1)
+                b0 = np.maximum(b0, 0)
+                b1 = np.maximum(b1, b0)
+                # Every (reference, bin) pair the reference spans.
+                span = b1 - b0 + 1
+                pair_ref = np.repeat(np.arange(m), span)
+                first = np.cumsum(span) - span
+                pair_bin = (b0[pair_ref] + np.arange(pair_ref.size)
+                            - first[pair_ref])
+                planes = np.array([lo[ax] + b * width for b in range(n_bins)],
+                                  np.float32)
+                p_lo = planes[pair_bin]
+                p_hi = p_lo + width
+                pp = prims[pair_ref]
+                cl, ch = _clip_tri_slab(v0[pp], v1[pp], v2[pp], ax, p_lo,
+                                        p_hi)
+                # Clipped piece cannot exceed the reference bounds.
+                cl = np.maximum(cl, rlo[pair_ref])
+                ch = np.minimum(ch, rhi[pair_ref])
+                ok = (cl <= ch).all(axis=-1)
+                blo = np.full((n_bins, 3), np.inf, np.float32)
+                bhi = np.full((n_bins, 3), -np.inf, np.float32)
+                np.minimum.at(blo, pair_bin[ok], cl[ok])
+                np.maximum.at(bhi, pair_bin[ok], ch[ok])
+                entry = np.bincount(b0, minlength=n_bins)
+                exit_ = np.bincount(b1, minlength=n_bins)
+                n_left = np.cumsum(entry)[:-1]
+                n_right = np.cumsum(exit_[::-1])[::-1][1:]
+                best = _sweep(blo, bhi, n_left, n_right)
+                if best is not None and (best_sp is None
+                                         or best[1] < best_sp[0]):
+                    split = best[0]
+                    best_sp = (best[1], ax, lo[ax] + split * width)
+
+        parent_area = half_area(lo, hi)
+        leaf_cost = c_isect * m
+        obj_cost = (c_trav + c_isect * best_obj[0] / parent_area
+                    if best_obj is not None and parent_area > 0 else np.inf)
+        sp_cost = (c_trav + c_isect * best_sp[0] / parent_area
+                   if best_sp is not None and parent_area > 0 else np.inf)
+        if m <= leaf_size and leaf_cost <= min(obj_cost, sp_cost):
+            t_refs[idx] = refs.tolist()
+            return idx
+
+        left_refs = right_refs = None
+        if sp_cost < obj_cost and best_sp is not None:
+            _, ax, plane = best_sp
+            rl, rr = [], []
+            prims = ref_prim[refs]
+            fully_l = rhi[:, ax] <= plane
+            fully_r = rlo[:, ax] >= plane
+            straddle = ~fully_l & ~fully_r
+            rl = [int(r) for r in refs[fully_l]]
+            rr = [int(r) for r in refs[fully_r]]
+            sidx = np.nonzero(straddle)[0]
+            if sidx.size and n_refs + sidx.size <= max_refs:
+                sp_prims = prims[sidx]
+                neg_inf = np.full(sidx.size, -np.inf, np.float32)
+                pos_inf = np.full(sidx.size, np.inf, np.float32)
+                pl = np.full(sidx.size, plane, np.float32)
+                cl_lo, cl_hi = _clip_tri_slab(v0[sp_prims], v1[sp_prims],
+                                              v2[sp_prims], ax,
+                                              neg_inf, pl)
+                cr_lo, cr_hi = _clip_tri_slab(v0[sp_prims], v1[sp_prims],
+                                              v2[sp_prims], ax,
+                                              pl, pos_inf)
+                for j, si in enumerate(sidx):
+                    old = refs[si]
+
+                    def side(clip_lo, clip_hi, is_left):
+                        # Conservative base: ref box cut at the plane
+                        # (always non-empty for a straddling box);
+                        # tighten by the clipped-triangle bounds when
+                        # the clip is non-empty (a padded thin box can
+                        # straddle while the triangle itself doesn't).
+                        base_lo = rlo[si].copy()
+                        base_hi = rhi[si].copy()
+                        if is_left:
+                            base_hi[ax] = plane
+                        else:
+                            base_lo[ax] = plane
+                        s_lo = np.maximum(clip_lo, base_lo)
+                        s_hi = np.minimum(clip_hi, base_hi)
+                        if not np.all(s_lo <= s_hi):
+                            s_lo, s_hi = base_lo, base_hi
+                        return _pad_thin(s_lo.astype(np.float32),
+                                         s_hi.astype(np.float32))
+
+                    l_lo, l_hi = side(cl_lo[j], cl_hi[j], True)
+                    r_lo, r_hi = side(cr_lo[j], cr_hi[j], False)
+                    # Left side reuses the ref slot; right side is new.
+                    ref_lo[old] = l_lo
+                    ref_hi[old] = l_hi
+                    rl.append(int(old))
+                    ref_prim[n_refs] = ref_prim[old]
+                    ref_lo[n_refs] = r_lo
+                    ref_hi[n_refs] = r_hi
+                    rr.append(n_refs)
+                    n_refs += 1
+            else:
+                # Budget exhausted: send straddlers to the smaller side.
+                for si in sidx:
+                    c = (rlo[si, ax] + rhi[si, ax]) * 0.5
+                    (rl if c < plane else rr).append(int(refs[si]))
+            if len(rl) == 0 or len(rr) == 0:
+                left_refs = right_refs = None
+            else:
+                t_axis[idx] = ax
+                left_refs = np.array(rl, dtype=np.int64)
+                right_refs = np.array(rr, dtype=np.int64)
+
+        if left_refs is None:
+            if best_obj is None:
+                half = m // 2
+                left_refs, right_refs = refs[:half], refs[half:]
+            else:
+                _, ax, bins, split, *_ = best_obj
+                t_axis[idx] = ax
+                lmask = bins < split
+                left_refs, right_refs = refs[lmask], refs[~lmask]
+
+        t_left[idx] = rec(left_refs)
+        t_right[idx] = rec(right_refs)
+        return idx
+
+    import sys
+
+    old_limit = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(old_limit, 10000))
+    try:
+        rec(np.arange(n, dtype=np.int64))
+    finally:
+        sys.setrecursionlimit(old_limit)
+
+    # Emit the final reference order (leaf refs contiguous), then the
+    # same preorder flatten with miss links as the SAH build.
+    order: list[int] = []
+    t_start = [0] * len(t_lo)
+    t_count = [0] * len(t_lo)
+    for tid, refs in enumerate(t_refs):
+        if refs is not None:
+            t_start[tid] = len(order)
+            t_count[tid] = len(refs)
+            order.extend(int(ref_prim[i]) for i in refs)
+
+    return _flatten_preorder(t_lo, t_hi, t_left, t_right, t_axis,
+                             t_start, t_count, order)
+
+
 def _subtree_size(tid: int, t_left, t_right) -> int:
     size = 0
     stack = [tid]
@@ -392,19 +734,25 @@ def _subtree_size(tid: int, t_left, t_right) -> int:
 NUM_OCTANTS = 8
 
 
-def leaf_slot_rows(v0, v1, v2):
+def leaf_slot_rows(v0, v1, v2, leaf_fmt: str = "bw"):
     """Per-triangle leaf slot payload: the Baldwin-Weber (n, v0, bu, bv)
-    transform (ops/intersect.baldwin_rows), the JAX package's "bw"
-    format; all-zero pad slots miss by themselves.  Its "mt" format is
-    not ported."""
+    transform for "bw" (stride 12, ops/intersect.baldwin_rows) or
+    (v0, e1, e2) for "mt" (stride 9; edges precomputed at pack time,
+    bit-identical to in-step subtraction).  Both formats self-mask on
+    all-zero pad slots."""
     from tryraytrace_tpu_torch.ops.intersect import baldwin_rows
 
-    return baldwin_rows(v0, v1, v2)
+    if leaf_fmt == "bw":
+        return baldwin_rows(v0, v1, v2)
+    if leaf_fmt != "mt":
+        raise ValueError(f"unknown leaf_fmt {leaf_fmt!r}")
+    return np.concatenate([v0, v1 - v0, v2 - v0], axis=-1)
 
 
-# Floats per leaf slot: the pack widths here and the decode offsets in
-# ops/traverse.py both read it.
-LEAF_STRIDE = 12
+# Floats per leaf slot of each format: the pack widths here and the
+# decode offsets in ops/traverse.py both read it.  Its order numbers the
+# formats in the walk kernel (ops/walk.py LEAF_FORMATS).
+LEAF_STRIDE = {"bw": 12, "mt": 9}
 
 
 QUAD_WIDTH = 4
@@ -416,8 +764,9 @@ QB_NSLOTS = 28
 QUAD_BODY_INT = 29
 
 
-def quad_row_width(leaf_size: int) -> int:
-    return QUAD_COL_BODY + max(QUAD_BODY_INT, LEAF_STRIDE * leaf_size)
+def quad_row_width(leaf_size: int, leaf_fmt: str = "bw") -> int:
+    return QUAD_COL_BODY + max(QUAD_BODY_INT,
+                               LEAF_STRIDE[leaf_fmt] * leaf_size)
 
 
 def collapse_bvh(bvh: LinearBVH, width: int = QUAD_WIDTH,
@@ -536,16 +885,16 @@ def collapse_bvh(bvh: LinearBVH, width: int = QUAD_WIDTH,
 
 def pack_quad_table(bvh: LinearBVH, v0: np.ndarray, v1: np.ndarray,
                     v2: np.ndarray, leaf_size: int,
-                    children: dict) -> np.ndarray:
+                    children: dict, leaf_fmt: str = "bw") -> np.ndarray:
     """Quad-row table (layout above) over the collapsed tree
-    ``children`` (collapse_bvh), with "bw" leaf slots.  The packed
+    ``children`` (collapse_bvh), with ``leaf_fmt`` leaf slots.  The packed
     permutation byte holds, per front-to-back POSITION, the child SLOT
     at that position in 2 bits (the JAX package's default "pos2slot";
     its "slot2pos" rank layout is not ported)."""
     m = bvh.num_nodes
     k = int(leaf_size)
-    st = LEAF_STRIDE
-    w = quad_row_width(k)
+    st = LEAF_STRIDE[leaf_fmt]
+    w = quad_row_width(k, leaf_fmt)
     if m == 0:
         return np.zeros((0, w), np.float32)
     if bvh.leaf_count.max() > k:
@@ -612,7 +961,7 @@ def pack_quad_table(bvh: LinearBVH, v0: np.ndarray, v1: np.ndarray,
                        if pos + 1 < len(order) else cont)
                 stack.append((int(c), int(nxt)))
 
-    tri_cat = leaf_slot_rows(v0, v1, v2)
+    tri_cat = leaf_slot_rows(v0, v1, v2, leaf_fmt)
     for x in np.nonzero(bvh.leaf_count > 0)[0]:
         start = int(bvh.leaf_prim[x])
         cnt = int(bvh.leaf_count[x])
@@ -621,11 +970,11 @@ def pack_quad_table(bvh: LinearBVH, v0: np.ndarray, v1: np.ndarray,
     return table
 
 
-def walk_order_table(quad_table, leaf_size: int):
+def walk_order_table(quad_table, leaf_size: int, leaf_fmt: str = "bw"):
     """The walk's copy of a quad table (pack_quad_table): the same rows
     in breadth-first order, root first and each row's children in slot
     order, padded to a multiple of 4 floats (16-byte rows: 58 -> 60 at
-    leaf size 4).  Every row id inside a row is renamed with its row:
+    leaf size 4 with "bw" slots, 46 -> 48 with "mt" slots).  Every row id inside a row is renamed with its row:
     the entry columns of internal rows and the continuation of each
     octant (``cont * 256 + perm``: ``cont`` renamed, ``perm`` kept).
     Ids at or past the row count (the walk's done sentinel) are kept.
@@ -639,9 +988,10 @@ def walk_order_table(quad_table, leaf_size: int):
     Returns (table [rows, width] float32 NumPy, rows per tree level)."""
     src = np.asarray(quad_table, np.float32)
     n, w = src.shape
-    if w != quad_row_width(leaf_size):
+    if w != quad_row_width(leaf_size, leaf_fmt):
         raise ValueError(f"quad rows of {w} floats, leaf size {leaf_size} "
-                         f"needs {quad_row_width(leaf_size)}")
+                         f"with {leaf_fmt!r} slots needs "
+                         f"{quad_row_width(leaf_size, leaf_fmt)}")
     width = -(-w // 4) * 4
     if n == 0:
         return np.zeros((0, width), np.float32), []
@@ -720,6 +1070,66 @@ def pack_trimat_table(arrays) -> np.ndarray:
             [arrays.uv0, arrays.uv1, arrays.uv2], axis=-1)
         out[:, TM_UV_FLAG] = arrays.uv_mask
     return out
+
+
+def refit_bvh(bvh: LinearBVH, v0: np.ndarray, v1: np.ndarray,
+              v2: np.ndarray) -> LinearBVH:
+    """Recompute node bounds for deformed geometry, reusing the tree.
+
+    Beyond-reference: the reference builds its BVH once at startup and
+    never rebuilds (bvh.cpp:32-45; SURVEY.md L3 "no refit, no
+    rebuild"), so animated geometry is impossible there.  A refit is
+    O(N) vs the O(N log^2 N) rebuild and keeps the topology (miss
+    links, leaf spans, permutation) identical -- only ``bounds`` and
+    the packed tables change, and every table keeps its shape.
+
+    ``v0/v1/v2`` are the *slot-ordered* triangle vertices (i.e. after
+    ``arrays.permuted(bvh.perm)``), deformed but with unchanged
+    topology.  Leaf bounds use the same degenerate-axis padding as the
+    build (primitive_bounds); internal bounds are child unions,
+    computed level-by-level bottom-up (vectorized per depth).  Note an
+    SBVH's spatially *clipped* leaf boxes are refit to full triangle
+    boxes -- still conservative/correct, just looser than a fresh
+    spatial-split build.
+    """
+    m = bvh.num_nodes
+    if m == 0:
+        return bvh
+    pb = primitive_bounds(v0, v1, v2)
+    bounds = np.array(bvh.bounds, dtype=np.float32, copy=True)
+
+    # Leaves: union over each leaf's contiguous primitive span.
+    leaves = np.nonzero(bvh.leaf_count > 0)[0]
+    if leaves.size:
+        start = bvh.leaf_prim[leaves].astype(np.int64)
+        count = bvh.leaf_count[leaves].astype(np.int64)
+        lo = pb[start, :3].copy()
+        hi = pb[start, 3:].copy()
+        for k in range(1, int(count.max())):
+            has = count > k
+            idx = start + np.minimum(k, count - 1)
+            lo = np.where(has[:, None], np.minimum(lo, pb[idx, :3]), lo)
+            hi = np.where(has[:, None], np.maximum(hi, pb[idx, 3:]), hi)
+        bounds[leaves, :3] = lo
+        bounds[leaves, 3:] = hi
+
+    # Internal nodes, deepest level first (preorder guarantees children
+    # have larger ids, but per-level grouping vectorizes the sweep).
+    depth = np.zeros(m, dtype=np.int32)
+    internal = bvh.left >= 0
+    for i in range(m):
+        if internal[i]:
+            depth[bvh.left[i]] = depth[i] + 1
+            depth[bvh.right[i]] = depth[i] + 1
+    for lvl in range(int(depth.max()), -1, -1):
+        idx = np.nonzero(internal & (depth == lvl))[0]
+        if not idx.size:
+            continue
+        l, r = bvh.left[idx], bvh.right[idx]
+        bounds[idx, :3] = np.minimum(bounds[l, :3], bounds[r, :3])
+        bounds[idx, 3:] = np.maximum(bounds[l, 3:], bounds[r, 3:])
+
+    return dataclasses.replace(bvh, bounds=bounds)
 
 
 def _rebuild_links(bounds, leaf_prim, miss, axis, perm) -> LinearBVH:

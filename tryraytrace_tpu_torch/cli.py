@@ -16,9 +16,12 @@ and a non-zero exit, never ignored:
   package's harness;
 * ``--checkpoint-every`` with ``--progressive``: the progressive
   renderer has no checkpoint format (the JAX CLI drops the flag);
-* a config the port does not render (``--engine bounce``, ``--smooth``,
-  ``--uv``, ``--leaf-isect mt``, ``--bvh-method sbvh``, a traversal or
-  scheduler other than the default): config.py ``check_supported``.
+* a config the port does not render (``--engine bounce``, a traversal
+  or scheduler other than the default): config.py ``check_supported``.
+
+``--smooth``, ``--uv`` (with the JAX CLI's texture-slot rule for
+``--obj`` meshes), ``--leaf-isect mt`` and ``--bvh-method sbvh`` render
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,17 +57,21 @@ def _add_scene_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--engine", default=None,
                    help="persistent (the port's only engine)")
     p.add_argument("--leaf-isect", default=None,
-                   help="leaf intersection format: bw (the port's only one)")
+                   help="leaf intersection format: bw | mt (default: "
+                        "config)")
     p.add_argument("--traversal", default=None,
                    help="quad (the port's only traversal)")
     p.add_argument("--scheduler", default=None,
                    help="owner (the port's only schedule)")
     p.add_argument("--smooth", action="store_true",
-                   help="smooth shading (not ported: refused)")
+                   help="smooth shading from computed vertex normals")
     p.add_argument("--bvh-method", default=None,
-                   help="sah | median (default: config)")
+                   help="sah | median | sbvh (default: config)")
     p.add_argument("--uv", action="store_true",
-                   help="UV texture mapping (not ported: refused)")
+                   help="UV texture mapping: parse OBJ vt/slash faces "
+                        "(the reference skips them) and sample textures "
+                        "at interpolated per-vertex UVs; --obj entries "
+                        "get texture slot 0 when UVs are present")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="render device (default: the CUDA card; fails "
                         "without one unless --device cpu)")
@@ -92,7 +99,18 @@ def build_scene_arrays(args):
         scale = float(parts[1]) if len(parts) > 1 else 1.0
         offset = (tuple(float(x) for x in parts[2].split(","))
                   if len(parts) > 2 else (0.0, 0.0, 0.0))
-        load_obj(path, scene.objects, offset=offset, scale=scale)
+        if args.uv:
+            before = len(scene.objects)
+            load_obj(path, scene.objects, offset=offset, scale=scale,
+                     parse_uv=True,
+                     tex_id=0 if scene.texture_files else -1)
+            # Meshes that came back without any UVs stay untextured.
+            if not any(o.uv0 is not None
+                       for o in scene.objects[before:]):
+                for o in scene.objects[before:]:
+                    o.tex_id = -1
+        else:
+            load_obj(path, scene.objects, offset=offset, scale=scale)
 
     # earth.ppm is absent from the reference mount; substitute the
     # checker stand-in so tex_id 0 renders (SURVEY.md section 0).

@@ -13,9 +13,12 @@ texturing.  ``check_supported`` says how it treats the other knobs:
   ``engine``, ``traversal``, ``scheduler``, ``dual_walk``,
   ``shadow_pred``, ``inline_shade``, ``inline_tex=False``,
   ``quad_layout`` and ``quad_select="rank"``.
-* Features this slice does not cover raise too, rather than render a
-  wrong image: ``smooth_shading``, ``uv_mapping``,
-  ``leaf_isect != "bw"`` and ``bvh_method="sbvh"``.
+* The features past the default path render as in the JAX package:
+  ``smooth_shading``, ``uv_mapping``, ``leaf_isect`` "bw" or "mt" and
+  ``bvh_method`` "sah", "median" or "sbvh".  Any light count renders:
+  the NEE pick gathers the picked light's row, which is the row the
+  JAX engine's where-chain (up to its ``INLINE_MAX_LIGHTS``, 16) and
+  its tick path's gather (past it) both pick.
 * Knobs that only schedule work are accepted and ignored, because the
   image does not depend on them: ``shade_every``, ``step_unroll``,
   ``inline_service_steps``, ``shade_ready_frac``, ``tail_spill``,
@@ -90,10 +93,6 @@ class RenderConfig:
         return dataclasses.replace(self, **kw)
 
 
-# Lights the inline NEE pick selects among (config.py of the JAX
-# package); past this bound the JAX engine leaves the inline path.
-INLINE_MAX_LIGHTS = 16
-
 # field -> values the port accepts (see the module docstring).
 _PORTED_VALUES = {
     "engine": ("persistent",),
@@ -104,10 +103,8 @@ _PORTED_VALUES = {
     "inline_shade": (None, True),
     "inline_tex": (None, True),
     "quad_layout": ("mux",),
-    "leaf_isect": ("bw",),
-    "bvh_method": ("sah", "median"),
-    "smooth_shading": (False,),
-    "uv_mapping": (False,),
+    "leaf_isect": ("bw", "mt"),
+    "bvh_method": ("sah", "median", "sbvh"),
 }
 
 

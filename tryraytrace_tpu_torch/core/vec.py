@@ -12,7 +12,9 @@ are off by an ulp in 0.6% to 5% of inputs, and the card's differ
 again), which gives the correctly rounded result on every device; and
 a Python constant over a tensor is written as a tensor division,
 because torch evaluates ``c / t`` as ``reciprocal(t) * c``, which
-rounds twice.
+rounds twice.  A tensor over a Python number is divided by a tensor on
+its own device (``scalar``): torch's CUDA division by a number, or by a
+0-dim CPU tensor, multiplies by the float32 reciprocal instead.
 """
 
 from __future__ import annotations
@@ -39,6 +41,12 @@ def cos(x: torch.Tensor) -> torch.Tensor:
 def sin(x: torch.Tensor) -> torch.Tensor:
     """float32 sine through float64."""
     return torch.sin(x.to(torch.float64)).to(torch.float32)
+
+
+def scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as a 0-dim tensor of ``like``'s dtype on ``like``'s
+    device, for ``t / scalar(c, t)`` (module docstring)."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

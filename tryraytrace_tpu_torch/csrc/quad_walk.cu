@@ -14,12 +14,19 @@
 // A lane in mode TRAVERSE walks for its closest hit, a lane in mode SHADOW
 // for any hit along its NEE segment; a SHADOW lane whose path continues
 // becomes TRAVERSE and walks on in the same launch.  Lanes in other modes
-// are left alone.  Per fetched row: a leaf row tests its K Baldwin-Weber
-// triangles, an internal row its four child boxes in the octant's
+// are left alone.  Per fetched row: a leaf row tests its K triangles, an
+// internal row its four child boxes in the octant's
 // front-to-back order; the first hit child is entered, later siblings that
 // were missed go into the skip-register file, and the file redirects the
 // walk past an entry when the thread order would enter it.  The registers
 // live in the thread.
+//
+// Leaf slots come in the two formats of accel/bvh.py leaf_slot_rows, a
+// template parameter of the walk: Baldwin-Weber (n, v0, bu, bv), 12
+// floats a slot (the default), or Moller-Trumbore (v0, e1, e2), 9 floats
+// a slot ("mt": more operations a slot over fewer bytes).  Both tests
+// keep the tensor code's operation order, and an all-zero pad slot
+// misses by the parallel guard in both.
 //
 // What bounds it.  A walk needs a row before it knows the next one, the
 // lanes of a warp read 32 different rows (the quad rows, 2.2 MB on the
@@ -29,8 +36,9 @@
 //     (accel/bvh.py walk_order_table), 16-byte rows in breadth-first
 //     order, and loads a row with 16-byte loads, only the columns its kind
 //     needs: floats 0-39 in one batch of ten (all of an internal row, and
-//     a leaf row's header and first two triangles), then four loads per
-//     further triangle.
+//     a leaf row's header and first two Baldwin-Weber or three
+//     Moller-Trumbore triangles), then four loads per further
+//     Baldwin-Weber triangle or nine per further Moller-Trumbore one.
 //   - Top of the tree: every walk starts at the root, and most fetches hit
 //     the top levels.  Each block first copies the top levels of the copy
 //     into shared memory (whole levels, as many as fit beside the blocks
@@ -78,11 +86,18 @@ constexpr int kColCont = 2;     // 8 per-octant (continuation << 8 | perm)
 constexpr int kColBody = 10;    // 4 child boxes, or K leaf slots
 constexpr int kBodyEnt = 24;    // 4 child entry rows
 constexpr int kBodyNslots = 28; // number of valid children
-constexpr int kLeafStride = 12; // floats per Baldwin-Weber slot
+// Leaf slot formats (ops/walk.py LEAF_FORMATS).
+constexpr int kFmtBW = 0;       // Baldwin-Weber (n, v0, bu, bv)
+constexpr int kFmtMT = 1;       // Moller-Trumbore (v0, e1, e2)
+// Floats per leaf slot of format F.
+template <int F>
+constexpr int kLeafStride = F == kFmtMT ? 9 : 12;
 // Floats 0-39 as ten 16-byte chunks: an internal row (floats 0-38) whole,
-// a leaf row's header and slots 0 and 1.
+// a leaf row's header and the slots that end by float 39 (two
+// Baldwin-Weber, three Moller-Trumbore).
 constexpr int kHeadChunks = 10;
-constexpr int kHeadSlots = 2;
+template <int F>
+constexpr int kHeadSlots = (4 * kHeadChunks - kColBody) / kLeafStride<F>;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -203,27 +218,66 @@ __device__ __forceinline__ float baldwin_t(const float s[12], const Ray& r) {
   return valid ? t : 0.0f;
 }
 
-// Closest hit among a leaf row's k slots inside the open window
-// (tlo, thi): the lowest slot wins a tie in t (strict <).  Slots 0 and 1
-// come from the row's first chunks, the others are loaded here, 16 bytes
-// at a time where they are aligned (a slot starts 8 bytes into a 16-byte
-// unit).  Returns the slot, or -1 when none hits; best_t is then kMissT.
+// Moller-Trumbore ray/triangle test on one 9-float slot (v0, e1, e2): t,
+// or 0 for a miss (ops/intersect.py moller_trumbore_pre).  An all-zero
+// pad slot gives a = 0, which the parallel guard rejects.
+__device__ __forceinline__ float moller_trumbore_t(const float s[9],
+                                                   const Ray& r) {
+  const float h0 = r.d[1] * s[8] - r.d[2] * s[7];
+  const float h1 = r.d[2] * s[6] - r.d[0] * s[8];
+  const float h2 = r.d[0] * s[7] - r.d[1] * s[6];
+  const float a = (s[3] * h0 + s[4] * h1) + s[5] * h2;
+  const bool parallel = fabsf(a) < kEps;
+  const float f = 1.0f / (parallel ? 1.0f : a);
+  const float s0 = r.o[0] - s[0];
+  const float s1 = r.o[1] - s[1];
+  const float s2 = r.o[2] - s[2];
+  const float u = f * ((s0 * h0 + s1 * h1) + s2 * h2);
+  const float q0 = s1 * s[5] - s2 * s[4];
+  const float q1 = s2 * s[3] - s0 * s[5];
+  const float q2 = s0 * s[4] - s1 * s[3];
+  const float v = f * ((r.d[0] * q0 + r.d[1] * q1) + r.d[2] * q2);
+  const float t = f * ((s[6] * q0 + s[7] * q1) + s[8] * q2);
+  const bool valid = !parallel && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
+                     u + v <= 1.0f && t > kEps;
+  return valid ? t : 0.0f;
+}
+
+template <int F>
+__device__ __forceinline__ float slot_t(const float (&s)[kLeafStride<F>],
+                                        const Ray& r) {
+  if constexpr (F == kFmtMT) {
+    return moller_trumbore_t(s, r);
+  } else {
+    return baldwin_t(s, r);
+  }
+}
+
+// Closest hit among a leaf row's k slots of format F inside the open
+// window (tlo, thi): the lowest slot wins a tie in t (strict <).  The
+// slots that end by float 39 come from the row's first chunks, the others
+// are loaded here: a Baldwin-Weber slot 16 bytes at a time where it is
+// aligned (it starts 8 bytes into a 16-byte unit), a Moller-Trumbore slot
+// (which starts anywhere in a unit) one float at a time.  Returns the
+// slot, or -1 when none hits; best_t is then kMissT.
+template <int F>
 __device__ __forceinline__ int leaf_test(const float4 (&c)[kHeadChunks],
                                          const float4* row, int k,
                                          const Ray& r, float tlo, float thi,
                                          float& best_t) {
+  constexpr int kStride = kLeafStride<F>;
   best_t = kMissT;
   int best = -1;
 #pragma unroll
-  for (int j = 0; j < kHeadSlots; ++j) {
+  for (int j = 0; j < kHeadSlots<F>; ++j) {
     if (j < k) {
-      float s[12];
+      float s[kStride];
 #pragma unroll
-      for (int i = 0; i < 12; ++i) {
-        const int f = kColBody + kLeafStride * j + i;
+      for (int i = 0; i < kStride; ++i) {
+        const int f = kColBody + kStride * j + i;
         s[i] = part(c[f >> 2], f & 3);
       }
-      const float t = baldwin_t(s, r);
+      const float t = slot_t<F>(s, r);
       const float cand = (t > tlo && t < thi) ? t : kMissT;
       if (cand < best_t) {
         best_t = cand;
@@ -231,16 +285,26 @@ __device__ __forceinline__ int leaf_test(const float4 (&c)[kHeadChunks],
       }
     }
   }
-  for (int j = kHeadSlots; j < k; ++j) {
-    const int b = kColBody + kLeafStride * j;  // even, 16 B unit + 8 B
-    const float2* row2 = reinterpret_cast<const float2*>(row);
-    const float2 a = row2[b >> 1];
-    const float4 p = row[(b + 2) >> 2];
-    const float4 q = row[(b + 6) >> 2];
-    const float2 z = row2[(b + 10) >> 1];
-    const float s[12] = {a.x, a.y, p.x, p.y, p.z, p.w,
-                         q.x, q.y, q.z, q.w, z.x, z.y};
-    const float t = baldwin_t(s, r);
+  for (int j = kHeadSlots<F>; j < k; ++j) {
+    const int b = kColBody + kStride * j;
+    float s[kStride];
+    if constexpr (F == kFmtMT) {
+      const float* rowf = reinterpret_cast<const float*>(row);
+#pragma unroll
+      for (int i = 0; i < kStride; ++i) s[i] = rowf[b + i];
+    } else {
+      // b is even: 16 B unit + 8 B.
+      const float2* row2 = reinterpret_cast<const float2*>(row);
+      const float2 a = row2[b >> 1];
+      const float4 p = row[(b + 2) >> 2];
+      const float4 q = row[(b + 6) >> 2];
+      const float2 z = row2[(b + 10) >> 1];
+      const float bw[12] = {a.x, a.y, p.x, p.y, p.z, p.w,
+                            q.x, q.y, q.z, q.w, z.x, z.y};
+#pragma unroll
+      for (int i = 0; i < kStride; ++i) s[i] = bw[i];
+    }
+    const float t = slot_t<F>(s, r);
     const float cand = (t > tlo && t < thi) ? t : kMissT;
     if (cand < best_t) {
       best_t = cand;
@@ -395,8 +459,8 @@ struct Params {
   unsigned long long* rows_out;   // counters[1]: rows fetched
 };
 
-// A thread's current walk.
-template <int R>
+// A thread's current walk: R skip registers, leaf slots of format F.
+template <int R, int F>
 struct Walk {
   long long lane;  // -1: the thread is idle
   bool shadow;
@@ -453,7 +517,7 @@ struct Walk {
     if (prim_start >= 0) {
       float best_t;
       const float thi = shadow ? smax - kShadowTMin : d_min;
-      const int slot = leaf_test(c, row, p.k, r, r.t_min, thi, best_t);
+      const int slot = leaf_test<F>(c, row, p.k, r, r.t_min, thi, best_t);
       if (slot >= 0 && best_t < kMissT) {
         if (shadow) {
           occluded = true;
@@ -494,7 +558,7 @@ struct Walk {
   }
 };
 
-template <int R>
+template <int R, int F>
 __global__ void __launch_bounds__(kThreads, 2)
     quad_walk_kernel(const Params p) {
   // Stage the top rows.
@@ -510,7 +574,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const unsigned below = (1u << lane_in_warp) - 1u;
   unsigned long long fetched = 0;
   bool exhausted = false;  // the same in every thread of the warp
-  Walk<R> w;
+  Walk<R, F> w;
   w.lane = -1;
   for (;;) {
     unsigned busy = __ballot_sync(kFull, w.lane >= 0);
@@ -566,10 +630,10 @@ inline int staged_stride4(int width) { return (width / 4) | 1; }
 // The plan: stage whole levels, as many as fit beside the blocks that the
 // kernel's registers let an SM hold, and launch as many blocks as the
 // card then holds at once.
-template <int R>
+template <int R, int F>
 int plan_walk(int sentinel, int stride4, const long long* levels,
               int n_levels, int* plan) {
-  auto kernel = quad_walk_kernel<R>;
+  auto kernel = quad_walk_kernel<R, F>;
   int dev = 0, sms = 0, per_sm = 0, per_block = 0, reserved = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) {
@@ -639,24 +703,34 @@ int plan_walk(int sentinel, int stride4, const long long* levels,
 
 // The launch plan for a table of `sentinel` quad rows of `width` floats
 // whose top tree levels hold levels[0..n_levels) rows, for the kernel
-// with `regs` skip registers on the current device.  plan[0..5) receives
+// with `regs` skip registers and leaf slot format `fmt` (0 Baldwin-Weber,
+// 1 Moller-Trumbore) on the current device.  plan[0..5) receives
 // the rows to stage, shared bytes per block, the grid that fills the
 // card, blocks per SM and threads per block.  Returns a CUDA error (0 =
 // planned), 1 (cudaErrorInvalidValue) for arguments it does not take.
 extern "C" int trt_quad_walk_plan(long long sentinel, int width, int regs,
-                                  const long long* levels, int n_levels,
-                                  int* plan) {
+                                  int fmt, const long long* levels,
+                                  int n_levels, int* plan) {
   if (sentinel < 1 || sentinel > 0x7fffffffLL || width % 4 != 0 ||
-      width < 4 * trt::kHeadChunks || n_levels < 0) {
+      width < 4 * trt::kHeadChunks || n_levels < 0 ||
+      (fmt != trt::kFmtBW && fmt != trt::kFmtMT)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int s = static_cast<int>(sentinel);
   const int stride4 = trt::staged_stride4(width);
-  switch (regs) {
-    case 0:
-      return trt::plan_walk<0>(s, stride4, levels, n_levels, plan);
-    case 3:
-      return trt::plan_walk<3>(s, stride4, levels, n_levels, plan);
+  switch (regs * 2 + fmt) {
+    case 0 * 2 + trt::kFmtBW:
+      return trt::plan_walk<0, trt::kFmtBW>(s, stride4, levels, n_levels,
+                                            plan);
+    case 0 * 2 + trt::kFmtMT:
+      return trt::plan_walk<0, trt::kFmtMT>(s, stride4, levels, n_levels,
+                                            plan);
+    case 3 * 2 + trt::kFmtBW:
+      return trt::plan_walk<3, trt::kFmtBW>(s, stride4, levels, n_levels,
+                                            plan);
+    case 3 * 2 + trt::kFmtMT:
+      return trt::plan_walk<3, trt::kFmtMT>(s, stride4, levels, n_levels,
+                                            plan);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -664,7 +738,8 @@ extern "C" int trt_quad_walk_plan(long long sentinel, int width, int regs,
 
 // table [sentinel, width] float32, 16-byte aligned, width a multiple of 4:
 // quad rows in walk order (accel/bvh.py walk_order_table) with k
-// triangles per leaf, its first `staged` rows staged in shared memory by
+// triangles of format `fmt` per leaf, its first `staged` rows staged in
+// shared memory by
 // each of `grid` blocks (from trt_quad_walk_plan).  n lanes: mode, cur,
 // hit_id (int64), d_min [n] and rad [n, 3] (float32) are read and
 // written; o, d, so, sd, pend [n, 3], smax [n] (float32) and
@@ -674,7 +749,7 @@ extern "C" int trt_quad_walk_plan(long long sentinel, int width, int regs,
 // (cudaErrorInvalidValue) for arguments it does not take.
 extern "C" int trt_quad_walk_launch(
     const float* table, long long sentinel, int width, int k, int regs,
-    int passes, int staged, int grid, long long n,
+    int fmt, int passes, int staged, int grid, long long n,
     long long* mode, long long* cur, long long* hit_id, float* d_min,
     float* rad, const float* o, const float* d, const float* so,
     const float* sd, const float* smax, const float* pend,
@@ -684,7 +759,12 @@ extern "C" int trt_quad_walk_launch(
   if (sentinel < 1 || sentinel > 0x7fffffffLL || width % 4 != 0 ||
       width < 4 * trt::kHeadChunks ||
       reinterpret_cast<uintptr_t>(table) % 16 != 0 || k < 1 ||
-      trt::kColBody + trt::kLeafStride * k > width || passes < 1 ||
+      (fmt != trt::kFmtBW && fmt != trt::kFmtMT) ||
+      trt::kColBody + (fmt == trt::kFmtMT ? trt::kLeafStride<trt::kFmtMT>
+                                          : trt::kLeafStride<trt::kFmtBW>) *
+                          k >
+          width ||
+      passes < 1 ||
       staged < 0 || staged > sentinel || grid < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -713,12 +793,22 @@ extern "C" int trt_quad_walk_launch(
   p.rows_out = reinterpret_cast<unsigned long long*>(counters) + 1;
   const size_t smem = trt::staged_bytes(staged, p.stride4);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (regs) {
-    case 0:
-      trt::quad_walk_kernel<0><<<grid, trt::kThreads, smem, st>>>(p);
+  switch (regs * 2 + fmt) {
+    case 0 * 2 + trt::kFmtBW:
+      trt::quad_walk_kernel<0, trt::kFmtBW><<<grid, trt::kThreads, smem,
+                                               st>>>(p);
       break;
-    case 3:
-      trt::quad_walk_kernel<3><<<grid, trt::kThreads, smem, st>>>(p);
+    case 0 * 2 + trt::kFmtMT:
+      trt::quad_walk_kernel<0, trt::kFmtMT><<<grid, trt::kThreads, smem,
+                                               st>>>(p);
+      break;
+    case 3 * 2 + trt::kFmtBW:
+      trt::quad_walk_kernel<3, trt::kFmtBW><<<grid, trt::kThreads, smem,
+                                               st>>>(p);
+      break;
+    case 3 * 2 + trt::kFmtMT:
+      trt::quad_walk_kernel<3, trt::kFmtMT><<<grid, trt::kThreads, smem,
+                                               st>>>(p);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -38,9 +38,12 @@ def generate_rays(cam, width: int, height: int, seed, pixel_idx):
     dy = torch.where(r2 < 1.0, vec.sqrt(r2) - 1.0,
                      1.0 - vec.sqrt(torch.clamp(2.0 - r2, min=0.0)))
 
-    # Ideal pinhole direction (renderer.cu:337-338).
-    sx = ((x + 0.5 + dx) / width - 0.5)[..., None]
-    sy = ((y + 0.5 + dy) / height - 0.5)[..., None]
+    # Ideal pinhole direction (renderer.cu:337-338).  The sides are
+    # divided as float32 tensors on the lanes' device: torch's CUDA
+    # division by a Python number (or a CPU scalar tensor) multiplies
+    # by its rounded reciprocal, which the CPU's division does not.
+    sx = ((x + 0.5 + dx) / vec.scalar(width, x) - 0.5)[..., None]
+    sy = ((y + 0.5 + dy) / vec.scalar(height, y) - 0.5)[..., None]
     dir_pinhole = vec.norm(cam.cx * sx + cam.cy * sy + cam.dir)
 
     # Thin-lens sampling (renderer.cu:341-348); a zero lens radius

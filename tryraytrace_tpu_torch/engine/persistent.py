@@ -56,16 +56,15 @@ import numpy as np
 import torch
 
 from tryraytrace_tpu_torch.accel.bvh import walk_order_table
-from tryraytrace_tpu_torch.config import (INLINE_MAX_LIGHTS, RenderConfig,
-                                          check_supported)
+from tryraytrace_tpu_torch.config import RenderConfig, check_supported
 from tryraytrace_tpu_torch.core import rng, vec
 from tryraytrace_tpu_torch.engine.camera_rays import generate_rays
 from tryraytrace_tpu_torch.engine.wavefront import _sanitize
 from tryraytrace_tpu_torch.ops import shade
 from tryraytrace_tpu_torch.ops.texture import (TEX_ROW, TEX_TILE,
                                                build_texture_tiles,
-                                               planar_uv, tile_bilinear,
-                                               tile_coords)
+                                               interp_uv, planar_uv,
+                                               tile_bilinear, tile_coords)
 from tryraytrace_tpu_torch.ops.traverse import MISS_T
 from tryraytrace_tpu_torch.ops.walk import (DONE, REFILL, SHADEG, SHADOW,
                                             TEXG, TRAVERSE, quad_walk,
@@ -128,7 +127,8 @@ def build_inline_table(scene, textures) -> InlineTable:
         rows = torch.as_tensor(rows, device=table.device)
         parts.append(pad(rows, (0, wu - TEX_ROW)))
         tex0 = sentinel + int(packed.shape[0])
-    walk, levels = walk_order_table(table.cpu().numpy(), scene.leaf_size)
+    walk, levels = walk_order_table(table.cpu().numpy(), scene.leaf_size,
+                                    scene.leaf_fmt)
     return InlineTable(torch.cat(parts, 0), sentinel, pack, tex0, metas,
                        torch.as_tensor(walk, device=table.device),
                        tuple(levels))
@@ -254,9 +254,6 @@ class Wave:
                  spp_cap: int, seed_spp: int, round_fn=None,
                  check_every: int = 1):
         check_supported(cfg)
-        if scene.num_lights > INLINE_MAX_LIGHTS:
-            raise ValueError(f"{scene.num_lights} lights: the port covers "
-                             f"at most {INLINE_MAX_LIGHTS}")
         dev = scene.quad_table.device
         frame_seed = int(frame_seed) & rng.MASK32
         cam = cam.to(dev)
@@ -336,7 +333,8 @@ def _step_quad(s, inline: InlineTable, k: int, fr: _Frame,
     idx, stepping = walk_index(s, inline.sentinel)
     idx, live_g, live_x = _service_select(s, idx, inline)
     row = inline.table[idx]
-    out = walk_step(s, row, inline.sentinel, k, redirect_passes)
+    out = walk_step(s, row, inline.sentinel, k, redirect_passes,
+                    fmt=fr.scene.leaf_fmt)
     out, tr, sh = _service_shade(out, s, row, live_g, live_x, fr)
     return out, tr, sh, stepping.sum()
 
@@ -349,7 +347,7 @@ def _round_quad(s, inline: InlineTable, k: int, fr: _Frame,
     the next round's pass.  Returns (state', path rays started, shadow
     rays started, quad rows fetched)."""
     s, rows = quad_walk(s, inline.walk, inline.sentinel, k, redirect_passes,
-                        inline.walk_levels)
+                        inline.walk_levels, fmt=fr.scene.leaf_fmt)
     idx, live_g, live_x = _service_select(s, torch.zeros_like(s["cur"]),
                                           inline)
     row = inline.table[idx]
@@ -411,10 +409,14 @@ def _service_shade(out, s, row, live_g, live_x, fr: _Frame):
 
 
 def _shade_prepare(s, hitrow, mask, fr: _Frame):
-    """Geometry/material half of the shading block: normals, and for
-    textured hits the TEXG transition with the material stashed.
-    Returns (s, ready, q): ``ready`` the lanes to shade now."""
+    """Geometry/material half of the shading block: normals (the
+    interpolated vertex normal for shading directions with smooth
+    shading on), and for textured hits the texture coordinates (planar,
+    or interpolated per-corner UVs with UV mapping on) and the TEXG
+    transition with the material stashed.  Returns (s, ready, q):
+    ``ready`` the lanes to shade now."""
     textured = fr.inline.tex0 is not None
+    scene, cfg = fr.scene, fr.cfg
     ready = mask
     if textured:
         # Out-of-range texture slots sample as factor 1: shade them now.
@@ -430,8 +432,7 @@ def _shade_prepare(s, hitrow, mask, fr: _Frame):
     x_hit = o + d * s["d_min"][:, None]
 
     nrm = vec.norm(vec.cross(v1 - v0, v2 - v0))
-    front = vec.dot(nrm, d) < 0.0
-    nl = torch.where(front[:, None], nrm, -nrm)
+    nl = torch.where((vec.dot(nrm, d) < 0.0)[:, None], nrm, -nrm)
 
     albedo = hitrow[:, 9:12]
     emission = hitrow[:, 12:15]
@@ -439,13 +440,32 @@ def _shade_prepare(s, hitrow, mask, fr: _Frame):
     roughness = hitrow[:, 16]
     ior = hitrow[:, 17]
     transmission = hitrow[:, 18]
+
+    if textured:
+        # Planar projection, or interpolated per-corner UVs where the
+        # triangle has them (JAX persistent.py _shade_prepare).
+        t_u, t_v = planar_uv(x_hit, nrm, cfg.tex_planar_scale)
+        if cfg.uv_mapping and scene.has_uvs:
+            b1, b2, okb = shade.barycentric(v0, v1, v2, x_hit)
+            iu, iv = interp_uv(hitrow[:, 30:36], b1, b2)
+            use_uv = (hitrow[:, 36] > 0.0) & okb
+            t_u = torch.where(use_uv, iu, t_u)
+            t_v = torch.where(use_uv, iv, t_v)
+
+    # Ray offsets keep the geometric front-face normal; with smooth
+    # shading on, every shading direction uses the interpolated one.
     nl_off = nl
+    if cfg.smooth_shading and scene.has_normals:
+        nrm = shade.smooth_normal(v0, v1, v2, hitrow[:, 21:24],
+                                  hitrow[:, 24:27], hitrow[:, 27:30],
+                                  x_hit, nrm)
+        nl = torch.where((vec.dot(nrm, d) < 0.0)[:, None], nrm, -nrm)
 
     if textured:
         # TEXG transition: stash what the finish body needs (the tile
         # row takes the row fetch next step); nrm is rebuilt from nl and
         # the front-face bit, negation being exact.
-        t_u, t_v = planar_uv(x_hit, nrm, fr.cfg.tex_planar_scale)
+        front = vec.dot(nrm, d) < 0.0
         trow_i, offx, offy, fx, fy = tile_coords(
             fr.inline.metas, hitrow[:, 19].to(torch.int64), t_u, t_v)
         t3 = deferred[:, None]

@@ -83,11 +83,11 @@ class ProgressiveRenderer:
                              f"engine (cfg.engine={self.cfg.engine!r})")
         check_supported(self.cfg)
         self.device = resolve_device(device)
-        # More lights than the inline NEE pick covers raise here.
         self.scene, self.textures, self.bvh = upload_scene(
             arrays, leaf_size=self.cfg.bvh_leaf_size,
             method=self.cfg.bvh_method,
-            quad_collapse=self.cfg.quad_collapse, device=self.device)
+            quad_collapse=self.cfg.quad_collapse, device=self.device,
+            leaf_fmt=self.cfg.leaf_isect)
         self.inline = build_inline_table(self.scene, self.textures)
         self._pixels = torch.arange(self.width * self.height,
                                     device=self.device)

@@ -8,7 +8,8 @@ tryraytrace_tpu/engine/renderer.py).
     kernel's plain version on the CPU) and add them to the accumulator,
     which stays on the device; ``step_tiled(cam, tiles)`` the same pass
     as one wave per pixel strip, bit-identical;
-  - ``reset()`` on camera move;
+  - ``reset()`` on camera move; ``refit(scene)`` for moved geometry
+    (a BVH refit instead of a rebuild, then a reset);
   - ``image()`` tonemaps on the device (the CUDA kernel on a card, its
     plain version on the CPU) and copies only the uint8 pixels out;
     ``image(on_device=False)`` tonemaps on the host.
@@ -24,7 +25,8 @@ import torch
 
 from tryraytrace_tpu_torch.config import (DEFAULT_CONFIG, RenderConfig,
                                           check_supported)
-from tryraytrace_tpu_torch.engine.device_scene import upload_scene
+from tryraytrace_tpu_torch.engine.device_scene import (refit_scene,
+                                                       upload_scene)
 from tryraytrace_tpu_torch.engine.persistent import (build_inline_table,
                                                      render_frame_persistent)
 from tryraytrace_tpu_torch.engine.state import RenderState, resolve_device
@@ -59,7 +61,8 @@ class Renderer:
         self.scene, self.textures, self.bvh = upload_scene(
             arrays, leaf_size=self.cfg.bvh_leaf_size,
             method=self.cfg.bvh_method,
-            quad_collapse=self.cfg.quad_collapse, device=self.device)
+            quad_collapse=self.cfg.quad_collapse, device=self.device,
+            leaf_fmt=self.cfg.leaf_isect)
         self.inline = build_inline_table(self.scene, self.textures)
         self.state = RenderState.zeros(self.width * self.height, self.device)
         self.frame = 1  # gpu_frame counter parity (main.cpp:149)
@@ -122,6 +125,31 @@ class Renderer:
         self.state = self.state.reset()
         self.frame = 1
         self._step_spp = None
+
+    def refit(self, scene, textures=None) -> None:
+        """Moved geometry: re-upload the scene's vertices and materials
+        (same topology and light set) through a BVH refit instead of a
+        rebuild, rebuild the unified table and its walk-order copy from
+        the repacked rows, and restart accumulation.  Raises ValueError
+        when the triangle count differs from the upload's."""
+        if isinstance(scene, Scene):
+            arrays = flatten_scene(
+                scene, textures=textures,
+                light_scan_threshold=self.cfg.light_scan_threshold)
+        else:
+            arrays = scene
+        # Triangles in the original order: the SBVH's slots may
+        # reference a triangle twice.
+        n_orig = (int(self.bvh.perm.max()) + 1 if self.bvh.perm.size
+                  else int(self.scene.trimat.shape[0]))
+        if arrays.num_objects != n_orig:
+            raise ValueError(
+                f"refit needs identical topology: {arrays.num_objects} "
+                f"objects vs {n_orig} at upload (build a new Renderer "
+                "instead)")
+        self.scene, self.bvh = refit_scene(self.scene, self.bvh, arrays)
+        self.inline = build_inline_table(self.scene, self.textures)
+        self.reset()
 
     def accum_host(self) -> np.ndarray:
         """Device -> host accumulator read, [H, W, 3] f32."""

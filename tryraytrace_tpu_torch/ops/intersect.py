@@ -1,12 +1,13 @@
-"""Baldwin-Weber ray/triangle intersection.
+"""Ray/triangle intersection for the two leaf formats.
 
-The counterpart of the "bw" leaf format of tryraytrace_tpu/ops/
-intersect.py: ``baldwin_rows`` packs the per-triangle transform on the
+The counterpart of tryraytrace_tpu/ops/intersect.py.  "bw" leaves:
+``baldwin_rows`` packs the per-triangle Baldwin-Weber transform on the
 host (NumPy, byte-identical to the JAX package), ``baldwin_intersect``
-evaluates it on torch tensors with the same decision structure as
-Moller-Trumbore (reference renderer.cu:235-268): the 1e-5 parallel
-guard on |n.d|, barycentric bounds u >= 0, v >= 0, u + v <= 1, and
-the hit window t > 1e-5.
+evaluates it on torch tensors.  "mt" leaves: ``moller_trumbore_pre``
+tests the packed (v0, e1, e2) slots.  Both keep the decision structure
+of the reference's Moller-Trumbore (renderer.cu:235-268): the 1e-5
+parallel guard, barycentric bounds u >= 0, v >= 0, u + v <= 1, and the
+hit window t > 1e-5; both self-mask on all-zero pad slots.
 """
 
 from __future__ import annotations
@@ -54,4 +55,24 @@ def baldwin_intersect(rows, r_o, r_d) -> torch.Tensor:
     v = vec.dot(bv, p)
     valid = (~parallel & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
              & (t > EPS))
+    return torch.where(valid, t, 0.0)
+
+
+def moller_trumbore_pre(v0, e1, e2, r_o, r_d) -> torch.Tensor:
+    """Moller-Trumbore with precomputed edges e1 = v1 - v0, e2 = v2 - v0
+    (the "mt" leaf slot), all [..., 3] and broadcast against each
+    other.  Returns t [...] with 0 for a miss; a zero (v0, e1, e2) slot
+    is parallel, hence a miss.  The operation order is the JAX
+    kernel's, and ``f`` is an IEEE division."""
+    h = vec.cross(r_d, e2)
+    a = vec.dot(e1, h)
+    parallel = torch.abs(a) < EPS
+    f = 1.0 / torch.where(parallel, 1.0, a)
+    s = r_o - v0
+    u = f * vec.dot(s, h)
+    q = vec.cross(s, e1)
+    v = f * vec.dot(r_d, q)
+    t = f * vec.dot(e2, q)
+    valid = (~parallel & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+             & (u + v <= 1.0) & (t > EPS))
     return torch.where(valid, t, 0.0)

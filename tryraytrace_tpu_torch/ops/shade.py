@@ -38,7 +38,7 @@ def pbr_weights(albedo, metallic, roughness, transmission, nl, r_d):
     f0 = 0.04 * (1.0 - metallic[..., None]) + albedo * metallic[..., None]
     cos_theta = torch.clamp(vec.dot(nl, -r_d), min=0.0)
     f = fresnel_schlick(cos_theta, f0)
-    f_avg = (f[..., 0] + f[..., 1] + f[..., 2]) / 3.0
+    f_avg = (f[..., 0] + f[..., 1] + f[..., 2]) / vec.scalar(3.0, f)
 
     albedo_lum = albedo.amax(dim=-1)
     w_spec = f_avg * spec_attenuation

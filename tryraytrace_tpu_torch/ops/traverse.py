@@ -6,7 +6,9 @@ row tests its four child boxes and jumps to the first hit child in
 per-octant front-to-back order; later siblings the walk knows it
 missed enter a per-lane skip-register file (entry -> thread
 successor), which redirects the walk past them when the thread would
-enter them.  Leaf rows hold up to K Baldwin-Weber triangles.
+enter them.  Leaf rows hold up to K triangles in one of two slot
+formats: Baldwin-Weber ("bw", 12 floats) or Moller-Trumbore
+(v0, e1, e2) ("mt", 9 floats).
 
 The JAX kernels unroll over the four children and K leaf slots; here
 those axes are tensor axes.  Each choice keeps the JAX rule exactly:
@@ -24,7 +26,8 @@ from tryraytrace_tpu_torch.accel.bvh import (LEAF_STRIDE, QB_ENT, QB_NSLOTS,
                                              QUAD_WIDTH)
 from tryraytrace_tpu_torch.core import vec
 from tryraytrace_tpu_torch.ops.aabb import aabb_hit
-from tryraytrace_tpu_torch.ops.intersect import baldwin_intersect
+from tryraytrace_tpu_torch.ops.intersect import (baldwin_intersect,
+                                                 moller_trumbore_pre)
 
 MISS_T = float(np.float32(1e20))  # renderer.cu:380
 QUAD_REGS = 3
@@ -41,14 +44,20 @@ def ray_octant(r_d) -> torch.Tensor:
     return neg[..., 0] | (neg[..., 1] << 1) | (neg[..., 2] << 2)
 
 
-def _fat_leaf_intersect(row, k: int, r_o, r_d, prim_start, tlo, thi):
-    """Closest (t, prim_id) among the K Baldwin-Weber leaf slots of each
-    gathered quad row, inside the open window (tlo, thi).  All-zero pad
-    slots miss by themselves; internal rows (prim_start < 0) report a
-    miss."""
-    st = LEAF_STRIDE
+def _fat_leaf_intersect(row, k: int, r_o, r_d, prim_start, tlo, thi, *,
+                        fmt: str):
+    """Closest (t, prim_id) among the K leaf slots (format ``fmt``) of
+    each gathered quad row, inside the open window (tlo, thi).  All-zero
+    pad slots miss by themselves; internal rows (prim_start < 0) report
+    a miss."""
+    st = LEAF_STRIDE[fmt]
     slots = row[:, QUAD_COL_BODY:QUAD_COL_BODY + st * k].unflatten(1, (k, st))
-    t = baldwin_intersect(slots, r_o[:, None, :], r_d[:, None, :])
+    ro, rd = r_o[:, None, :], r_d[:, None, :]
+    if fmt == "bw":
+        t = baldwin_intersect(slots, ro, rd)
+    else:
+        t = moller_trumbore_pre(slots[..., 0:3], slots[..., 3:6],
+                                slots[..., 6:9], ro, rd)
     ok = (t > _col(tlo)) & (t < _col(thi))
     # The JAX loop takes slot j when t_j < best so far: the minimum t
     # over the window, lowest slot on a tie -- which is what min(dim)
@@ -123,15 +132,18 @@ def _regfile_apply(reg_e, reg_s, pushes, nxt, live, gate, passes: int = 2):
 
 
 def quad_step(table, k: int, r_o, r_d, inv_d, octant, cur, reg_e, reg_s,
-              t_min, t_max, tlo, thi, live, passes: int = 2):
-    """One quad-row step shared by the closest/any-hit walks: returns
-    (cur', reg_e', reg_s', leaf_t, leaf_id)."""
+              t_min, t_max, tlo, thi, live, passes: int = 2, *,
+              fmt: str):
+    """One quad-row step shared by the closest/any-hit walks over leaf
+    slots of format ``fmt``: returns (cur', reg_e', reg_s', leaf_t,
+    leaf_id)."""
     sentinel = table.shape[0]
     idx = torch.where(live, torch.clamp(cur, max=sentinel - 1), 0)
     row = table[idx]
     prim_start = row[:, 0].to(torch.int64)
     is_leaf = prim_start >= 0
-    lt, lid = _fat_leaf_intersect(row, k, r_o, r_d, prim_start, tlo, thi)
+    lt, lid = _fat_leaf_intersect(row, k, r_o, r_d, prim_start, tlo, thi,
+                                  fmt=fmt)
     lid = torch.where(live & is_leaf, lid, -1)
     cont, nxt_int, pushes = _quad_decode(row, octant, r_o, inv_d,
                                          t_min, t_max)
@@ -143,9 +155,9 @@ def quad_step(table, k: int, r_o, r_d, inv_d, octant, cur, reg_e, reg_s,
     return cur, reg_e, reg_s, lt, lid
 
 
-def closest_hit_quad(table, k: int, r_o, r_d, active):
-    """Closest-hit via the quad walk -> (t [N], prim id [N]; 1e20 / -1 on
-    a miss)."""
+def closest_hit_quad(table, k: int, r_o, r_d, active, *, fmt: str):
+    """Closest-hit via the quad walk over leaf slots of format ``fmt`` ->
+    (t [N], prim id [N]; 1e20 / -1 on a miss)."""
     n = r_o.shape[0]
     sentinel = table.shape[0]
     d_min = torch.full((n,), MISS_T, device=r_o.device)
@@ -162,16 +174,17 @@ def closest_hit_quad(table, k: int, r_o, r_d, active):
         live = cur < sentinel
         cur, reg_e, reg_s, lt, lid = quad_step(
             table, k, r_o, r_d, inv_d, octant, cur, reg_e, reg_s,
-            0.0, d_min, 0.0, d_min, live)
+            0.0, d_min, 0.0, d_min, live, fmt=fmt)
         take = lid >= 0
         d_min = torch.where(take, lt, d_min)
         hit_id = torch.where(take, lid, hit_id)
     return d_min, hit_id
 
 
-def any_hit_quad(table, k: int, r_o, r_d, max_dist, active):
-    """Shadow traversal via the quad walk (trace_shadow parity: plain
-    1/d, constant (1e-3, max_dist) window, early exit) -> occluded [N]."""
+def any_hit_quad(table, k: int, r_o, r_d, max_dist, active, *, fmt: str):
+    """Shadow traversal via the quad walk over leaf slots of format
+    ``fmt`` (trace_shadow parity: plain 1/d, constant (1e-3, max_dist)
+    window, early exit) -> occluded [N]."""
     n = r_o.shape[0]
     sentinel = table.shape[0]
     occ = torch.zeros((n,), dtype=torch.bool, device=r_o.device)
@@ -187,7 +200,7 @@ def any_hit_quad(table, k: int, r_o, r_d, max_dist, active):
         live = cur < sentinel
         cur, reg_e, reg_s, _, lid = quad_step(
             table, k, r_o, r_d, inv_d, octant, cur, reg_e, reg_s,
-            1e-3, max_dist, 1e-3, max_dist - 1e-3, live)
+            1e-3, max_dist, 1e-3, max_dist - 1e-3, live, fmt=fmt)
         occ = occ | (lid >= 0)
         cur = torch.where(occ, sentinel, cur)
     return occ

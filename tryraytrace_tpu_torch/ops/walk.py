@@ -5,8 +5,9 @@ PyTorch version.
 A lane in mode TRAVERSE (closest hit) or SHADOW (any hit along an NEE
 segment) fetches one quad row of the unified table per step
 (tryraytrace_tpu/engine/persistent.py ``_step_quad``, XLA-fused ``jnp``
-on the TPU, not a Pallas kernel): a leaf row tests its K Baldwin-Weber
-triangles, an internal row its four child boxes, and the skip-register
+on the TPU, not a Pallas kernel): a leaf row tests its K triangles
+(Baldwin-Weber or Moller-Trumbore slots, ``LEAF_FORMATS``), an internal
+row its four child boxes, and the skip-register
 file redirects the walk past siblings it already knows it missed.  When
 the walk ends the lane's mode says what it needs next: SHADEG (shade
 the hit) or REFILL (the path is over) after a closest-hit walk; after a
@@ -45,6 +46,7 @@ import ctypes
 
 import torch
 
+from tryraytrace_tpu_torch.accel.bvh import LEAF_STRIDE, quad_row_width
 from tryraytrace_tpu_torch.ops._build import KernelLibrary
 from tryraytrace_tpu_torch.ops.traverse import (MISS_T, _fat_leaf_intersect,
                                                 _quad_decode, _regfile_apply,
@@ -62,6 +64,9 @@ TEXG = 6
 # Skip-register counts the kernel is compiled for (its template
 # argument): none, and the engine's default (config.py ``quad_regs``).
 KERNEL_REGS = (0, 3)
+# Leaf slot formats (config.py ``leaf_isect``) and their number in the
+# kernel (its other template argument): their order in LEAF_STRIDE.
+LEAF_FORMATS = {fmt: i for i, fmt in enumerate(LEAF_STRIDE)}
 
 # The state fields the walk writes.
 WRITES = ("mode", "cur", "d_min", "hit_id", "rad")
@@ -84,11 +89,13 @@ def walk_index(s, sentinel: int):
     return idx, stepping
 
 
-def walk_step(s, row, sentinel: int, k: int, passes: int = 1) -> dict:
+def walk_step(s, row, sentinel: int, k: int, passes: int = 1, *,
+              fmt: str) -> dict:
     """One quad-row step of every TRAVERSE and SHADOW lane on its fetched
     ``row`` (the rows of ``walk_index``; other lanes' rows are ignored).
-    ``k`` is the leaf size, ``passes`` the redirect sweeps over the skip
-    registers.  Returns the state after the step."""
+    ``k`` is the leaf size, ``fmt`` the leaf slot format, ``passes`` the
+    redirect sweeps over the skip registers.  Returns the state after
+    the step."""
     mode = s["mode"]
     live_t = mode == TRAVERSE
     live_s = mode == SHADOW
@@ -112,7 +119,7 @@ def walk_step(s, row, sentinel: int, k: int, passes: int = 1) -> dict:
 
     thi = torch.where(live_s, s["smax"] - 1e-3, s["d_min"])
     best_t, best_id = _fat_leaf_intersect(row, k, ro, rd, prim_start,
-                                          t_min, thi)
+                                          t_min, thi, fmt=fmt)
     found = stepping & is_leaf & (best_id >= 0)
     d_min = torch.where(found & live_t, best_t, s["d_min"])
     hit_id = torch.where(found & live_t, best_id, s["hit_id"])
@@ -150,9 +157,11 @@ def walk_step(s, row, sentinel: int, k: int, passes: int = 1) -> dict:
     return out
 
 
-def walk_plain(s, table, sentinel: int, k: int, passes: int = 1):
+def walk_plain(s, table, sentinel: int, k: int, passes: int = 1, *,
+               fmt: str):
     """The plain PyTorch version of the kernel: ``walk_step`` repeated
-    until no lane is TRAVERSE or SHADOW.  ``s`` is the engine's lane
+    until no lane is TRAVERSE or SHADOW, over leaf slots of format
+    ``fmt``.  ``s`` is the engine's lane
     state (engine/persistent.py ``init_lane_ctx``), with or without the
     skip-register fields.  Returns (state', rows fetched as an int64
     tensor)."""
@@ -163,21 +172,21 @@ def walk_plain(s, table, sentinel: int, k: int, passes: int = 1):
         if int(n) == 0:
             return s, rows
         rows = rows + n
-        s = walk_step(s, table[idx], sentinel, k, passes)
+        s = walk_step(s, table[idx], sentinel, k, passes, fmt=fmt)
 
 
 LIBRARY = KernelLibrary("quad_walk", {
     "trt_quad_walk_plan": (
-        # sentinel, row width, regs, rows per top level (host array),
-        # levels, plan (host array)
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p),
+        # sentinel, row width, regs, leaf format, rows per top level
+        # (host array), levels, plan (host array)
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p),
     "trt_quad_walk_launch": (
-        # table, sentinel, row width, leaf size, regs, passes, staged
-        # rows, grid, lanes
+        # table, sentinel, row width, leaf size, regs, leaf format,
+        # passes, staged rows, grid, lanes
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_longlong,
         # mode, cur, hit_id, d_min, rad (read and written)
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p,
@@ -194,19 +203,20 @@ _FIELDS = (("mode", torch.int64, 1), ("cur", torch.int64, 1),
            ("sd", torch.float32, 3), ("smax", torch.float32, 1),
            ("pend", torch.float32, 3), ("cont_after_shadow", torch.bool, 1))
 _PLAN = ("staged_rows", "shared_bytes", "grid", "blocks_per_sm", "threads")
-# Launch plans by (library, device, regs, width, sentinel, levels): they
-# depend on nothing else, so each is worked out once.
+# Launch plans by (library, device, regs, leaf format, width, sentinel,
+# levels): they depend on nothing else, so each is worked out once.
 _plans = {}
 
 
-def _plan(library, lib, dev, regs: int, width: int, sentinel: int,
+def _plan(library, lib, dev, regs: int, fmt: str, width: int, sentinel: int,
           levels: tuple) -> dict:
-    key = (library.path, dev.index, regs, width, sentinel, levels)
+    key = (library.path, dev.index, regs, fmt, width, sentinel, levels)
     if key not in _plans:
         host_levels = (ctypes.c_longlong * max(1, len(levels)))(*levels)
         plan = (ctypes.c_int * len(_PLAN))()
         with torch.cuda.device(dev):
             err = lib.trt_quad_walk_plan(sentinel, width, regs,
+                                         LEAF_FORMATS[fmt],
                                          ctypes.addressof(host_levels),
                                          len(levels), ctypes.addressof(plan))
         if err != 0:
@@ -217,14 +227,15 @@ def _plan(library, lib, dev, regs: int, width: int, sentinel: int,
 
 
 def quad_walk_cuda(s, table, sentinel: int, k: int, passes: int = 1,
-                   levels=()):
+                   levels=(), *, fmt: str):
     """Launch the walk kernel on the current stream.
 
     ``s`` holds the engine's lane state on the table's CUDA device, every
     field contiguous.  ``table`` is the walk-order copy of the quad rows
     (accel/bvh.py ``walk_order_table``): [rows, width] float32,
     contiguous, 16-byte aligned, ``width`` a multiple of 4, its first
-    ``sentinel`` rows quad rows with ``k`` triangles per leaf.
+    ``sentinel`` rows quad rows with ``k`` triangles of format ``fmt``
+    per leaf.
     ``levels`` are the rows of its top tree levels, as
     ``walk_order_table`` gives them; each block stages the most whole
     levels of them that fit in shared memory (none when empty).  The
@@ -255,9 +266,12 @@ def quad_walk_cuda(s, table, sentinel: int, k: int, passes: int = 1,
     if not 0 < sentinel <= table.shape[0]:
         raise ValueError(f"sentinel {sentinel} outside the table's "
                          f"{table.shape[0]} rows")
-    if k < 1 or 10 + max(30, 12 * k) > width:
+    if fmt not in LEAF_FORMATS:
+        raise ValueError(f"unknown leaf format {fmt!r} (the kernel is "
+                         f"built for {sorted(LEAF_FORMATS)})")
+    if k < 1 or quad_row_width(k, fmt) > width:
         raise ValueError(f"rows of {width} floats cannot hold quad rows "
-                         f"with {k} triangles per leaf")
+                         f"with {k} {fmt!r} triangles per leaf")
     levels = tuple(int(v) for v in levels)
     if min(levels, default=0) < 0 or sum(levels) > sentinel:
         raise ValueError(f"levels {list(levels)} are not the top of a tree "
@@ -287,12 +301,14 @@ def quad_walk_cuda(s, table, sentinel: int, k: int, passes: int = 1,
         out[name] = s[name].clone()
     counters = torch.zeros(2, dtype=torch.int64, device=dev)
     if w > 0:
-        plan = dict(_plan(library, lib, dev, regs, width, sentinel, levels))
+        plan = dict(_plan(library, lib, dev, regs, fmt, width, sentinel,
+                          levels))
         plan["grid"] = min(plan["grid"], -(-w // plan["threads"]))
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.trt_quad_walk_launch(
-                table.data_ptr(), sentinel, width, k, regs, max(1, passes),
+                table.data_ptr(), sentinel, width, k, regs,
+                LEAF_FORMATS[fmt], max(1, passes),
                 plan["staged_rows"], plan["grid"], w,
                 out["mode"].data_ptr(), out["cur"].data_ptr(),
                 out["hit_id"].data_ptr(), out["d_min"].data_ptr(),
@@ -312,11 +328,13 @@ quad_walk_cuda.launches = 0
 quad_walk_cuda.plan = None
 
 
-def quad_walk(s, table, sentinel: int, k: int, passes: int = 1, levels=()):
+def quad_walk(s, table, sentinel: int, k: int, passes: int = 1, levels=(),
+              *, fmt: str):
     """Run every TRAVERSE and SHADOW lane's walk to its end on the
     table's own device: the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (``table`` then the walk-order copy and
-    ``levels`` its top levels).  Returns (state', rows fetched)."""
+    ``levels`` its top levels).  ``fmt`` is the leaf slot format.
+    Returns (state', rows fetched)."""
     if table.device.type == "cpu":
-        return walk_plain(s, table, sentinel, k, passes)
-    return quad_walk_cuda(s, table, sentinel, k, passes, levels)
+        return walk_plain(s, table, sentinel, k, passes, fmt=fmt)
+    return quad_walk_cuda(s, table, sentinel, k, passes, levels, fmt=fmt)

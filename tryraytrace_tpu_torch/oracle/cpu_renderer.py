@@ -1,6 +1,5 @@
-"""Pure-NumPy CPU oracle renderer (a copy of
-tryraytrace_tpu/oracle/cpu_renderer.py for the configurations the port
-renders).
+"""Pure-NumPy CPU oracle renderer (a jax-free copy of
+tryraytrace_tpu/oracle/cpu_renderer.py).
 
 A deliberately *independent* implementation of the same algorithms --
 brute-force closest-hit over every triangle (no BVH), straight-line
@@ -8,11 +7,10 @@ NumPy, no torch -- used to hold the port's render against the
 reference: both share only the counter-based RNG spec (copied below
 in NumPy), which is what makes frames bit-comparable.  Any traversal
 bug, masking bug or kernel fault shows up as MSE against this renderer
-(benchmarks.py ``run_config``, the tests).
+(benchmarks.py ``run_config``, the tests).  Every branch of the JAX
+oracle is kept: Moller-Trumbore or Baldwin-Weber intersection (the
+engines' leaf format), smooth shading and UV mapping.
 
-The port renders Baldwin-Weber leaf rows without smooth shading or UV
-mapping (config.py ``check_supported``), so this copy keeps only that
-branch of the JAX oracle and raises, as the port does, for the others.
 All formulas/constants mirror the reference megakernel
 (renderer.cu:317-760); citations inline where behavior is quirky.
 """
@@ -21,16 +19,16 @@ from __future__ import annotations
 
 import numpy as np
 
-from tryraytrace_tpu_torch.config import (DEFAULT_CONFIG, RenderConfig,
-                                          check_supported)
+from tryraytrace_tpu_torch.config import DEFAULT_CONFIG, RenderConfig
 from tryraytrace_tpu_torch.ops.intersect import EPS, baldwin_rows
 
 PI = np.float32(np.pi)
 F32 = np.float32
 
-# -- the counter-based RNG in NumPy (tryraytrace_tpu/core/rng.py:59-111) --
+
+# -- the counter-based RNG in NumPy (tryraytrace_tpu/core/py:59-111) --
 # Draw slots: the camera takes draws 0..3, bounce b the eight from
-# CAMERA_DRAWS + b * DRAWS_PER_BOUNCE (core/rng.py of the port).
+# CAMERA_DRAWS + b * DRAWS_PER_BOUNCE (core/py of the port).
 CAMERA_DRAWS = 4
 DRAWS_PER_BOUNCE = 8
 SLOT_RR = 0
@@ -73,11 +71,6 @@ def uniform(seed, stream, draw_id):
         return (bits >> np.uint32(8)).astype(np.float32) * _INV_2_24
 
 
-def sample_seed(frame_seed: int, spp: int, sample: int) -> int:
-    """The seed schedule ``1984 + frame*spp + sample`` mod 2**32."""
-    return (1984 + frame_seed * spp + sample) & 0xFFFFFFFF
-
-
 def baldwin_intersect(rows, r_o, r_d):
     """Baldwin-Weber intersection in NumPy (the ``xp=np`` branch of
     tryraytrace_tpu/ops/intersect.py:78): rows [..., 12] from
@@ -99,6 +92,38 @@ def baldwin_intersect(rows, r_o, r_d):
     return np.where(valid, t, np.float32(0.0))
 
 
+def _barycentric(v0, v1, v2, x_hit):
+    """Barycentric (b1, b2, ok) of ``x_hit`` in NumPy (the ``xp=np``
+    branch of tryraytrace_tpu/ops/shade.py barycentric)."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    p = x_hit - v0
+    d11 = _dot(e1, e1)
+    d12 = _dot(e1, e2)
+    d22 = _dot(e2, e2)
+    dp1 = _dot(p, e1)
+    dp2 = _dot(p, e2)
+    den = d11 * d22 - d12 * d12
+    ok_den = den > 1e-6 * d11 * d22
+    inv = 1.0 / np.where(ok_den, den, 1.0)
+    b1 = (d22 * dp1 - d12 * dp2) * inv
+    b2 = (d11 * dp2 - d12 * dp1) * inv
+    return b1, b2, ok_den
+
+
+def _smooth_normal(v0, v1, v2, n0, n1, n2, x_hit, nrm_geo):
+    """Interpolated vertex normal in NumPy (the ``xp=np`` branch of
+    tryraytrace_tpu/ops/shade.py smooth_normal)."""
+    b1, b2, ok_den = _barycentric(v0, v1, v2, x_hit)
+    b0 = 1.0 - b1 - b2
+    ns = n0 * b0[..., None] + n1 * b1[..., None] + n2 * b2[..., None]
+    ns = np.where(_dot(ns, nrm_geo)[..., None] < 0.0, -ns, ns)
+    len2 = _dot(ns, ns)
+    ok = ok_den & (len2 > 1e-12)
+    ns = ns / np.sqrt(np.where(ok, len2, 1.0))[..., None]
+    return np.where(ok[..., None], ns, nrm_geo)
+
+
 def _dot(a, b):
     return (a * b).sum(axis=-1)
 
@@ -112,11 +137,36 @@ def _cross(a, b):
     return np.cross(a, b).astype(np.float32)
 
 
-def _intersect_brute(o, d, bw):
-    """Closest hit of rays [N,3] against all triangles' Baldwin-Weber
-    rows [T,12]: returns (t [N], id [N])."""
-    t = baldwin_intersect(bw[None], o[:, None], d[:, None])
-    t = np.where(t > 0, t, F32(np.inf))
+def _intersect_brute(v0, v1, v2, o, d, bw=None):
+    """Closest hit of rays [N,3] against all triangles [T,3]: returns
+    (t [N], id [N]).  Moller-Trumbore with the reference's epsilons;
+    with ``bw`` (precomputed baldwin_rows, mirroring the engines'
+    cfg.leaf_isect == "bw" tables) the same Baldwin-Weber kernel the
+    engines run, for bit-comparability."""
+    if bw is not None:
+        t = baldwin_intersect(bw[None], o[:, None], d[:, None])
+        t = np.where(t > 0, t, F32(np.inf))
+        idx = t.argmin(axis=1)
+        tmin = t[np.arange(t.shape[0]), idx]
+        hit = np.isfinite(tmin)
+        return (np.where(hit, tmin, F32(1e20)).astype(np.float32),
+                np.where(hit, idx, -1).astype(np.int32))
+    eps = F32(1e-5)
+    e1 = (v1 - v0)[None]            # [1,T,3]
+    e2 = (v2 - v0)[None]
+    dN = d[:, None]                 # [N,1,3]
+    oN = o[:, None]
+    h = _cross(dN, e2)
+    a = _dot(e1, h)
+    parallel = np.abs(a) < eps
+    f = 1.0 / np.where(parallel, 1.0, a)
+    s = oN - v0[None]
+    u = f * _dot(s, h)
+    q = _cross(s, e1)
+    v = f * _dot(dN, q)
+    t = f * _dot(e2, q)
+    valid = (~parallel) & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1) & (t > eps)
+    t = np.where(valid, t, F32(np.inf))
     idx = t.argmin(axis=1)
     tmin = t[np.arange(t.shape[0]), idx]
     hit = np.isfinite(tmin)
@@ -124,11 +174,29 @@ def _intersect_brute(o, d, bw):
             np.where(hit, idx, -1).astype(np.int32))
 
 
-def _occluded_brute(o, d, max_dist, active, bw):
+def _occluded_brute(v0, v1, v2, o, d, max_dist, active, bw=None):
     """Any-hit: True where something blocks in (0.001, max_dist-0.001)
     (trace_shadow semantics, renderer.cu:273-314)."""
-    t = baldwin_intersect(bw[None], o[:, None], d[:, None])
-    blocking = (t > 1e-3) & (t < (max_dist - 1e-3)[:, None])
+    if bw is not None:
+        t = baldwin_intersect(bw[None], o[:, None], d[:, None])
+        blocking = (t > 1e-3) & (t < (max_dist - 1e-3)[:, None])
+        return blocking.any(axis=1) & active
+    eps = F32(1e-5)
+    e1 = (v1 - v0)[None]
+    e2 = (v2 - v0)[None]
+    dN = d[:, None]
+    oN = o[:, None]
+    h = _cross(dN, e2)
+    a = _dot(e1, h)
+    parallel = np.abs(a) < eps
+    f = 1.0 / np.where(parallel, 1.0, a)
+    s = oN - v0[None]
+    u = f * _dot(s, h)
+    q = _cross(s, e1)
+    v = f * _dot(dN, q)
+    t = f * _dot(e2, q)
+    valid = (~parallel) & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1) & (t > eps)
+    blocking = valid & (t > 1e-3) & (t < (max_dist - 1e-3)[:, None])
     return blocking.any(axis=1) & active
 
 
@@ -146,15 +214,12 @@ def oracle_render(arrays, cam, width: int, height: int, frame_seed: int,
 
     ``arrays``: SceneArrays (any primitive order -- brute force does
     not care about the BVH permutation).  ``cam``: CameraParams.
-    A ``cfg`` the port does not render (smooth shading, UV mapping,
-    Moller-Trumbore leaves, ...) raises ``ValueError``.
     """
-    check_supported(cfg)
     n = width * height
     out = np.zeros((n, 3), dtype=np.float32)
     textures = arrays.textures if textures is None else textures
     for s in range(spp):
-        seed = np.uint32(sample_seed(frame_seed, spp, s))
+        seed = np.uint32((1984 + frame_seed * spp + s) & 0xFFFFFFFF)
         out += _oracle_sample(arrays, cam, width, height, seed, cfg, textures)
     return out
 
@@ -196,13 +261,13 @@ def _oracle_sample(ar, cam, width, height, seed, cfg, textures):
     prev_spec = np.ones(n, bool)
 
     v0, v1, v2 = ar.tri_v0, ar.tri_v1, ar.tri_v2
-    bw = baldwin_rows(v0, v1, v2)
+    bw = baldwin_rows(v0, v1, v2) if cfg.leaf_isect == "bw" else None
     lcount = ar.num_lights
 
     for depth in range(cfg.max_depth):
         if not alive.any():
             break
-        t, hid = _intersect_brute(o, d, bw)
+        t, hid = _intersect_brute(v0, v1, v2, o, d, bw=bw)
         alive = alive & (hid >= 0)
         sid = np.maximum(hid, 0)
         x_hit = o + d * t[:, None]
@@ -231,10 +296,32 @@ def _oracle_sample(ar, cam, width, height, seed, cfg, textures):
             vv = np.where(y_dom, x_hit[:, 2], np.where(x_dom, x_hit[:, 1], x_hit[:, 1]))
             uu = uu * scale
             vv = 1.0 - vv * scale
+            # Interpolated per-vertex UVs where present (flag-gated,
+            # mirrors both engines; sliver fallback to planar).
+            if cfg.uv_mapping and ar.uv_mask is not None and ar.uv_mask.max(initial=0.0) > 0:
+                b1, b2, okb = _barycentric(v0[sid], v1[sid], v2[sid],
+                                           x_hit)
+                a0, a1, a2 = ar.uv0[sid], ar.uv1[sid], ar.uv2[sid]
+                b0 = 1.0 - b1 - b2
+                iu = a0[:, 0] * b0 + a1[:, 0] * b1 + a2[:, 0] * b2
+                iv = a0[:, 1] * b0 + a1[:, 1] * b1 + a2[:, 1] * b2
+                use_uv = (ar.uv_mask[sid] > 0) & okb
+                uu = np.where(use_uv, iu, uu)
+                vv = np.where(use_uv, 1.0 - iv, vv)
             for k, tex in enumerate(textures):
                 mask = tex_id == k
                 if mask.any():
                     albedo[mask] *= _bilinear_wrap(tex, uu[mask], vv[mask])
+
+        # Smooth shading (flag-gated, mirrors both engines): ray
+        # offsets keep the geometric front-face normal; directions use
+        # the interpolated vertex normal.
+        nl_off = nl
+        if cfg.smooth_shading and ar.nrm0 is not None:
+            nrm = _smooth_normal(v0[sid], v1[sid], v2[sid],
+                                 ar.nrm0[sid], ar.nrm1[sid],
+                                 ar.nrm2[sid], x_hit, nrm)
+            nl = np.where((_dot(nrm, d) < 0)[:, None], nrm, -nrm)
 
         rad = rad + np.where((alive & prev_spec)[:, None], tp * emission, 0)
         is_emitter = (emission > cfg.emitter_stop_threshold).any(axis=-1)
@@ -279,7 +366,7 @@ def _oracle_sample(ar, cam, width, height, seed, cfg, textures):
             d_spec = _norm(perfect + sphere * roughness[:, None])
             kill_spec = _dot(d_spec, nl) <= 0
             tp_spec = tp * fres / p_spec[:, None]
-            o_spec = x_hit + nl * F32(cfg.shadow_eps)
+            o_spec = x_hit + nl_off * F32(cfg.shadow_eps)
 
             # Branch B: transmission.
             into = _dot(nrm, nl) > 0
@@ -321,9 +408,10 @@ def _oracle_sample(ar, cam, width, height, seed, cfg, textures):
                 light_n = _norm(_cross(lv1 - lv0, lv2 - lv0))
                 cos_l = -_dot(light_n, l_dir)
                 geo = m_diff & (cos_t > 0) & (cos_l > 0)
-                occ = _occluded_brute(x_hit + nl * F32(cfg.shadow_eps),
+                occ = _occluded_brute(v0, v1, v2,
+                                      x_hit + nl_off * F32(cfg.shadow_eps),
                                       l_dir, dist - F32(cfg.shadow_max_dist_eps), geo,
-                                      bw)
+                                      bw=bw)
                 lit = geo & ~occ
                 area = 0.5 * np.sqrt((_cross(lv1 - lv0, lv2 - lv0) ** 2).sum(-1))
                 pdf = 1.0 / (area * lcount)
@@ -345,7 +433,7 @@ def _oracle_sample(ar, cam, width, height, seed, cfg, textures):
                            + w * np.sqrt(np.maximum(1.0 - r2h, 0.0))[:, None])
             p_diff = 1.0 - p_spec - (1.0 - p_spec) * transmission
             tp_diff = tp * (albedo * (1.0 - metallic)[:, None]) / p_diff[:, None]
-            o_diff = x_hit + nl * F32(cfg.shadow_eps)
+            o_diff = x_hit + nl_off * F32(cfg.shadow_eps)
 
             # --- select ---
             ms, mt, md = m_spec[:, None], m_trans[:, None], m_diff[:, None]

@@ -1,5 +1,5 @@
 """Minimal Wavefront OBJ loader (a jax-free copy of
-tryraytrace_tpu/scene/objloader.py without its UV-aware parser).
+tryraytrace_tpu/scene/objloader.py).
 
 Parity target: load_obj (reference loader.cpp:22-103).  Semantics
 preserved exactly:
@@ -116,6 +116,60 @@ def _pure_int(tok: str):
     return value if end == len(tok) else None
 
 
+def parse_obj_arrays_uv(path):
+    """UV-aware OBJ parse -> (verts [V,3], faces [F,3], uvs [VT,2],
+    uv_faces [F,3] with -1 rows where a face has no complete vt
+    triple).  Beyond-reference mode: unlike the sscanf-exact default
+    parser, slash-form faces (``f a/b c/d e/f``, ``a/b/c``, ``a//c``)
+    are accepted here; quads still degrade to their first triangle.
+    Out-of-range vertex indices skip the face; out-of-range vt indices
+    only drop the face's UVs.
+    """
+    verts: list[tuple[float, float, float]] = []
+    uvs: list[tuple[float, float]] = []
+    faces: list[tuple[int, int, int]] = []
+    uv_faces: list[tuple[int, int, int]] = []
+    with open(path, "r", errors="replace") as f:
+        for line in f:
+            if line.startswith("v "):
+                parts = line.split()
+                try:
+                    verts.append((float(parts[1]), float(parts[2]),
+                                  float(parts[3])))
+                except (ValueError, IndexError):
+                    verts.append((0.0, 0.0, 0.0))
+            elif line.startswith("vt "):
+                parts = line.split()
+                try:
+                    uvs.append((float(parts[1]), float(parts[2])))
+                except (ValueError, IndexError):
+                    uvs.append((0.0, 0.0))
+            elif line.startswith("f "):
+                parts = line.split()
+                if len(parts) < 4:
+                    continue
+                vi: list[int] = []
+                ti: list[int] = []
+                for tok in parts[1:4]:
+                    fields = tok.split("/")
+                    got = _pure_int(fields[0])
+                    vi.append(0 if got is None else got)
+                    tgot = (_pure_int(fields[1])
+                            if len(fields) > 1 and fields[1] else None)
+                    ti.append(0 if tgot is None else tgot)
+                if any(i < 1 or i > len(verts) for i in vi):
+                    continue  # loader.cpp:71-74 semantics
+                faces.append((vi[0] - 1, vi[1] - 1, vi[2] - 1))
+                if all(1 <= i <= len(uvs) for i in ti):
+                    uv_faces.append((ti[0] - 1, ti[1] - 1, ti[2] - 1))
+                else:
+                    uv_faces.append((-1, -1, -1))
+    return (np.array(verts, np.float32).reshape(-1, 3),
+            np.array(faces, np.int32).reshape(-1, 3),
+            np.array(uvs, np.float32).reshape(-1, 2),
+            np.array(uv_faces, np.int32).reshape(-1, 3))
+
+
 def compute_vertex_normals(verts: np.ndarray, faces: np.ndarray) -> np.ndarray:
     """Area-weighted vertex normals [V, 3] from mesh connectivity.
 
@@ -147,23 +201,40 @@ def load_obj(
     albedo=(0.75, 0.75, 0.75),
     metallic: float = 0.0,
     roughness: float = 1.0,
+    parse_uv: bool = False,
+    tex_id: int = -1,
 ) -> int:
     """Append the mesh's triangles to ``objects``; returns count added.
 
     Missing files print an error and add nothing (loader.cpp:27-30).
     Vertex normals are computed from connectivity and attached to each
-    triangle (the trimat rows carry them, as the JAX package's do).
-    Triangles get ``tex_id = -1`` (loader.cpp:84-92).  The JAX
-    package's UV-aware parser (``parse_uv``) is not ported.
+    triangle (inert unless RenderConfig.smooth_shading is on; the
+    uniform positive scale + offset transform preserves directions).
+
+    ``parse_uv=True`` (beyond-reference) switches to the UV-aware
+    parser: slash-form faces are accepted (the reference skips them,
+    loader.cpp:65-68) and complete ``vt`` triples are attached to
+    each triangle; ``tex_id`` then selects the texture slot those UVs
+    sample (default -1 = untextured, the reference's hardcoded choice,
+    loader.cpp:84-92).
     """
+    uvs = uv_faces = None
     try:
-        verts, faces = parse_obj_arrays(path)
+        if parse_uv:
+            verts, faces, uvs, uv_faces = parse_obj_arrays_uv(path)
+        else:
+            verts, faces = parse_obj_arrays(path)
     except OSError:
         print(f"[Loader Error] Cannot open file: {path}", file=sys.stderr)
         return 0
     vnrm = compute_vertex_normals(verts, faces)
     verts = verts * np.float32(scale) + np.asarray(offset, dtype=np.float32)
-    for a, b, c in faces:
+    for fi, (a, b, c) in enumerate(faces):
+        uv_kwargs = {}
+        if uv_faces is not None and uv_faces[fi, 0] >= 0:
+            ta, tb, tc = uv_faces[fi]
+            uv_kwargs = dict(uv0=tuple(uvs[ta]), uv1=tuple(uvs[tb]),
+                             uv2=tuple(uvs[tc]))
         objects.append(
             Object(
                 v0=tuple(verts[a]),
@@ -172,10 +243,13 @@ def load_obj(
                 albedo=tuple(np.asarray(albedo, dtype=np.float32)),
                 metallic=metallic,
                 roughness=roughness,
+                tex_id=tex_id,
                 n0=tuple(vnrm[a]),
                 n1=tuple(vnrm[b]),
                 n2=tuple(vnrm[c]),
+                **uv_kwargs,
             )
         )
     print(f"[Loader] Loaded: {path} ({verts.shape[0]} vertices, {faces.shape[0]} faces)", file=sys.stderr)
     return int(faces.shape[0])
+
