@@ -3,10 +3,10 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written CUDA kernels (tonemap, fetch_chain,
-quad_walk; one nvcc each, side by side) from the sources in this
-checkout and holds each against its plain PyTorch version on the card
-at the shapes its path gives it.  It drives the port's two paths, each
-with the kernels' launch counts set to 0 just before and read just
+quad_walk, threaded_walk; one nvcc each, side by side) from the sources
+in this checkout and holds each against its plain PyTorch version on
+the card at the shapes its path gives it.  It drives the port's paths,
+each with the kernels' launch counts set to 0 just before and read just
 after:
 
   - the main path (Renderer -> render_frame_persistent -> Renderer.image)
@@ -42,13 +42,31 @@ after:
     each feature alone (smooth shading, UV mapping, "mt" leaves, SBVH,
     17 lights, a texture past 2 MB of tile rows) at 64x48, the card
     against the CPU bit for bit and against the port's NumPy oracle;
+  - the bounce engine, also before any profiler session: ``[bounce]``
+    steps ``Renderer(engine="bounce")`` on the main path's scene at
+    1200x800 (its closest-hit and NEE walks run in the threaded-walk
+    kernel), holds frame 1 to the persistent engine's (equal ray counts,
+    sums within the JAX engine test's _ULP except at pixels whose two
+    walks hit different triangles at the same t, traced walk by walk),
+    the card's bounce render to the CPU's at 64x48 bit for bit, and
+    ``render --engine bounce`` to a hand-driven Renderer;
+  - the parallel layer, also before any profiler session:
+    ``[parallel]`` holds ShardedRenderer meshes of (1,1), (2,1) and (4,1)
+    shards of the one card to the Renderer bit for bit and (2,2) within
+    atol 1e-4 with equal ray totals, for both engines, and two processes
+    of ``render --coordinator ...`` over gloo on the card to one
+    process, byte for byte (NCCL across cards needs more than one card
+    and is not run);
   - the row-fetch microbenchmark (scripts/microbench_torch_fetch.py):
     65,536 lanes, 64 steps, six table variants, both placements.
 
 The walk kernel is held to its plain version on three states of a
 path's rounds (fresh, many shadow walks, mostly done): the main path's
 tree with its Baldwin-Weber leaf slots, and the [features] path's SBVH
-with its Moller-Trumbore ("mt") slots at the auto leaf size.  It also checks the port's render on the card
+with its Moller-Trumbore ("mt") slots at the auto leaf size; the
+threaded-walk kernel is held to its plain version on three states of a
+full-width bounce frame (camera rays, the first bounce's shadow rays,
+a late bounce) over both trees.  It also checks the port's render on the card
 (round loop, kernel) against the plain version of the whole on the CPU
 (the interleaved eager loop, one row per lane per step), bit for bit
 at 64x64 and 64x48.  Every phase prints its own lines; any failure
@@ -58,11 +76,17 @@ power limit, and the line before that the kernel table (the walk
 kernel's entry counts its launches on each path: ``launches`` on the
 main path, ``progressive_launches``, ``tiled_launches``,
 ``cli_launches``, ``app_launches``, ``bench_launches`` and
-``features_launches``, each with the count set to 0 just before the
-path and read just after, and ``features_mt_launches``, the launches
-over "mt" leaves in ``[features]``; its ``mt`` entry holds the "mt"
-walk's own numbers; the tonemap's and the fetch chain's entries carry
-the entry points' and ``[features]``' counts the same way).  Without a CUDA device it
+``features_launches``, ``bounce_launches`` and ``parallel_launches``,
+each with the count set to 0 just before the path and read just after,
+and ``features_mt_launches``, the launches over "mt" leaves in
+``[features]``; its ``mt`` entry holds the "mt" walk's own numbers; the
+other kernels' entries carry the entry points', ``[features]``',
+``[bounce]``'s and ``[parallel]``'s counts the same way, where
+``parallel_launches`` sums the sharded steps of every mesh, each counted
+from 0 around its ``step`` and ``image`` alone, and
+``parallel_mesh_launches`` gives each mesh's count; the threaded
+walk's ``launches`` are the bounce path's, and its ``states`` and ``mt``
+entries hold each state's numbers).  Without a CUDA device it
 exits non-zero and prints no result.
 
 A kernel's ``ms`` is its own device time per launch (torch.profiler's
@@ -84,6 +108,7 @@ import io
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -100,17 +125,20 @@ from tryraytrace_tpu_torch.config import RenderConfig
 from tryraytrace_tpu_torch.display import pipeline as display_pipeline
 from tryraytrace_tpu_torch.display.app import App, ProgressiveApp
 from tryraytrace_tpu_torch.display.input import ScriptedInput
-from tryraytrace_tpu_torch.engine import persistent
+from tryraytrace_tpu_torch.engine import persistent, wavefront
+from tryraytrace_tpu_torch.engine.device_scene import device_textures
 from tryraytrace_tpu_torch.engine.progressive import ProgressiveRenderer
 from tryraytrace_tpu_torch.engine.renderer import Renderer
 from tryraytrace_tpu_torch.engine.state import load_checkpoint, save_checkpoint
 from tryraytrace_tpu_torch.io.ppm import load_ppm
 from tryraytrace_tpu_torch.io.snapshot import tonemap_accum
-from tryraytrace_tpu_torch.ops import _build, fetch
+from tryraytrace_tpu_torch.ops import _build, fetch, threaded, traverse
 from tryraytrace_tpu_torch.ops import tonemap as tm
 from tryraytrace_tpu_torch.ops import walk
 from tryraytrace_tpu_torch.ops.texture import TEX_ROW
 from tryraytrace_tpu_torch.oracle import oracle_render
+from tryraytrace_tpu_torch.parallel.mesh import make_mesh
+from tryraytrace_tpu_torch.parallel.shard import ShardedRenderer
 from tryraytrace_tpu_torch.scene.assets import (checker_texture, cube_mesh,
                                                 icosphere_mesh)
 from tryraytrace_tpu_torch.scene.cornell import create_cornell_box
@@ -172,6 +200,22 @@ SMALL_FEATURES = {
     "lights": {},
     "big_texture": dict(uv_mapping=True),
 }
+
+# [bounce]: timed steps of the bounce engine; the JAX engine test's
+# tolerance between its two engines (tests/test_persistent_engine.py
+# _ULP); the frames of ``render --engine bounce``; the third kernel state
+# is the first closest-hit walk with at most this share of lanes alive.
+BOUNCE_STEPS = 3
+ULP = dict(rtol=2e-6, atol=1e-6)
+BOUNCE_CLI_FRAMES = 2
+LATE_ACTIVE_SHARE = 0.1
+# [parallel]: samples a step (divisible by every mesh's sp), the meshes
+# (dp, sp) on the one card, the bound for sp > 1 (tests/test_parallel.py),
+# and how long the two processes may take.
+PARALLEL_SPP = 2
+PARALLEL_MESHES = ((1, 1), (2, 1), (4, 1), (2, 2))
+ATOL_SP = 1e-4
+TWO_PROCESS_TIMEOUT_S = 300
 
 # Profiler sessions _kernel_ms runs before it gives up on a kernel whose
 # launches the profiler recorded none of.
@@ -253,7 +297,7 @@ def phase_environment() -> str:
         f"{nvcc.stdout.strip().splitlines()[-1]}")
     log(f"[env] device {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    libraries = [tm.LIBRARY, fetch.LIBRARY, walk.LIBRARY]
+    libraries = [tm.LIBRARY, fetch.LIBRARY, walk.LIBRARY, threaded.LIBRARY]
     _build.build_all(libraries)
     for lib in libraries:
         log(f"[build] {lib.path} in {lib.build_seconds:.3f} s")
@@ -874,7 +918,8 @@ def write_icosphere_obj(path: str, subdiv: int = 5, uv: bool = False) -> int:
 # The wrappers whose launches the entry-point phases count, by the name
 # of their key in those phases' results.
 COUNTED = dict(tonemap=tm.tonemap_cuda, fetch_chain=fetch.fetch_chain_cuda,
-               walk=walk.quad_walk_cuda)
+               walk=walk.quad_walk_cuda,
+               threaded_walk=threaded.threaded_walk_cuda)
 
 
 def _zero_counts() -> None:
@@ -1020,7 +1065,8 @@ def phase_app(arrays, tmp: str) -> dict:
     if len(app.snapshots) != 2 or app.frames_displayed < 1:
         raise AssertionError(f"{len(app.snapshots)} snapshots, "
                              f"{app.frames_displayed} frames displayed")
-    if launches != dict(tonemap=0, fetch_chain=0, walk=rounds):
+    if launches != dict(tonemap=0, fetch_chain=0, walk=rounds,
+                        threaded_walk=0):
         raise AssertionError(f"launches {launches} for {rounds} rounds")
     del app, r
 
@@ -1084,7 +1130,8 @@ def phase_app(arrays, tmp: str) -> dict:
         f"{min(packs):.2f}, max {max(packs):.2f}); launches {plaunches} for "
         f"{sum(t['rounds'] for t in ticks)} rounds")
     if len(ticks) != PROGRESSIVE_TICKS or plaunches != dict(
-            tonemap=0, fetch_chain=0, walk=sum(t["rounds"] for t in ticks)):
+            tonemap=0, fetch_chain=0, walk=sum(t["rounds"] for t in ticks),
+            threaded_walk=0):
         raise AssertionError("a round is one walk launch, a tick one step")
     if not all(4 <= t["rounds"] <= 4096 for t in ticks) or not packs:
         raise AssertionError("budget out of [4, 4096] or nothing displayed")
@@ -1341,6 +1388,422 @@ def phase_features(r: Renderer, params, tmp: str) -> dict:
                 fresh_setup_s=fresh_s, small=small, seconds=seconds), rf
 
 
+# -- [bounce]: the bounce engine ---------------------------------------------
+
+@contextlib.contextmanager
+def _walks(closest=None, anyhit=None):
+    """The bounce engine's two walks replaced for one block (a wrapper
+    around the real ones that records what it was given)."""
+    saved = wavefront.closest_hit, wavefront.any_hit
+    wavefront.closest_hit = closest or saved[0]
+    wavefront.any_hit = anyhit or saved[1]
+    try:
+        yield
+    finally:
+        wavefront.closest_hit, wavefront.any_hit = saved
+
+
+def _tie_trace(rb: Renderer, scene_quad, params):
+    """One bounce frame of ``rb`` (frame 1, 1 spp) in which every
+    closest-hit walk is also run as the persistent engine's quad walk
+    (traverse.closest_hit_quad over ``scene_quad``'s quad rows) on the
+    same rays.  A lane whose two walks hit different triangles at the
+    same t is an exact tie, which only the visit order decides
+    (tryraytrace_tpu/ops/traverse.py:699-703); different triangles at
+    different t is a fault.  Returns (sums [n, 3], tie pixels, fault
+    pixels)."""
+    n = WIDTH * HEIGHT
+    tie = torch.zeros(n, dtype=torch.bool, device=rb.device)
+    fault = torch.zeros_like(tie)
+    real = threaded.closest_hit
+
+    def closest(table, k, o, d, active, *, fmt):
+        t, hid, rows = real(table, k, o, d, active, fmt=fmt)
+        tq, idq = traverse.closest_hit_quad(scene_quad.quad_table, k, o, d,
+                                            active, fmt=fmt)
+        differ = active & (hid != idq)
+        tie.logical_or_(differ & (t == tq))
+        fault.logical_or_(differ & (t != tq))
+        return t, hid, rows
+
+    with _walks(closest=closest):
+        acc, _ = wavefront.render_frame(rb.scene, None, rb.device_textures,
+                                        params, 1, WIDTH, HEIGHT, rb.cfg, 1)
+    return acc, tie, fault
+
+
+def phase_bounce(arrays, r: Renderer, params, tmp: str) -> tuple:
+    """The bounce engine (engine="bounce") on the main path's scene at
+    1200x800, 1 spp a step:
+      - a warm-up and BOUNCE_STEPS timed steps, then Renderer.image();
+        the kernels' launches over these are the path's;
+      - frame 1 against the persistent engine's frame 1 (``r``): equal
+        int64 ray counts and sums within _ULP, except at pixels traced to
+        exact-tie hits (``_tie_trace``), whose number is printed;
+      - cube256 at 64x48, the card's bounce render against the CPU's,
+        bit for bit;
+      - ``tpurt-torch render --engine bounce`` (cli.main) against a
+        hand-driven Renderer, byte for byte.
+    Returns (its numbers, the bounce Renderer)."""
+    _zero_counts()
+    t0 = time.perf_counter()
+    rb = Renderer(arrays, cfg=RenderConfig(width=WIDTH, height=HEIGHT, spp=1,
+                                           engine="bounce"))
+    setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rb.step(params)
+    rb.block_until_ready()
+    warm_bounces = rb.last_stats["iterations"]
+    log(f"[bounce] setup {setup:.2f} s (threaded table "
+        f"{tuple(rb.scene.node_table.shape)}, leaf {rb.scene.leaf_fmt} x"
+        f"{rb.scene.leaf_size}); warm-up step "
+        f"{1e3 * (time.perf_counter() - t0):.1f} ms")
+    steps = []
+    for _ in range(BOUNCE_STEPS):
+        t0 = time.perf_counter()
+        rb.step(params)
+        rb.block_until_ready()
+        dt = time.perf_counter() - t0
+        st = rb.last_stats
+        rays = int(st["n_traced"]) + int(st["n_shadow"])
+        steps.append(dict(ms=1e3 * dt, path=int(st["n_traced"]),
+                          shadow=int(st["n_shadow"]),
+                          bounces=st["iterations"],
+                          rows_fetched=int(st["rows_fetched"]),
+                          mrays_per_s=rays / dt / 1e6))
+        log(f"[bounce] step {1e3 * dt:.1f} ms, path rays {steps[-1]['path']}"
+            f", shadow rays {steps[-1]['shadow']}, {st['iterations']} "
+            f"bounces, {steps[-1]['rows_fetched']} threaded rows, "
+            f"{steps[-1]['mrays_per_s']:.3f} Mrays/s")
+    img = rb.image()
+    launches = _counts()
+    log(f"[bounce] image mean {float(img.mean())!r}, spp {rb.spp()}; "
+        f"launches: threaded_walk {launches['threaded_walk']}, tonemap "
+        f"{launches['tonemap']}, walk {launches['walk']}, fetch_chain "
+        f"{launches['fetch_chain']}")
+    if not bool(torch.isfinite(rb.state.accum).all()) or not img.max() > 0:
+        raise AssertionError("non-finite sums or a black bounce image")
+    # Two walks a bounce: the closest hit and the NEE any hit.
+    walks = 2 * (warm_bounces + sum(s["bounces"] for s in steps))
+    if (launches["threaded_walk"] != walks or launches["tonemap"] != 1
+            or launches["walk"] or launches["fetch_chain"]):
+        raise AssertionError(f"bounce path launches {launches} for {walks} "
+                             "walks")
+
+    # Frame 1 of both engines.
+    rb.reset()
+    rb.step(params)
+    r.reset()
+    r.step(params)
+    b, a = rb.state.accum.cpu().numpy(), r.state.accum.cpu().numpy()
+    counts = {name: (int(x.last_stats["n_traced"]),
+                     int(x.last_stats["n_shadow"]))
+              for name, x in (("bounce", rb), ("persistent", r))}
+    traced, tie, fault = _tie_trace(rb, r.scene, params)
+    same_trace = traced.cpu().numpy().tobytes() == b.tobytes()
+    tie, fault = tie.cpu().numpy(), fault.cpu().numpy()
+    off = (a != b).any(axis=1)
+    untraced = off & ~tie
+    close = np.isclose(b[~tie], a[~tie], **ULP).all()
+    log(f"[bounce] frame 1 against the persistent engine: {int((a != b).sum())}"
+        f" of {a.size} sum floats differ, at {int(off.sum())} pixels; "
+        f"{int(tie.sum())} pixels hit an exact tie (two walks, two triangles"
+        f", one t), {int(fault.sum())} pixels where the walks disagree in t; "
+        f"differing pixels not traced to a tie {int(untraced.sum())}; the "
+        f"rest within _ULP {close}; (path, shadow) rays {counts}; traced run "
+        f"equal to the step {same_trace}")
+    if not same_trace or fault.any() or untraced.any() or not close:
+        raise AssertionError("the bounce engine differs from the persistent "
+                             "engine beyond exact ties")
+    if counts["bounce"] != counts["persistent"] and not tie.any():
+        raise AssertionError(f"ray counts differ without a tie: {counts}")
+    r.reset()
+
+    # The card against the CPU at 64x48.
+    small = cube256_arrays()
+    cfg = RenderConfig(width=64, height=48, spp=1, engine="bounce")
+    p_small = CameraController().get_params(64, 48)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        x = Renderer(small, cfg=cfg, device=dev)
+        x.step(p_small)
+        got[dev] = (x.accum_host().tobytes(),
+                    (int(x.last_stats["n_traced"]),
+                     int(x.last_stats["n_shadow"]),
+                     int(x.last_stats["rows_fetched"])))
+    log(f"[bounce] cube256 64x48 card vs CPU: sums equal "
+        f"{got['cuda'][0] == got['cpu'][0]}, (path, shadow, rows) card "
+        f"{got['cuda'][1]} CPU {got['cpu'][1]}")
+    if got["cuda"] != got["cpu"]:
+        raise AssertionError("the card's bounce render differs from the CPU's")
+
+    # The CLI.
+    obj = os.path.join(tmp, "icosphere.obj")
+    write_icosphere_obj(obj)
+    scene = ["--scene", "cornell-nomesh", "--obj", f"{obj}:15:50,20,50",
+             "--width", str(WIDTH), "--height", str(HEIGHT)]
+    ppm, npz = os.path.join(tmp, "bounce.ppm"), os.path.join(tmp, "b.npz")
+    res = _cli(["render", *scene, "--engine", "bounce", "--frames",
+                str(BOUNCE_CLI_FRAMES), "--out", ppm, "--checkpoint", npz])
+    args = cli.build_parser().parse_args(["render", *scene])
+    hand = Renderer(cli.build_scene_arrays(args), cfg=RenderConfig(
+        width=WIDTH, height=HEIGHT, spp=1, engine="bounce"))
+    for _ in range(BOUNCE_CLI_FRAMES):
+        hand.step(params)
+    with np.load(npz) as z:
+        same = (load_ppm(ppm).tobytes() == hand.image().tobytes()
+                and z["accum"].tobytes()
+                == hand.state.accum.cpu().numpy().tobytes())
+    dt = float(re.search(r"spp, ([0-9.]+)s\)$", res["stdout"]).group(1))
+    log(f"[bounce] render --engine bounce, {BOUNCE_CLI_FRAMES} frames: "
+        f"{1e3 * dt / BOUNCE_CLI_FRAMES:.1f} ms a frame; PPM and sums equal to"
+        f" the hand-driven Renderer's {same}; launches: threaded_walk "
+        f"{res['threaded_walk']}, tonemap {res['tonemap']}, walk "
+        f"{res['walk']}")
+    if not same or res["tonemap"] != 1 or res["walk"] or not res[
+            "threaded_walk"]:
+        raise AssertionError("render --engine bounce differs from the "
+                             "Renderer")
+    ms = float(np.mean([s["ms"] for s in steps]))
+    return dict(launches, steps=steps, ms_per_step=ms, setup_s=setup,
+                image_mean=float(img.mean()), tie_pixels=int(tie.sum()),
+                differing_floats=int((a != b).sum()),
+                cli_ms_per_frame=1e3 * dt / BOUNCE_CLI_FRAMES), rb
+
+
+def _bounce_states(scene, textures, cfg, params) -> dict:
+    """The threaded walks' inputs at three points of one full-width
+    bounce frame: the camera rays (closest hit), the first bounce's
+    shadow rays (any hit), and the first closest-hit walk with at most
+    LATE_ACTIVE_SHARE of the lanes alive."""
+    states = {}
+    n = WIDTH * HEIGHT
+    real_c, real_a = threaded.closest_hit, threaded.any_hit
+
+    def closest(table, k, o, d, active, *, fmt):
+        if "fresh" not in states:
+            states["fresh"] = (o.clone(), d.clone(), active.clone(), None)
+        elif ("late" not in states
+              and int(active.sum()) <= LATE_ACTIVE_SHARE * n):
+            states["late"] = (o.clone(), d.clone(), active.clone(), None)
+        return real_c(table, k, o, d, active, fmt=fmt)
+
+    def anyhit(table, k, o, d, max_dist, active, *, fmt):
+        if "shadow" not in states:
+            states["shadow"] = (o.clone(), d.clone(), active.clone(),
+                                max_dist.clone())
+        return real_a(table, k, o, d, max_dist, active, fmt=fmt)
+
+    with _walks(closest, anyhit):
+        wavefront.render_frame(scene, None, textures, params, 1, WIDTH,
+                               HEIGHT, cfg, 1)
+    if sorted(states) != ["fresh", "late", "shadow"]:
+        raise AssertionError(f"the frame gave the states {sorted(states)}")
+    return states
+
+
+def _check_threaded(label: str, scene, state) -> dict:
+    """One state through the kernel and through its plain version: every
+    output and the rows fetched must be equal.  Then the kernel's own
+    time and the wrapper's."""
+    o, d, active, max_dist = state
+    table, k, fmt = scene.node_table, scene.leaf_size, scene.leaf_fmt
+    shadow = max_dist is not None
+    launch = lambda: threaded.threaded_walk_cuda(table, k, o, d, active,
+                                                 max_dist, fmt=fmt)
+    torch.cuda.synchronize()
+    got = launch()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if shadow:
+        want = traverse.any_hit_packed(table, k, o, d, max_dist, active,
+                                       fmt=fmt)
+    else:
+        want = traverse.closest_hit_packed(table, k, o, d, active, fmt=fmt)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t1)
+    names = ("occluded", "rows") if shadow else ("t", "hit_id", "rows")
+    bad = [nm for nm, a, b in zip(names, got, want) if not torch.equal(a, b)]
+    err = 0.0 if shadow else float((got[0].double() - want[0].double())
+                                   .abs().max())
+    n, n_act, rows = o.shape[0], int(active.sum()), int(got[-1])
+    log(f"[bounce] {label} walk ({fmt} leaves x{k}, table "
+        f"{tuple(table.shape)}): {n_act} of {n} lanes active; rows fetched "
+        f"kernel {rows} plain {int(want[-1])}; outputs differing {bad}, "
+        f"max abs err {err!r}")
+    if bad:
+        raise AssertionError(f"threaded_walk kernel disagrees with its plain "
+                             f"version on the {label} state: {bad}")
+    wrapper_ms = _time_ms(launch, reps=5)
+    ms = _kernel_ms(launch, "threaded_walk_kernel", reps=10)
+    # The table once, each lane's active flag, an active lane's ray (and
+    # segment length), each lane's outputs; a fetched row's slab test at
+    # 30 operations (leaf slots left out: a lower count).
+    n_bytes = (table.numel() * 4 + n + n_act * (28 if shadow else 24)
+               + n * (1 if shadow else 12))
+    out = dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
+               plain_ms=plain_ms, library_ms=None, rows_fetched=rows,
+               active_lanes=n_act, **bound(n_bytes, 30 * rows))
+    log(f"[bounce] {label} walk: kernel's own time {ms:.4f} ms, wrapper "
+        f"{wrapper_ms:.4f} ms, plain {plain_ms:.1f} ms; "
+        f"{rows / ms / 1e6:.3f} G rows/s; bound {out['bound_ms']:.5f} ms by "
+        f"{out['bound_by']}")
+    return out
+
+
+def phase_threaded_walk(rb: Renderer, features_r: Renderer, params) -> dict:
+    """The threaded-walk kernel against its plain version on three states
+    of the 960,000-lane bounce wave, on the main path's tree ("bw" slots)
+    and on the [features] Renderer's SBVH ("mt" slots, auto leaf 6, rows
+    of 78 floats).  Returns the "bw" states' numbers, fresh first, and
+    the "mt" ones under "mt"."""
+    out = {}
+    runs = (("bw", rb.scene, rb.device_textures, rb.cfg),
+            ("mt", features_r.scene,
+             device_textures(features_r.textures, features_r.device),
+             features_r.cfg.replace(engine="bounce")))
+    for fmt, scene, textures, cfg in runs:
+        states = _bounce_states(scene, textures, cfg, params)
+        res = {label: _check_threaded(label, scene, states[label])
+               for label in ("fresh", "shadow", "late")}
+        del states
+        out[fmt] = res
+    return out
+
+
+# -- [parallel]: ShardedRenderer and two processes ---------------------------
+
+def phase_parallel(arrays, r: Renderer, rb: Renderer, params,
+                   tmp: str) -> dict:
+    """ShardedRenderer on the card over the main path's scene at
+    1200x800, PARALLEL_SPP samples a step, for each engine: 1x1, (2,1)
+    and (4,1) meshes of the one card bit-equal to the Renderer (sums and
+    image), (2,2) within ATOL_SP, with equal int64 ray totals.  The
+    counts are set to 0 after each reference render, just before each
+    mesh's ``sr.step``, and read just after its ``sr.image()``: they
+    must be exactly what the sharded step alone launches (a walk kernel
+    a round, two threaded walks a bounce, summed over the shards; one
+    tonemap).  Then two processes of ``tpurt-torch render --coordinator
+    ... --num-processes 2`` over gloo on the one card, whose PPM must
+    equal a one-process render's byte for byte.  NCCL across cards
+    needs more than one card, so it is not run here."""
+    card = torch.device("cuda", torch.cuda.current_device())
+    out = dict(meshes=[])
+    totals = dict.fromkeys(COUNTED, 0)
+    for engine, ref in (("persistent", r), ("bounce", rb)):
+        cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=PARALLEL_SPP,
+                           engine=engine)
+        ref.reset()
+        ref.step(params, spp=PARALLEL_SPP)
+        want = ref.accum_host()
+        want_img = ref.image()
+        want_rays = (int(ref.last_stats["n_traced"]),
+                     int(ref.last_stats["n_shadow"]))
+        for tile, sample in PARALLEL_MESHES:
+            mesh = make_mesh([card] * (tile * sample), tile=tile,
+                             sample=sample)
+            t0 = time.perf_counter()
+            sr = ShardedRenderer(arrays, cfg, mesh=mesh)
+            setup = time.perf_counter() - t0
+            _zero_counts()
+            t0 = time.perf_counter()
+            sr.step(params)
+            sr.block_until_ready()
+            dt = time.perf_counter() - t0
+            img = sr.image()
+            launches = _counts()
+            iters = sr.last_stats["shard_iterations"]
+            n_iter = sum(iters.values())
+            expect = dict(tonemap=1, fetch_chain=0,
+                          walk=n_iter if engine == "persistent" else 0,
+                          threaded_walk=2 * n_iter if engine == "bounce"
+                          else 0)
+            got = sr.accum_host()
+            rays = (int(sr.last_stats["n_traced"]),
+                    int(sr.last_stats["n_shadow"]))
+            exact = got.tobytes() == want.tobytes()
+            err = float(np.abs(got - want).max())
+            same_img = img.tobytes() == want_img.tobytes() if sample == 1 \
+                else None
+            what = "rounds" if engine == "persistent" else "bounces"
+            log(f"[parallel] {engine} mesh {tile}x{sample} on one card: "
+                f"setup {setup:.2f} s, step {1e3 * dt:.1f} ms; sums "
+                f"bit-equal to the Renderer's {exact}, max abs err {err!r}; "
+                f"image equal {same_img}; (path, shadow) rays {rays} "
+                f"Renderer {want_rays}; {what} by shard "
+                f"{sorted(iters.items())}; launches in the sharded step "
+                f"and image {launches}")
+            if launches != expect:
+                raise AssertionError(f"the {tile}x{sample} {engine} mesh "
+                                     f"launched {launches}, not {expect}")
+            if sorted(iters) != [(i, j) for i in range(tile)
+                                 for j in range(sample)]:
+                raise AssertionError(f"shards {sorted(iters)} rendered")
+            if rays != want_rays:
+                raise AssertionError("sharded ray totals differ")
+            if sample == 1 and not (exact and same_img):
+                raise AssertionError(f"the {tile}x1 mesh differs from the "
+                                     "Renderer")
+            if not err <= ATOL_SP:
+                raise AssertionError(f"the {tile}x{sample} mesh is {err} "
+                                     "off the Renderer")
+            for name, n in launches.items():
+                totals[name] += n
+            out["meshes"].append(dict(engine=engine, tile=tile,
+                                      sample=sample, ms=1e3 * dt,
+                                      max_abs_err=err, exact=exact,
+                                      launches=launches))
+            del sr
+        ref.reset()
+    log(f"[parallel] launches of the sharded steps and images, summed over "
+        f"the meshes: {totals}")
+    if totals["walk"] < 1 or totals["threaded_walk"] < 1:
+        raise AssertionError(f"the sharded renders launched {totals}")
+
+    # Two processes on the one card over gloo, against one process.
+    obj = os.path.join(tmp, "icosphere.obj")
+    write_icosphere_obj(obj)
+    scene = ["--scene", "cornell-nomesh", "--obj", f"{obj}:15:50,20,50",
+             "--width", str(WIDTH), "--height", str(HEIGHT), "--frames", "1"]
+    single = os.path.join(tmp, "single.ppm")
+    _cli(["render", *scene, "--out", single])
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    two = os.path.join(tmp, "two.ppm")
+    base = [sys.executable, "-m", "tryraytrace_tpu_torch.cli", "render",
+            *scene, "--out", two, "--coordinator", f"localhost:{port}",
+            "--num-processes", "2", "--dist-backend", "gloo"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(base + ["--process-id", str(i)], cwd=here,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for i in range(2)]
+    try:
+        logs = [p.communicate(timeout=TWO_PROCESS_TIMEOUT_S)[0]
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    for i, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"process {i} exited {p.returncode}:\n"
+                                 f"{logs[i][-3000:]}")
+    same = load_ppm(two).tobytes() == load_ppm(single).tobytes()
+    wrote = [line for line in logs[0].splitlines() if "[tpurt] wrote" in line]
+    log(f"[parallel] two processes (gloo, one card, mesh 2x1 across them): "
+        f"{seconds:.1f} s; PPM byte-equal to one process's {same}; process "
+        f"0: {wrote}")
+    log("[parallel] NCCL across cards: not run (this machine has one card)")
+    if not same or not wrote or "[tpurt] wrote" in logs[1]:
+        raise AssertionError("the two-process render differs")
+    return dict(totals, two_process_s=seconds, **out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1369,30 +1832,42 @@ def main() -> int:
         app_run = phase_app(arrays, tmp)
         bench_run = phase_bench()
         features_run, features_r = phase_features(r, params, tmp)
+        bounce_run, rb = phase_bounce(arrays, r, params, tmp)
+        parallel_run = phase_parallel(arrays, r, rb, params, tmp)
     tone = phase_tonemap()
     chain = phase_fetch(seed=0)
     walked = phase_walk(r, params)
     # The Moller-Trumbore leaf slots on the table the features path walks.
     walked_mt = phase_walk(features_r, params)
+    threaded_states = phase_threaded_walk(rb, features_r, params)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     keys = ("max_abs_err", "ms", "wrapper_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
+    # Each kernel's launches on the paths counted with COUNTED.
+    path_counts = lambda name: dict(
+        cli_launches=cli_run[name], app_launches=app_run[name],
+        bench_launches=bench_run[name],
+        features_launches=features_run[name],
+        bounce_launches=bounce_run[name],
+        parallel_launches=parallel_run[name],
+        parallel_mesh_launches=per_mesh(name))
+    # Each kernel's launches in each sharded step (and its image), by
+    # engine and mesh.
+    per_mesh = lambda name: {
+        f"{m['engine']} {m['tile']}x{m['sample']}": m["launches"][name]
+        for m in parallel_run["meshes"]}
+    bw_walk = threaded_states["bw"]
+    state_keys = (*keys, "rows_fetched", "active_lanes")
     log(json.dumps({"kernels": [
         dict(name="tonemap", route="cuda",
              source="tryraytrace_tpu_torch/csrc/tonemap.cu",
              replaces="tryraytrace_tpu/ops/pallas_tonemap.py:33",
-             launches=main_run["launches"], cli_launches=cli_run["tonemap"],
-             app_launches=app_run["tonemap"],
-             bench_launches=bench_run["tonemap"],
-             features_launches=features_run["tonemap"],
+             launches=main_run["launches"], **path_counts("tonemap"),
              **{k: tone[k] for k in keys}),
         dict(name="fetch_chain", route="cuda",
              source="tryraytrace_tpu_torch/csrc/fetch_chain.cu",
              replaces="scripts/microbench_pallas_fetch.py:34",
-             launches=chain["launches"], cli_launches=cli_run["fetch_chain"],
-             app_launches=app_run["fetch_chain"],
-             bench_launches=bench_run["fetch_chain"],
-             features_launches=features_run["fetch_chain"],
+             launches=chain["launches"], **path_counts("fetch_chain"),
              **{k: chain[k] for k in keys},
              variants=chain["variants"]),
         dict(name="quad_walk", route="cuda",
@@ -1400,14 +1875,22 @@ def main() -> int:
              replaces="tryraytrace_tpu/engine/persistent.py:948",
              launches=main_run["walk_launches"],
              progressive_launches=progressive["launches"],
-             tiled_launches=tiled["launches"],
-             cli_launches=cli_run["walk"], app_launches=app_run["walk"],
-             bench_launches=bench_run["walk"],
-             features_launches=features_run["walk"],
+             tiled_launches=tiled["launches"], **path_counts("walk"),
              features_mt_launches=features_run["mt_walk"],
              **{k: walked[k] for k in keys},
              rows_fetched=walked["rows_fetched"], plan=walked["plan"],
-             mt={k: walked_mt[k] for k in (*keys, "rows_fetched", "plan")})]}))
+             mt={k: walked_mt[k] for k in (*keys, "rows_fetched", "plan")}),
+        dict(name="threaded_walk", route="cuda",
+             source="tryraytrace_tpu_torch/csrc/threaded_walk.cu",
+             replaces="tryraytrace_tpu/ops/traverse.py:696",
+             also_replaces="tryraytrace_tpu/ops/traverse.py:742",
+             launches=bounce_run["threaded_walk"],
+             **path_counts("threaded_walk"),
+             **{k: bw_walk["fresh"][k] for k in keys},
+             states={label: {k: res[k] for k in state_keys}
+                     for label, res in bw_walk.items()},
+             mt={label: {k: res[k] for k in state_keys}
+                 for label, res in threaded_states["mt"].items()})]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

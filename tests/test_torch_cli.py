@@ -1,12 +1,14 @@
 """The port's CLI (``python -m tryraytrace_tpu_torch.cli``) on the CPU:
 render held to the Renderer and to the JAX package's NumPy oracle,
 resume and tiles bit-equal to the plain run, --obj scenes and info
-against the JAX package, the flags the port refuses, and the headless
+against the JAX package, the engine and parallel-layer flags against
+the Renderer, the flags the port refuses, and the headless
 interactive commands.  No JAX program is compiled."""
 
 import json
 import os
 import re
+import socket
 
 import numpy as np
 import pytest
@@ -138,14 +140,6 @@ def test_info_matches_jax_bvh(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--sharded"], "--sharded: the port renders on one device"),
-    (["--mesh-tile", "2"], "--mesh-tile: the port renders on one device"),
-    (["--mesh-sample", "2"], "--mesh-sample: the port renders on one"),
-    (["--coordinator", "localhost:1234"], "--coordinator: the port"),
-    (["--num-processes", "2"], "--num-processes: the port"),
-    (["--process-id", "1"], "--process-id: the port"),
-    (["--cpu-devices", "4"], "--cpu-devices: the port"),
-    (["--engine", "bounce"], "RenderConfig.engine='bounce' is not ported"),
     (["--traversal", "pair"], "RenderConfig.traversal='pair' is not"),
     (["--scheduler", "pool"], "RenderConfig.scheduler='pool' is not"),
     (["--checkpoint", "state.orbax"], "writes .npz checkpoints only"),
@@ -179,6 +173,52 @@ def test_feature_flags_render(flag, tmp_path):
     r = Renderer(cli.build_scene_arrays(args), cfg=cfg, device="cpu")
     r.step(CameraController().get_params(W, H))
     assert load_ppm(str(out)).tobytes() == r.image().tobytes()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+COORDINATOR = ["--coordinator", "PORT", "--num-processes", "1",
+               "--process-id", "0"]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--engine", "bounce"],
+    ["--sharded"],
+    ["--sharded", "--cpu-devices", "2", "--mesh-tile", "2"],
+    ["--sharded", "--cpu-devices", "2", "--mesh-sample", "2"],
+    ["--sharded", "--cpu-devices", "4"],
+    ["--sharded", "--cpu-devices", "4", "--mesh-tile", "2"],
+    ["--sharded", "--cpu-devices", "2", "--engine", "bounce"],
+    COORDINATOR,
+    [*COORDINATOR, "--cpu-devices", "2", "--dist-backend", "gloo"],
+    [*COORDINATOR, "--cpu-devices", "2", "--mesh-sample", "2", "--engine",
+     "bounce"],
+], ids=lambda f: " ".join(f).replace("PORT", "host:port"))
+def test_engine_and_parallel_flags_render(flags, tmp_path):
+    """Each engine and parallel-layer flag renders the one-device
+    Renderer's image and sums: dp shards split pixels, and with spp equal
+    to the sp shards each shard adds one sample to zero, so every mesh
+    here is bit-exact (tests/test_torch_parallel.py holds the other
+    splits)."""
+    flags = [f"localhost:{_free_port()}" if f == "PORT" else f
+             for f in flags]
+    out, ck = tmp_path / "x.ppm", tmp_path / "x.npz"
+    argv = ["render", *SCENE, "--device", "cpu", "--spp", "2", *flags]
+    assert cli.main([*argv, "--frames", "1", "--out", str(out),
+                     "--checkpoint", str(ck)]) == 0
+    assert not torch.distributed.is_initialized()
+    args = cli.build_parser().parse_args(argv)
+    cfg = cli._cfg_from_args(args)
+    r = Renderer(cli.build_scene_arrays(args), cfg=cfg, device="cpu")
+    r.step(CameraController().get_params(W, H))
+    assert load_ppm(str(out)).tobytes() == r.image().tobytes()
+    with np.load(ck) as z:
+        assert z["accum"].tobytes() == r.accum_host().reshape(-1, 3).tobytes()
+        assert int(z["spp"]) == 2 and int(z["frame_seed"]) == 2
 
 
 def test_bench_without_config_is_refused(capsys):

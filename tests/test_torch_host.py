@@ -69,7 +69,7 @@ def test_render_config_defaults_match():
     {"traversal": "pair"}, {"scheduler": "pool"}, {"dual_walk": True},
     {"shadow_pred": True}, {"inline_shade": False},
     {"quad_layout": "octant"}, {"quad_layout": None},
-    {"quad_select": "rank", "quad_regs": 0}, {"engine": "bounce"},
+    {"quad_select": "rank", "quad_regs": 0}, {"engine": "wavefront"},
     {"inline_tex": False}, {"leaf_isect": "xx"}, {"bvh_method": "xx"},
 ])
 def test_unported_knobs_raise(kw):
@@ -79,6 +79,7 @@ def test_unported_knobs_raise(kw):
 
 @pytest.mark.parametrize("kw", [
     {"smooth_shading": True}, {"uv_mapping": True}, {"leaf_isect": "mt"},
+    {"engine": "bounce"},
 ])
 def test_feature_knobs_are_accepted(kw):
     tconfig.check_supported(tconfig.RenderConfig(**kw))

@@ -8,10 +8,12 @@ permutation (surjective for the spatial-split build, whose straddling
 triangles are referenced from both sides).  ``refit_bvh`` recomputes
 the bounds of a tree over moved vertices.  The packers produce the
 quad-row traversal table (``pack_quad_table`` over the collapsed 4-ary
-tree, ``collapse_bvh``, with "bw" or "mt" leaf slots) and the fused
-triangle+material rows (``pack_trimat_table``) byte for byte as the
-JAX package does, so both engines walk identical tables.  The
-threaded/pair/fat-node/octant tables are not ported.
+tree, ``collapse_bvh``, with "bw" or "mt" leaf slots), the threaded
+rows the bounce engine walks (``pack_traversal_table``, per-octant
+links from ``thread_octant``) and the fused triangle+material rows
+(``pack_trimat_table``) byte for byte as the JAX package does, so both
+packages walk identical tables.  The pair/fat-node/octant tables are
+not ported.
 """
 
 from __future__ import annotations
@@ -750,9 +752,85 @@ def leaf_slot_rows(v0, v1, v2, leaf_fmt: str = "bw"):
 
 
 # Floats per leaf slot of each format: the pack widths here and the
-# decode offsets in ops/traverse.py both read it.  Its order numbers the
-# formats in the walk kernel (ops/walk.py LEAF_FORMATS).
+# decode offsets in ops/traverse.py both read it.
 LEAF_STRIDE = {"bw": 12, "mt": 9}
+# Each format's number in the walk kernels (their leaf-format template
+# argument in csrc/quad_walk.cu and csrc/threaded_walk.cu).
+LEAF_FORMATS = {fmt: i for i, fmt in enumerate(LEAF_STRIDE)}
+
+
+def thread_octant(bvh: LinearBVH, octant: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per-octant threading: (next_hit, next_miss) int32 [M].
+
+    For ray-direction octant ``octant`` (bit k set = d_k < 0) the walk
+    descends into the near child first: the left child lies on the low
+    side of the node's split axis, so near = left iff the ray points
+    positive on that axis.  Closest-hit results do not depend on the
+    order (strict < on t) except between exact ties."""
+    m = bvh.num_nodes
+    next_hit = np.full(m, m, np.int32)
+    next_miss = np.full(m, m, np.int32)
+    if m == 0:
+        return next_hit, next_miss
+    leaf = (bvh.leaf_prim >= 0).tolist()
+    axis, left, right = (a.tolist() for a in (bvh.axis, bvh.left, bvh.right))
+    stack = [(0, m)]
+    while stack:
+        n, cont = stack.pop()
+        next_miss[n] = cont
+        if leaf[n]:
+            next_hit[n] = cont
+            continue
+        if (octant >> axis[n]) & 1:
+            near, far = right[n], left[n]
+        else:
+            near, far = left[n], right[n]
+        next_hit[n] = near
+        stack.append((far, cont))
+        stack.append((near, far))
+    return next_hit, next_miss
+
+
+def traversal_row_width(leaf_size: int, leaf_fmt: str = "mt") -> int:
+    """bounds (6) + K inline triangle slots + prim_start + prim_count +
+    next_hit[8] + next_miss[8] = stride * K + 24 floats."""
+    return LEAF_STRIDE[leaf_fmt] * leaf_size + 24
+
+
+def pack_traversal_table(bvh: LinearBVH, v0: np.ndarray, v1: np.ndarray,
+                         v2: np.ndarray, leaf_size: int | None = None,
+                         leaf_fmt: str = "mt") -> np.ndarray:
+    """Threaded traversal rows float32 [M, stride * K + 24], byte for byte
+    the JAX package's: the node's box (cols 0:6), up to K inline leaf
+    slots of format ``leaf_fmt`` (a leaf's primitives are contiguous, so
+    slot j is primitive prim_start + j), prim_start (-1 internal) and
+    prim_count, then the per-octant threaded continuations next_hit[8]
+    and next_miss[8] (node ids, sentinel M = done)."""
+    m = bvh.num_nodes
+    k = int(leaf_size if leaf_size is not None
+            else max(1, bvh.leaf_count.max() if m else 1))
+    st = LEAF_STRIDE[leaf_fmt]
+    w = traversal_row_width(k, leaf_fmt)
+    if m == 0:
+        return np.zeros((0, w), np.float32)
+    if bvh.leaf_count.max() > k:
+        raise ValueError(f"leaf_size {k} < max leaf count "
+                         f"{bvh.leaf_count.max()}")
+    table = np.zeros((m, w), np.float32)
+    table[:, 0:6] = bvh.bounds
+    tri_cat = leaf_slot_rows(v0, v1, v2, leaf_fmt)  # [T, stride]
+    for j in range(k):
+        nodes = np.nonzero(bvh.leaf_count > j)[0]
+        table[nodes, 6 + st * j:6 + st * (j + 1)] = tri_cat[
+            bvh.leaf_prim[nodes].astype(np.int64) + j]
+    col = 6 + st * k
+    table[:, col] = bvh.leaf_prim.astype(np.float32)
+    table[:, col + 1] = bvh.leaf_count.astype(np.float32)
+    for o in range(NUM_OCTANTS):
+        nh, nm = thread_octant(bvh, o)
+        table[:, col + 2 + o] = nh.astype(np.float32)
+        table[:, col + 10 + o] = nm.astype(np.float32)
+    return table
 
 
 QUAD_WIDTH = 4

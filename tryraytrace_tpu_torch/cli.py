@@ -9,19 +9,26 @@ card it fails unless given ``--device cpu``; nothing moves to the CPU
 on its own.  What the port does not render is refused with a message
 and a non-zero exit, never ignored:
 
-* the parallel layer's flags (``--sharded``, ``--mesh-tile``,
-  ``--mesh-sample``, ``--coordinator``, ``--num-processes``,
-  ``--process-id``, ``--cpu-devices``): the port renders on one device;
 * ``bench`` without ``--config``: the repo-root ``bench.py`` is the JAX
   package's harness;
 * ``--checkpoint-every`` with ``--progressive``: the progressive
   renderer has no checkpoint format (the JAX CLI drops the flag);
-* a config the port does not render (``--engine bounce``, a traversal
-  or scheduler other than the default): config.py ``check_supported``.
+* a config the port does not render (a traversal or scheduler other
+  than the default): config.py ``check_supported``.
 
-``--smooth``, ``--uv`` (with the JAX CLI's texture-slot rule for
-``--obj`` meshes), ``--leaf-isect mt`` and ``--bvh-method sbvh`` render
-as in the JAX package.
+``--engine bounce``, ``--smooth``, ``--uv`` (with the JAX CLI's
+texture-slot rule for ``--obj`` meshes), ``--leaf-isect mt`` and
+``--bvh-method sbvh`` render as in the JAX package.
+
+``render`` takes the JAX CLI's parallel flags (parallel/): ``--sharded``
+renders over a (dp, sp) mesh of every device (``--mesh-tile`` /
+``--mesh-sample`` split it; ``--cpu-devices N`` makes it N shards of the
+CPU); ``--coordinator HOST:PORT --num-processes P --process-id I`` joins
+a torch.distributed process group first (NCCL on cards, gloo on the
+CPU, or ``--dist-backend gloo`` for processes that share a card) and
+renders over every process's devices.  Every process joins the
+accumulator's gather; only process 0 writes the image and the
+checkpoint.
 """
 
 from __future__ import annotations
@@ -38,11 +45,6 @@ from tryraytrace_tpu_torch.benchmarks import CONFIGS
 from tryraytrace_tpu_torch.config import RenderConfig, check_supported
 from tryraytrace_tpu_torch.engine.state import resolve_device
 
-# Flags of the JAX CLI's render command that drive its parallel layer.
-PARALLEL_FLAGS = ("sharded", "mesh_tile", "mesh_sample", "coordinator",
-                  "num_processes", "process_id", "cpu_devices")
-
-
 def _add_scene_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--scene", default="cornell",
                    help="cornell | cornell-nomesh | empty")
@@ -55,7 +57,7 @@ def _add_scene_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--aperture", type=float, default=0.0)
     p.add_argument("--focus", type=float, default=240.0)
     p.add_argument("--engine", default=None,
-                   help="persistent (the port's only engine)")
+                   help="persistent | bounce (default: config)")
     p.add_argument("--leaf-isect", default=None,
                    help="leaf intersection format: bw | mt (default: "
                         "config)")
@@ -153,21 +155,36 @@ def _cfg_from_args(args) -> RenderConfig:
 
 
 def _device(args) -> torch.device:
+    # --cpu-devices asks for shards of the CPU (the JAX CLI's flag forces
+    # its CPU platform).
+    device = "cpu" if getattr(args, "cpu_devices", None) else args.device
     try:
-        return resolve_device(args.device)
+        return resolve_device(device)
     except RuntimeError as e:
         raise SystemExit(f"[tpurt] {e} (on the command line: --device "
                          "cpu)") from None
 
 
+def _make_renderer(args, arrays, cfg, device):
+    """One device's Renderer, or a ShardedRenderer over the (dp, sp) mesh
+    of every process's devices once init_distributed has run, else of
+    this process's: every card, or ``--cpu-devices`` shards of the CPU."""
+    if not (args.coordinator or args.sharded):
+        from tryraytrace_tpu_torch.engine.renderer import Renderer
+
+        return Renderer(arrays, cfg=cfg, device=device)
+    from tryraytrace_tpu_torch.parallel.mesh import make_mesh
+    from tryraytrace_tpu_torch.parallel.shard import ShardedRenderer
+
+    devices = None
+    if device.type == "cpu" and not args.coordinator:
+        devices = [device] * (args.cpu_devices or 1)
+    mesh = make_mesh(devices, tile=args.mesh_tile, sample=args.mesh_sample)
+    return ShardedRenderer(arrays, cfg, mesh=mesh)
+
+
 def cmd_render(args) -> int:
-    from tryraytrace_tpu_torch.camera.controller import CameraController
-    from tryraytrace_tpu_torch.engine.renderer import Renderer
-    from tryraytrace_tpu_torch.engine.state import (load_checkpoint,
-                                                    save_checkpoint)
-    from tryraytrace_tpu_torch.io.ppm import save_image
-    from tryraytrace_tpu_torch.utils.logging import log_event
-    from tryraytrace_tpu_torch.utils.profiling import PhaseTimer, trace_context
+    from tryraytrace_tpu_torch.parallel import distributed
 
     cfg = _cfg_from_args(args)
     device = _device(args)
@@ -175,51 +192,87 @@ def cmd_render(args) -> int:
         raise SystemExit(f"[tpurt] --checkpoint {args.checkpoint!r}: the "
                          "port writes .npz checkpoints only (Orbax "
                          "directories are JAX-only)")
+    # Joining the process group comes before anything else.
+    if args.coordinator:
+        distributed.init_distributed(
+            args.coordinator, args.num_processes or 1, args.process_id or 0,
+            cpu_devices_per_process=args.cpu_devices, device=device,
+            backend=args.dist_backend)
+    try:
+        return _render(args, cfg, device)
+    finally:
+        distributed.shutdown()
+
+
+def _render(args, cfg, device) -> int:
+    from tryraytrace_tpu_torch.camera.controller import CameraController
+    from tryraytrace_tpu_torch.engine.state import (RenderState,
+                                                    load_checkpoint,
+                                                    save_checkpoint)
+    from tryraytrace_tpu_torch.io.ppm import save_image
+    from tryraytrace_tpu_torch.parallel import distributed
+    from tryraytrace_tpu_torch.utils.logging import log_event
+    from tryraytrace_tpu_torch.utils.profiling import PhaseTimer, trace_context
+
     timer = PhaseTimer()
     with timer.phase("build+upload"):
         arrays = build_scene_arrays(args)
-        r = Renderer(arrays, cfg=cfg, device=device)
+        r = _make_renderer(args, arrays, cfg, device)
+    sharded = not hasattr(r, "step_tiled")
     cam = CameraController()
     cam.aperture = args.aperture
     cam.focus_dist = args.focus
 
     if args.resume:
         state, w, h, frame_seed, saved_cam = load_checkpoint(
-            args.resume, device=r.device)
+            args.resume, device="cpu" if sharded else r.device)
         if (w, h) != (cfg.width, cfg.height):
             raise SystemExit(f"checkpoint is {w}x{h}, requested "
                              f"{cfg.width}x{cfg.height}")
         # The frame counter seeds the next step's streams: without it
         # the resumed frames would draw frame 1's samples again.
-        r.state, r.frame = state, frame_seed
+        if sharded:
+            r.restore(state)   # each process keeps its rows' blocks
+        else:
+            r.state = state
+        r.frame = frame_seed
         if saved_cam is not None:
             cam = saved_cam
         log_event("resume", path=args.resume, spp=r.spp())
 
     params = cam.get_params(cfg.width, cfg.height)
     t0 = time.perf_counter()
-    with timer.phase("render", block_on=r.state.accum):
+    with timer.phase("render"):
         with trace_context("render"):
             for _ in range(args.frames):
-                if args.tiles > 1:
+                if args.tiles > 1 and not sharded:
                     r.step_tiled(params, args.tiles)
                 else:
                     r.step(params)
+        r.block_until_ready()
     dt = time.perf_counter() - t0
     log_event("render_done", frames=args.frames, spp=r.spp(),
               ms_per_frame=round(dt / max(args.frames, 1) * 1e3, 2))
 
+    # Every process joins the gathers (collectives on a mesh across
+    # processes); only process 0 writes.
+    state = None
     if args.checkpoint:
-        save_checkpoint(args.checkpoint, r.state, cfg.width, cfg.height,
-                        camera=cam, frame_seed=r.frame)
-        log_event("checkpoint_saved", path=args.checkpoint)
-
+        state = (RenderState(torch.from_numpy(r.accum_host().reshape(-1, 3)),
+                             r.spp()) if sharded else r.state)
     with timer.phase("tonemap+write"):
         # On the card the tonemap kernel runs there and only the uint8
         # pixels are copied out.
-        save_image(args.out, r.image())
-    print(f"[tpurt] wrote {args.out} ({cfg.width}x{cfg.height}, "
-          f"{r.spp()} spp, {dt:.2f}s)")
+        img = r.image()
+        if distributed.process_index() == 0:
+            save_image(args.out, img)
+    if distributed.process_index() == 0:
+        if args.checkpoint:
+            save_checkpoint(args.checkpoint, state, cfg.width, cfg.height,
+                            camera=cam, frame_seed=r.frame)
+            log_event("checkpoint_saved", path=args.checkpoint)
+        print(f"[tpurt] wrote {args.out} ({cfg.width}x{cfg.height}, "
+              f"{r.spp()} spp, {dt:.2f}s)")
     print(timer.summary(), file=sys.stderr)
     return 0
 
@@ -311,13 +364,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="render each pass as N sequential pixel-strip "
                         "waves (bit-identical)")
     p.add_argument("--sharded", action="store_true",
-                   help="not ported: refused")
-    for flag in ("--mesh-tile", "--mesh-sample", "--num-processes",
-                 "--process-id", "--cpu-devices"):
-        p.add_argument(flag, type=int, default=None,
-                       help="not ported: refused")
+                   help="render over a (dp, sp) device mesh of every "
+                        "device")
+    p.add_argument("--mesh-tile", type=int, default=None,
+                   help="dp (pixel-row) shards of the mesh")
+    p.add_argument("--mesh-sample", type=int, default=None,
+                   help="sp (sample) shards of the mesh")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="not ported: refused")
+                   help="multi-process: process 0's rendezvous address "
+                        "(implies --sharded)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--cpu-devices", type=int, default=None,
+                   help="shards of the CPU per process (renders on the "
+                        "CPU)")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="torch.distributed backend (default: nccl on "
+                        "cards, gloo on the CPU; gloo lets processes "
+                        "share a card)")
     p.set_defaults(fn=cmd_render)
 
     p = sub.add_parser("interactive", help="windowed/headless game loop")
@@ -355,13 +419,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.cmd == "render":
-        given = [f for f in PARALLEL_FLAGS
-                 if getattr(args, f) not in (None, False)]
-        if given:
-            ap.error(f"--{given[0].replace('_', '-')}: the port renders on "
-                     "one device; the parallel layer (sharding, "
-                     "multi-process) is the JAX package's only")
     if args.cmd == "bench" and args.config is None:
         ap.error("bench needs --config NAME|all: the repo-root bench.py "
                  "is the JAX package's harness")

@@ -3,16 +3,19 @@
 ``RenderConfig`` has the same fields and defaults as
 tryraytrace_tpu/config.py (whose comments carry the history of every
 knob), so a default config renders the same image in both packages.
-The port runs one engine: the persistent owner-schedule wave with
-quad traversal over Baldwin-Weber leaf rows and inline shading and
-texturing.  ``check_supported`` says how it treats the other knobs:
+The port runs the JAX package's two engines: ``engine="persistent"``
+(the default), the owner-schedule wave with quad traversal and inline
+shading and texturing, and ``engine="bounce"``, the cross-check engine
+that advances a sample's whole wave bounce by bounce over the threaded
+table (engine/wavefront.py).  ``check_supported`` says how it treats
+the other knobs:
 
 * Knobs that select a variant the port leaves out by design (the
   variant produces the same image and exists only to schedule a TPU
   in lockstep) raise ``ValueError`` on any non-default value:
-  ``engine``, ``traversal``, ``scheduler``, ``dual_walk``,
-  ``shadow_pred``, ``inline_shade``, ``inline_tex=False``,
-  ``quad_layout`` and ``quad_select="rank"``.
+  ``traversal``, ``scheduler``, ``dual_walk``, ``shadow_pred``,
+  ``inline_shade``, ``inline_tex=False``, ``quad_layout`` and
+  ``quad_select="rank"``; so does an engine other than these two.
 * The features past the default path render as in the JAX package:
   ``smooth_shading``, ``uv_mapping``, ``leaf_isect`` "bw" or "mt" and
   ``bvh_method`` "sah", "median" or "sbvh".  Any light count renders:
@@ -24,7 +27,8 @@ texturing.  ``check_supported`` says how it treats the other knobs:
   ``inline_service_steps``, ``shade_ready_frac``, ``tail_spill``,
   ``spill_stages``, ``spill_floor``, ``tail_unroll``, ``pool_span``,
   ``quota_accum`` and ``max_wave_lanes`` (the port renders a frame as
-  one wave).
+  one wave).  The bounce engine reads none of the persistent engine's
+  knobs, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -95,7 +99,7 @@ class RenderConfig:
 
 # field -> values the port accepts (see the module docstring).
 _PORTED_VALUES = {
-    "engine": ("persistent",),
+    "engine": ("persistent", "bounce"),
     "traversal": ("quad",),
     "scheduler": ("owner",),
     "dual_walk": (None, False),

@@ -1,11 +1,13 @@
 """Device-resident scene: the upload step.
 
 The counterpart of tryraytrace_tpu/engine/device_scene.py for the
-port's one traversal (quad rows in the "mux" layout, Baldwin-Weber or
+port's two walks (quad rows in the "mux" layout for the persistent
+engine, threaded rows for the bounce engine; Baldwin-Weber or
 Moller-Trumbore leaves): build the BVH on the host, permute the
-primitives, pack the quad table and the fused triangle+material rows,
-and move them to ``device``.  The packing code is the same NumPy as the
-JAX package's, so both engines walk byte-identical tables;
+primitives, pack the quad table, the threaded table and the fused
+triangle+material rows, and move them to ``device``.  The packing code
+is the same NumPy as the JAX package's, so both packages walk
+byte-identical tables;
 ``DeviceScene.from_numpy`` takes the JAX package's uploaded arrays as
 they are.  ``refit_scene`` repacks a scene over moved vertices without
 a rebuild.
@@ -22,6 +24,7 @@ import torch
 from tryraytrace_tpu_torch.accel.bvh import (LEAF_STRIDE, LinearBVH,
                                              build_bvh, collapse_bvh,
                                              pack_quad_table,
+                                             pack_traversal_table,
                                              pack_trimat_table,
                                              quad_row_width, refit_bvh)
 from tryraytrace_tpu_torch.engine.state import resolve_device
@@ -33,6 +36,7 @@ class DeviceScene:
     """What the engine reads, as tensors on one device."""
 
     quad_table: torch.Tensor     # [R, 10 + max(29, stride * K)] f32 quad rows
+    node_table: torch.Tensor     # [M, stride * K + 24] f32 threaded rows
     trimat: torch.Tensor         # [T, 37] f32 triangle+material rows
     light_indices: torch.Tensor  # [max(L, 1)] int64 trimat row per light
     num_lights: int
@@ -45,7 +49,7 @@ class DeviceScene:
     leaf_fmt: str = "bw"         # leaf slot format: "bw" or "mt"
 
     # The arrays and statics of a JAX DeviceScene this one takes over.
-    ARRAYS = ("quad_table", "trimat", "light_indices")
+    ARRAYS = ("quad_table", "node_table", "trimat", "light_indices")
     STATICS = ("num_lights", "leaf_size", "has_normals", "has_uvs",
                "leaf_fmt")
 
@@ -103,13 +107,15 @@ def upload_scene(arrays: SceneArrays, leaf_size: int = 0,
                  ) -> tuple[DeviceScene, tuple, LinearBVH]:
     """Build the BVH (``leaf_size`` 0 = auto; reordering primitives,
     main.cpp:82-86 contract), pack the quad table with ``leaf_fmt`` leaf
-    rows in the "mux" layout and the trimat rows, and move them to
+    rows in the "mux" layout, the threaded table with the same leaf rows
+    and the trimat rows, and move them to
     ``device`` (the card by default; raises without one unless
     ``device="cpu"``).
 
     Returns (device_scene, textures, bvh); ``textures`` is the tuple of
-    [H, W, 3] float32 NumPy textures (the engine tiles them into its
-    unified table, engine/persistent.build_inline_table)."""
+    [H, W, 3] float32 NumPy textures (the persistent engine tiles them
+    into its unified table, engine/persistent.build_inline_table; the
+    bounce engine samples them as they are, ``device_textures``)."""
     device = resolve_device(device)
     if leaf_fmt not in LEAF_STRIDE:
         raise ValueError(f"unknown leaf_isect {leaf_fmt!r} "
@@ -132,8 +138,11 @@ def upload_scene(arrays: SceneArrays, leaf_size: int = 0,
     q_table = pack_quad_table(
         bvh, ordered.tri_v0, ordered.tri_v1, ordered.tri_v2,
         leaf_size=leaf_size, children=bvh.quad_children, leaf_fmt=leaf_fmt)
-    fields = dict(quad_table=q_table, trimat=pack_trimat_table(ordered),
-                  light_indices=light_idx)
+    node_table = pack_traversal_table(
+        bvh, ordered.tri_v0, ordered.tri_v1, ordered.tri_v2,
+        leaf_size=leaf_size, leaf_fmt=leaf_fmt)
+    fields = dict(quad_table=q_table, node_table=node_table,
+                  trimat=pack_trimat_table(ordered), light_indices=light_idx)
     statics = dict(num_lights=n_lights, leaf_size=leaf_size,
                    has_normals=_has_normals(ordered),
                    has_uvs=bool(ordered.uv_mask is not None
@@ -164,13 +173,23 @@ def refit_scene(dev: DeviceScene, bvh: LinearBVH, arrays: SceneArrays
     new_bvh = refit_bvh(bvh, ordered.tri_v0, ordered.tri_v1,
                         ordered.tri_v2)
     device = dev.quad_table.device
-    q_table = dev.quad_table
+    q_table, n_table = dev.quad_table, dev.node_table
     if int(q_table.shape[0]):
         q_table = torch.as_tensor(pack_quad_table(
             new_bvh, ordered.tri_v0, ordered.tri_v1, ordered.tri_v2,
             leaf_size=dev.leaf_size, children=new_bvh.quad_children,
             leaf_fmt=dev.leaf_fmt), device=device)
+        n_table = torch.as_tensor(pack_traversal_table(
+            new_bvh, ordered.tri_v0, ordered.tri_v1, ordered.tri_v2,
+            leaf_size=dev.leaf_size, leaf_fmt=dev.leaf_fmt), device=device)
     new = dataclasses.replace(
-        dev, quad_table=q_table,
+        dev, quad_table=q_table, node_table=n_table,
         trimat=torch.as_tensor(pack_trimat_table(ordered), device=device))
     return new, new_bvh
+
+
+def device_textures(textures, device) -> tuple:
+    """The raw [H, W, 3] float32 textures on ``device``: what the bounce
+    engine samples (ops/texture.py ``sample_textures``)."""
+    return tuple(torch.as_tensor(np.asarray(t, np.float32), device=device)
+                 for t in textures)

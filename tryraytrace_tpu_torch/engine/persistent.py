@@ -52,7 +52,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from tryraytrace_tpu_torch.accel.bvh import walk_order_table
@@ -63,15 +62,11 @@ from tryraytrace_tpu_torch.engine.wavefront import _sanitize
 from tryraytrace_tpu_torch.ops import shade
 from tryraytrace_tpu_torch.ops.texture import (TEX_ROW, TEX_TILE,
                                                build_texture_tiles,
-                                               interp_uv, planar_uv,
                                                tile_bilinear, tile_coords)
 from tryraytrace_tpu_torch.ops.traverse import MISS_T
 from tryraytrace_tpu_torch.ops.walk import (DONE, REFILL, SHADEG, SHADOW,
                                             TEXG, TRAVERSE, quad_walk,
                                             walk_index, walk_step)
-
-# 1/pi as the JAX engine evaluates it: a float32 division.
-INV_PI = float(np.float32(1.0) / np.float32(np.pi))
 
 # Steps between checks for a live lane (each check waits for the
 # device); DONE lanes are no-ops, so overshooting is exact.
@@ -147,18 +142,22 @@ class _Frame:
     height: int
     spp_cap: int   # a lane retires once its pixel has this many samples
     seed_spp: int  # the spp of the seed schedule (core/rng.py sample_seed)
+    sample_offset: int = 0  # the seed schedule's number of sample 0
 
 
 def init_lane_ctx(frame_seed: int, seed_spp: int, pix0, cam, width: int,
-                  height: int, cfg: RenderConfig, with_tstash: bool) -> dict:
+                  height: int, cfg: RenderConfig, with_tstash: bool,
+                  sample_offset: int = 0) -> dict:
     """Fresh per-lane wave state: lane i renders pixel ``pix0[i]``,
     starting with its sample 0, whose seed is
-    ``sample_seed(frame_seed, seed_spp, 0)``."""
+    ``sample_seed(frame_seed, seed_spp, sample_offset)``."""
     w = int(pix0.shape[0])
     dev = pix0.device
     f3 = lambda: torch.zeros((w, 3), device=dev)
     sample0 = torch.zeros((w,), dtype=torch.int64, device=dev)
-    seed0 = rng.sample_seed(frame_seed, seed_spp, sample0)
+    seed0 = rng.sample_seed(frame_seed, seed_spp,
+                            sample0 + sample_offset if sample_offset
+                            else sample0)
     r_o, r_d = generate_rays(cam, width, height, seed0, pix0)
     st = {}
     if cfg.quad_regs > 0:
@@ -193,14 +192,17 @@ def init_lane_ctx(frame_seed: int, seed_spp: int, pix0, cam, width: int,
 
 def render_frame_persistent(scene, inline: InlineTable, cam, frame_seed: int,
                             width: int, height: int, cfg: RenderConfig,
-                            spp: int, pixels=None):
+                            spp: int, pixels=None, sample_offset: int = 0,
+                            seed_spp: int | None = None):
     """All ``spp`` samples of one frame in one regenerating wave on the
     scene's device, one lane per pixel, in rounds: every walk run to its
     end (the CUDA walk kernel on a CUDA device), then one service pass.
     ``inline`` is the scene's ``build_inline_table``; ``cam`` a
     CameraParams (NumPy or tensors); ``pixels`` the pixel ids to render
     (an int64 tensor on the scene's device; all ``width * height`` by
-    default).
+    default).  The samples are numbers ``sample_offset + s``, s in [0,
+    spp), of the seed schedule with ``seed_spp`` (default ``spp``): a
+    sample-parallel shard's slice of the frame's sample set.
 
     Returns (radiance sum [len(pixels), 3] in the order of ``pixels``,
     stats) with stats ``n_traced`` and ``n_shadow`` (int64 tensors: path
@@ -208,7 +210,8 @@ def render_frame_persistent(scene, inline: InlineTable, cam, frame_seed: int,
     ``iterations`` (rounds) and ``rows_fetched`` (int64 tensor: quad
     rows the walks fetched)."""
     return _render_frame(scene, inline, cam, frame_seed, width, height, cfg,
-                         spp, pixels, _round_quad, 1)
+                         spp, pixels, _round_quad, 1, sample_offset,
+                         spp if seed_spp is None else seed_spp)
 
 
 def render_frame_interleaved(scene, inline: InlineTable, cam, frame_seed: int,
@@ -218,17 +221,18 @@ def render_frame_interleaved(scene, inline: InlineTable, cam, frame_seed: int,
     pixel: one row per walking lane per step, the service block in
     every step.  Same result; ``iterations`` counts steps."""
     return _render_frame(scene, inline, cam, frame_seed, width, height, cfg,
-                         spp, None, _step_quad, LIVE_CHECK_EVERY)
+                         spp, None, _step_quad, LIVE_CHECK_EVERY, 0, spp)
 
 
 def _render_frame(scene, inline: InlineTable, cam, frame_seed: int,
                   width: int, height: int, cfg: RenderConfig, spp: int,
-                  pixels, round_fn, check_every: int):
+                  pixels, round_fn, check_every: int, sample_offset: int,
+                  seed_spp: int):
     """One wave over ``pixels`` run until every lane is DONE."""
     if pixels is None:
         pixels = torch.arange(width * height, device=scene.quad_table.device)
     wave = Wave(scene, inline, cam, frame_seed, width, height, cfg, pixels,
-                spp, spp, round_fn, check_every)
+                spp, seed_spp, round_fn, check_every, sample_offset)
     wave.advance()
     return wave.read()[0], wave.stats()
 
@@ -236,8 +240,8 @@ def _render_frame(scene, inline: InlineTable, cam, frame_seed: int,
 class Wave:
     """A regenerating wave that lives across calls: lane i renders the
     samples of pixel ``pixels[i]`` in order (seeds
-    ``sample_seed(frame_seed, seed_spp, sample)``) and retires once the
-    pixel has ``spp_cap`` of them.
+    ``sample_seed(frame_seed, seed_spp, sample_offset + sample)``) and
+    retires once the pixel has ``spp_cap`` of them.
 
     ``advance`` runs rounds of ``round_fn`` (``_round_quad``, the
     default: the walk kernel on a card, then a service pass; or
@@ -252,7 +256,7 @@ class Wave:
     def __init__(self, scene, inline: InlineTable, cam, frame_seed: int,
                  width: int, height: int, cfg: RenderConfig, pixels,
                  spp_cap: int, seed_spp: int, round_fn=None,
-                 check_every: int = 1):
+                 check_every: int = 1, sample_offset: int = 0):
         check_supported(cfg)
         dev = scene.quad_table.device
         frame_seed = int(frame_seed) & rng.MASK32
@@ -260,7 +264,7 @@ class Wave:
         self._round = round_fn or _round_quad
         self._check_every = check_every
         self._fr = _Frame(scene, inline, cfg, cam, frame_seed, width, height,
-                          int(spp_cap), int(seed_spp))
+                          int(spp_cap), int(seed_spp), int(sample_offset))
         n = int(pixels.shape[0])
         zero = torch.zeros((), dtype=torch.int64, device=dev)
         self.n_traced = zero + n  # camera rays
@@ -270,7 +274,8 @@ class Wave:
         self.done = n == 0
         self.state = init_lane_ctx(frame_seed, seed_spp, pixels, cam, width,
                                    height, cfg,
-                                   with_tstash=inline.tex0 is not None)
+                                   with_tstash=inline.tex0 is not None,
+                                   sample_offset=int(sample_offset))
         self._pos = torch.arange(n, device=dev)  # lane -> place in pixels
         # Sums and counts of the lanes retired by compaction, by place.
         self._out = torch.zeros((n, 3), device=dev)
@@ -425,199 +430,64 @@ def _shade_prepare(s, hitrow, mask, fr: _Frame):
                     & (tex_f < len(fr.inline.metas)))
         ready = ready & ~deferred
 
-    v0 = hitrow[:, 0:3]
-    v1 = hitrow[:, 3:6]
-    v2 = hitrow[:, 6:9]
-    o, d = s["o"], s["d"]
-    x_hit = o + d * s["d_min"][:, None]
-
-    nrm = vec.norm(vec.cross(v1 - v0, v2 - v0))
-    nl = torch.where((vec.dot(nrm, d) < 0.0)[:, None], nrm, -nrm)
-
-    albedo = hitrow[:, 9:12]
-    emission = hitrow[:, 12:15]
-    metallic = hitrow[:, 15]
-    roughness = hitrow[:, 16]
-    ior = hitrow[:, 17]
-    transmission = hitrow[:, 18]
-
-    if textured:
-        # Planar projection, or interpolated per-corner UVs where the
-        # triangle has them (JAX persistent.py _shade_prepare).
-        t_u, t_v = planar_uv(x_hit, nrm, cfg.tex_planar_scale)
-        if cfg.uv_mapping and scene.has_uvs:
-            b1, b2, okb = shade.barycentric(v0, v1, v2, x_hit)
-            iu, iv = interp_uv(hitrow[:, 30:36], b1, b2)
-            use_uv = (hitrow[:, 36] > 0.0) & okb
-            t_u = torch.where(use_uv, iu, t_u)
-            t_v = torch.where(use_uv, iv, t_v)
-
-    # Ray offsets keep the geometric front-face normal; with smooth
-    # shading on, every shading direction uses the interpolated one.
-    nl_off = nl
-    if cfg.smooth_shading and scene.has_normals:
-        nrm = shade.smooth_normal(v0, v1, v2, hitrow[:, 21:24],
-                                  hitrow[:, 24:27], hitrow[:, 27:30],
-                                  x_hit, nrm)
-        nl = torch.where((vec.dot(nrm, d) < 0.0)[:, None], nrm, -nrm)
-
+    d = s["d"]
+    q, uv = shade.surface(hitrow, s["o"] + d * s["d_min"][:, None], d, scene,
+                          cfg, textured)
     if textured:
         # TEXG transition: stash what the finish body needs (the tile
         # row takes the row fetch next step); nrm is rebuilt from nl and
         # the front-face bit, negation being exact.
-        front = vec.dot(nrm, d) < 0.0
+        front = vec.dot(q["nrm"], d) < 0.0
         trow_i, offx, offy, fx, fy = tile_coords(
-            fr.inline.metas, hitrow[:, 19].to(torch.int64), t_u, t_v)
+            fr.inline.metas, hitrow[:, 19].to(torch.int64), *uv)
         t3 = deferred[:, None]
         s = dict(s)
-        s["so"] = torch.where(t3, nl, s["so"])
-        s["sd"] = torch.where(t3, nl_off, s["sd"])
-        s["pend"] = torch.where(t3, emission, s["pend"])
+        s["so"] = torch.where(t3, q["nl"], s["so"])
+        s["sd"] = torch.where(t3, q["nl_off"], s["sd"])
+        s["pend"] = torch.where(t3, q["emission"], s["pend"])
         stash = torch.cat(
-            [albedo, metallic[:, None], roughness[:, None], ior[:, None],
-             transmission[:, None], fx[:, None], fy[:, None],
-             front[:, None].to(torch.float32)], dim=1)
+            [q["albedo"], q["metallic"][:, None], q["roughness"][:, None],
+             q["ior"][:, None], q["transmission"][:, None], fx[:, None],
+             fy[:, None], front[:, None].to(torch.float32)], dim=1)
         s["tstash"] = torch.where(t3, stash, s["tstash"])
         s["mode"] = torch.where(deferred, TEXG, s["mode"])
         s["cur"] = torch.where(deferred, fr.inline.tex0 + trow_i, s["cur"])
         s["hit_id"] = torch.where(deferred, offy * TEX_TILE + offx,
                                   s["hit_id"])
-
-    q = dict(x_hit=x_hit, nrm=nrm, nl=nl, nl_off=nl_off, albedo=albedo,
-             emission=emission, metallic=metallic, roughness=roughness,
-             ior=ior, transmission=transmission)
     return s, ready, q
 
 
 def _shade_finish(s, ready, q, scene, cfg: RenderConfig):
-    """RNG/branch/NEE half of the shading block (renderer.cu:487-733):
-    emitter accumulation, Russian roulette, the spec/trans/diff branch
-    select, NEE shadow-segment setup, and the mode transitions.
-    Returns (s', path rays continued, shadow rays fired)."""
-    seed = s["seed"]
-    pixel_idx = s["pix"]
-    found = s["hit_id"] >= 0
-    alive = ready & found  # miss -> path ends (renderer.cu:427)
-    o, d, tp, rad = s["o"], s["d"], s["tp"], s["rad"]
-    depth = s["depth"]
-    x_hit = q["x_hit"]
-    nrm = q["nrm"]
-    nl = q["nl"]
-    nl_off = q["nl_off"]
-    albedo = q["albedo"]
-    emission = q["emission"]
-    metallic = q["metallic"]
-    roughness = q["roughness"]
-    ior = q["ior"]
-    transmission = q["transmission"]
-
-    rad = rad + torch.where((alive & s["prev_spec"])[:, None],
-                            tp * emission, 0.0)
-    is_emitter = (emission > cfg.emitter_stop_threshold).any(dim=-1)
-    alive = alive & ~is_emitter
-
-    p_spec, p_trans, fres = shade.pbr_weights(
-        albedo, metallic, roughness, transmission, nl, d)
+    """RNG/branch/NEE half of the shading block (ops/shade.py
+    ``scatter``) for the lanes ``ready``, and the mode transitions: the
+    NEE segment is stashed for the SHADOW walk.  Returns (s', path rays
+    continued, shadow rays fired)."""
+    tp, depth = s["tp"], s["depth"]
+    alive = ready & (s["hit_id"] >= 0)  # miss -> path ends (renderer.cu:427)
 
     # All seven per-bounce draws in one hash: slots 0..6 of this depth.
     base = rng.CAMERA_DRAWS + depth * rng.DRAWS_PER_BOUNCE
     slots = torch.arange(rng.SLOT_LIGHT_R2 + 1, device=depth.device)
-    u = rng.uniform(seed[:, None], pixel_idx[:, None], base[:, None] + slots)
-    u_rr = u[:, rng.SLOT_RR]
-    rr_on = depth > cfg.rr_threshold
-    p_live = torch.clamp(albedo.amax(dim=-1), min=cfg.rr_min_p)
-    survive = u_rr < p_live
-    tp = torch.where((rr_on & alive & survive)[:, None],
-                     tp * (1.0 / p_live)[:, None], tp)
-    alive = alive & (~rr_on | survive)
+    u = rng.uniform(s["seed"][:, None], s["pix"][:, None],
+                    base[:, None] + slots)
+    b = shade.scatter(q, s["d"], tp, s["rad"], alive, s["prev_spec"], u,
+                      depth > cfg.rr_threshold, scene, cfg)
 
-    u_b = u[:, rng.SLOT_BRANCH]
-    m_spec = alive & (u_b < p_spec)
-    m_trans = alive & ~m_spec & (u_b < p_spec + p_trans)
-    m_diff = alive & ~m_spec & ~m_trans
-
-    u_d1 = u[:, rng.SLOT_DIR_R1]
-    u_d2 = u[:, rng.SLOT_DIR_R2]
-
-    # Branch A: specular (renderer.cu:571-589).
-    perfect = shade.reflect(d, nrm)
-    d_spec = shade.rough_perturb(perfect, roughness, u_d1, u_d2)
-    kill_spec = vec.dot(d_spec, nl) <= 0.0
-    tp_spec = tp * fres * (1.0 / p_spec)[:, None]
-    o_spec = x_hit + nl_off * cfg.shadow_eps
-
-    # Branch B: transmission (renderer.cu:592-648).
-    d_trans, _ = shade.refract_branch(d, nrm, nl, ior, roughness,
-                                      u_d1, u_d2)
-    p_branch = (1.0 - p_spec) * transmission
-    tp_trans = torch.where(
-        (p_branch > 1e-4)[:, None],
-        tp * albedo / torch.where(p_branch > 1e-4, p_branch, 1.0)[:, None],
-        tp)
-    o_trans = x_hit + d_trans * cfg.refr_offset
-
-    # Branch C: diffuse + NEE setup (renderer.cu:651-733).
-    has_shadow = torch.zeros_like(m_diff)
+    has_shadow = torch.zeros_like(ready)
     pend = torch.zeros_like(tp)
     so, sd, smax = s["so"], s["sd"], s["smax"]
-    if scene.num_lights > 0:
-        lcount = scene.num_lights
-        u4 = u[:, rng.SLOT_LIGHT_PICK]
-        u5 = u[:, rng.SLOT_LIGHT_R1]
-        u6 = u[:, rng.SLOT_LIGHT_R2]
-        lrows = scene.trimat[scene.light_indices[:lcount]]
-        if lcount == 1:
-            lrow = lrows[0].expand(u4.shape[0], -1)
-        else:
-            pick = torch.clamp((u4 * (lcount - 0.001)).to(torch.int64),
-                               0, lcount - 1)
-            lrow = lrows[pick]
-        lv0, lv1, lv2 = lrow[:, 0:3], lrow[:, 3:6], lrow[:, 6:9]
-        light_pos = shade.sample_triangle(lv0, lv1, lv2, u5, u6)
-        to_light = light_pos - x_hit
-        dist_sq = vec.dot(to_light, to_light)
-        if cfg.nee_dist_floor_enabled:
-            dist_sq = torch.clamp(dist_sq, min=cfg.nee_dist_sq_floor)
-        dist = vec.sqrt(dist_sq)
-        l_dir = to_light * (1.0 / dist)[:, None]
-        cos_theta = vec.dot(nl, l_dir)
-        light_n = vec.norm(vec.cross(lv1 - lv0, lv2 - lv0))
-        cos_light = -vec.dot(light_n, l_dir)
-        geo_ok = m_diff & (cos_theta > 0.0) & (cos_light > 0.0)
-
-        area = lrow[:, 20]
-        pdf = 1.0 / (area * lcount)
-        g_term = (cos_theta * cos_light) / dist_sq
-        brdf = albedo * INV_PI
-        contrib = lrow[:, 12:15] * brdf * (g_term / pdf)[:, None]
-
-        has_shadow = geo_ok
-        g3 = geo_ok[:, None]
-        pend = torch.where(g3, tp * contrib, pend)
-        so = torch.where(g3, x_hit + nl_off * cfg.shadow_eps, so)
-        sd = torch.where(g3, l_dir, sd)
-        smax = torch.where(geo_ok, dist - cfg.shadow_max_dist_eps, smax)
-
-    d_diff = shade.cosine_hemisphere(nl, u_d1, u_d2)
-    p_diff = 1.0 - p_spec - (1.0 - p_spec) * transmission
-    tp_diff = (tp * (albedo * (1.0 - metallic)[:, None])
-               * (1.0 / p_diff)[:, None])
-    o_diff = x_hit + nl_off * cfg.shadow_eps
-
-    ms3, mt3, md3 = m_spec[:, None], m_trans[:, None], m_diff[:, None]
-    new_d = torch.where(ms3, d_spec, torch.where(mt3, d_trans, d_diff))
-    new_o = torch.where(ms3, o_spec, torch.where(mt3, o_trans, o_diff))
-    new_tp = torch.where(ms3, tp_spec,
-                         torch.where(mt3, tp_trans,
-                                     torch.where(md3, tp_diff, tp)))
-    alive = alive & ~(m_spec & kill_spec)
-    new_prev = torch.where(m_spec | m_trans, True,
-                           torch.where(m_diff, False, s["prev_spec"]))
+    if b["nee"] is not None:
+        has_shadow, nee_o, nee_d, nee_max, contrib = b["nee"]
+        g3 = has_shadow[:, None]
+        pend = torch.where(g3, contrib, pend)
+        so = torch.where(g3, nee_o, so)
+        sd = torch.where(g3, nee_d, sd)
+        smax = torch.where(has_shadow, nee_max, smax)
 
     # Depth cap (renderer.cu:367): NEE still fires at the final depth.
     next_depth = depth + 1
-    alive = alive & (next_depth < cfg.max_depth)
-    shadow_fire = ready & has_shadow  # implies m_diff
+    alive = b["alive"] & (next_depth < cfg.max_depth)
+    shadow_fire = ready & has_shadow  # implies a diffuse branch
 
     mode = s["mode"]
     mode = torch.where(ready, REFILL, mode)  # default: path over
@@ -631,12 +501,12 @@ def _shade_finish(s, ready, q, scene, cfg: RenderConfig):
         cur=torch.where(ready, 0, s["cur"]),
         d_min=torch.where(ready, MISS_T, s["d_min"]),
         hit_id=torch.where(ready, -1, s["hit_id"]),
-        o=torch.where(r3, new_o, o),
-        d=torch.where(r3, new_d, d),
-        tp=torch.where(r3, new_tp, tp),
-        rad=rad,
+        o=torch.where(r3, b["o"], s["o"]),
+        d=torch.where(r3, b["d"], s["d"]),
+        tp=torch.where(r3, b["tp"], tp),
+        rad=b["rad"],
         depth=torch.where(ready, next_depth, depth),
-        prev_spec=torch.where(ready, new_prev, s["prev_spec"]),
+        prev_spec=torch.where(ready, b["prev_spec"], s["prev_spec"]),
         so=so, sd=sd, smax=smax,
         pend=torch.where(r3, pend, s["pend"]),
         cont_after_shadow=torch.where(shadow_fire, alive,
@@ -657,7 +527,9 @@ def _refill(s, fr: _Frame):
     exhausted = next_sample >= fr.spp_cap
     new_sample = torch.where(refill, next_sample, s["sample"])
     start = refill & ~exhausted
-    new_seed = rng.sample_seed(fr.frame_seed, fr.seed_spp, new_sample)
+    new_seed = rng.sample_seed(fr.frame_seed, fr.seed_spp,
+                               new_sample + fr.sample_offset
+                               if fr.sample_offset else new_sample)
     r_o, r_d = generate_rays(fr.cam, fr.width, fr.height, new_seed, s["pix"])
 
     st3 = start[:, None]

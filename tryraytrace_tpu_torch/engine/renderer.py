@@ -2,12 +2,15 @@
 tryraytrace_tpu/engine/renderer.py).
 
   - construction = scene upload (BVH build, table packing, upload to
-    ``device``) and the unified inline table;
-  - ``step(cam)`` = one progressive pass: render a frame's samples (the
-    round loop; its walks run in the CUDA walk kernel on a card, in the
-    kernel's plain version on the CPU) and add them to the accumulator,
-    which stays on the device; ``step_tiled(cam, tiles)`` the same pass
-    as one wave per pixel strip, bit-identical;
+    ``device``) and what the engine reads besides it (the persistent
+    engine's unified inline table, the bounce engine's textures);
+  - ``step(cam)`` = one progressive pass: render a frame's samples with
+    the engine ``cfg.engine`` names (the persistent engine's round loop,
+    or the bounce engine's lockstep bounces; the walks run in the CUDA
+    kernels on a card, in their plain versions on the CPU) and add them
+    to the accumulator, which stays on the device;
+    ``step_tiled(cam, tiles)`` the same pass over pixel strips,
+    bit-identical;
   - ``reset()`` on camera move; ``refit(scene)`` for moved geometry
     (a BVH refit instead of a rebuild, then a reset);
   - ``image()`` tonemaps on the device (the CUDA kernel on a card, its
@@ -27,9 +30,8 @@ from tryraytrace_tpu_torch.config import (DEFAULT_CONFIG, RenderConfig,
                                           check_supported)
 from tryraytrace_tpu_torch.engine.device_scene import (refit_scene,
                                                        upload_scene)
-from tryraytrace_tpu_torch.engine.persistent import (build_inline_table,
-                                                     render_frame_persistent)
 from tryraytrace_tpu_torch.engine.state import RenderState, resolve_device
+from tryraytrace_tpu_torch.engine.wavefront import engine_tables, render_frame
 from tryraytrace_tpu_torch.io.snapshot import tonemap_accum
 from tryraytrace_tpu_torch.ops.tonemap import tonemap, tonemap_cuda
 from tryraytrace_tpu_torch.scene.model import Scene, SceneArrays, flatten_scene
@@ -63,20 +65,24 @@ class Renderer:
             method=self.cfg.bvh_method,
             quad_collapse=self.cfg.quad_collapse, device=self.device,
             leaf_fmt=self.cfg.leaf_isect)
-        self.inline = build_inline_table(self.scene, self.textures)
+        self.inline, self.device_textures = engine_tables(
+            self.scene, self.textures, self.cfg)
         self.state = RenderState.zeros(self.width * self.height, self.device)
         self.frame = 1  # gpu_frame counter parity (main.cpp:149)
         self._step_spp = None
-        # The last step's ray counts, rounds and rows fetched
-        # (render_frame_persistent's stats).
+        # The last step's ray counts, rounds (or bounces) and rows fetched
+        # (wavefront.render_frame's stats).
         self.last_stats = None
+
+    def _render(self, cam, spp: int, pixels=None):
+        return render_frame(self.scene, self.inline, self.device_textures,
+                            cam, self.frame, self.width, self.height,
+                            self.cfg, spp, pixels)
 
     def step(self, cam, spp: int | None = None) -> None:
         """One progressive pass (launch_render_kernel analogue)."""
         spp = self._begin_step(spp)
-        acc, self.last_stats = render_frame_persistent(
-            self.scene, self.inline, cam, self.frame, self.width,
-            self.height, self.cfg, spp)
+        acc, self.last_stats = self._render(cam, spp)
         self._accumulate(acc, spp)
 
     def step_tiled(self, cam, tiles: int, spp: int | None = None) -> None:
@@ -96,9 +102,7 @@ class Renderer:
         for start in range(0, n, span):
             pixels = torch.arange(start, min(start + span, n),
                                   device=self.device)
-            part, st = render_frame_persistent(
-                self.scene, self.inline, cam, self.frame, self.width,
-                self.height, self.cfg, spp, pixels)
+            part, st = self._render(cam, spp, pixels)
             parts.append(part)
             stats.append(st)
         self.last_stats = {key: sum(st[key] for st in stats)
@@ -129,8 +133,9 @@ class Renderer:
     def refit(self, scene, textures=None) -> None:
         """Moved geometry: re-upload the scene's vertices and materials
         (same topology and light set) through a BVH refit instead of a
-        rebuild, rebuild the unified table and its walk-order copy from
-        the repacked rows, and restart accumulation.  Raises ValueError
+        rebuild (the threaded table repacked with the quad table),
+        rebuild the unified table and its walk-order copy from the
+        repacked rows, and restart accumulation.  Raises ValueError
         when the triangle count differs from the upload's."""
         if isinstance(scene, Scene):
             arrays = flatten_scene(
@@ -148,7 +153,8 @@ class Renderer:
                 f"objects vs {n_orig} at upload (build a new Renderer "
                 "instead)")
         self.scene, self.bvh = refit_scene(self.scene, self.bvh, arrays)
-        self.inline = build_inline_table(self.scene, self.textures)
+        self.inline, self.device_textures = engine_tables(
+            self.scene, self.textures, self.cfg)
         self.reset()
 
     def accum_host(self) -> np.ndarray:

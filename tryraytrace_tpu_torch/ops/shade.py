@@ -10,6 +10,13 @@ reference parity targets:
   - refraction + TIR               renderer.cu:592-648
   - cosine-hemisphere diffuse      renderer.cu:713-733
 All three exclusive BSDF branches are evaluated and selected by mask.
+
+``surface`` and ``scatter`` are the shading block both engines run on
+a hit (engine/wavefront.py ``_bounce``, engine/persistent.py
+``_shade_prepare`` / ``_shade_finish``): the hit's frame and material,
+then the emission, roulette, branch and NEE arithmetic.  Each engine
+keeps only what differs: where the hit row and the draws come from,
+how a texture is sampled, and how the NEE segment is walked.
 """
 
 from __future__ import annotations
@@ -17,10 +24,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tryraytrace_tpu_torch.core import vec
+from tryraytrace_tpu_torch.core import rng, vec
+from tryraytrace_tpu_torch.ops.texture import interp_uv, planar_uv
 
 PI = float(np.float32(np.pi))
 TWO_PI = float(np.float32(2.0) * np.float32(np.pi))
+# 1/pi as the JAX engines evaluate it: a float32 division.
+INV_PI = float(np.float32(1.0) / np.float32(np.pi))
 
 
 def fresnel_schlick(cosine, f0):
@@ -154,3 +164,154 @@ def smooth_normal(v0, v1, v2, n0, n1, n2, x_hit, nrm_geo):
     ok = ok_den & (len2 > 1e-12)
     ns = ns / vec.sqrt(torch.where(ok, len2, 1.0))[..., None]
     return torch.where(ok[..., None], ns, nrm_geo)
+
+
+def surface(hitrow, x_hit, d, scene, cfg, textured: bool):
+    """The hit's shading frame and material from its triangle row
+    (renderer.cu:441-481) -> (q, uv).  ``q`` holds x_hit, nrm (the face
+    normal, or with smooth shading on the interpolated vertex normal),
+    nl (nrm turned against ``d``), nl_off (the geometric front-face
+    normal that ray offsets keep) and the material's albedo, emission,
+    metallic, roughness, ior and transmission.  ``uv`` is the texture
+    coordinates (t_u, t_v) when ``textured`` (planar projection, or
+    interpolated per-corner UVs where the triangle has them with UV
+    mapping on), else None; the caller samples the texture."""
+    v0 = hitrow[:, 0:3]
+    v1 = hitrow[:, 3:6]
+    v2 = hitrow[:, 6:9]
+    nrm = vec.norm(vec.cross(v1 - v0, v2 - v0))
+    nl = torch.where((vec.dot(nrm, d) < 0.0)[:, None], nrm, -nrm)
+
+    uv = None
+    if textured:
+        t_u, t_v = planar_uv(x_hit, nrm, cfg.tex_planar_scale)
+        if cfg.uv_mapping and scene.has_uvs:
+            b1, b2, okb = barycentric(v0, v1, v2, x_hit)
+            iu, iv = interp_uv(hitrow[:, 30:36], b1, b2)
+            use_uv = (hitrow[:, 36] > 0.0) & okb
+            t_u = torch.where(use_uv, iu, t_u)
+            t_v = torch.where(use_uv, iv, t_v)
+        uv = (t_u, t_v)
+
+    nl_off = nl
+    if cfg.smooth_shading and scene.has_normals:
+        nrm = smooth_normal(v0, v1, v2, hitrow[:, 21:24], hitrow[:, 24:27],
+                            hitrow[:, 27:30], x_hit, nrm)
+        nl = torch.where((vec.dot(nrm, d) < 0.0)[:, None], nrm, -nrm)
+
+    q = dict(x_hit=x_hit, nrm=nrm, nl=nl, nl_off=nl_off,
+             albedo=hitrow[:, 9:12], emission=hitrow[:, 12:15],
+             metallic=hitrow[:, 15], roughness=hitrow[:, 16],
+             ior=hitrow[:, 17], transmission=hitrow[:, 18])
+    return q, uv
+
+
+def scatter(q, d, tp, rad, alive, prev_spec, u, rr_on, scene, cfg) -> dict:
+    """The RNG/branch half of the shading block (renderer.cu:486-733) for
+    the hits ``alive``, with ``q`` from ``surface`` and ``u`` [N, 7] the
+    bounce's draws (core/rng.py slots):
+      - emission, added only after a specular or refractive bounce (the
+        NEE double-count guard); an emitter ends the path;
+      - Russian roulette where ``rr_on`` (bool, broadcast over lanes);
+      - the exclusive spec/trans/diff branch select, each branch's next
+        ray and throughput (the unguarded 1/p of the reference: a
+        selected lane with p = 0 gets inf, and the sanitation drops its
+        sample), a specular ray below the surface ends the path;
+      - the NEE light sample of the diffuse lanes, with the reference's
+        quirks: the dist^2 >= 5 floor (renderer.cu:674), and L_dir from
+        the unclamped vector over the clamped distance.
+    Returns rad, alive, o, d, tp, prev_spec (the next ray's; tp stays for
+    lanes in no branch) and ``nee``: None without lights, else
+    (shadow-ray lanes, origin, direction, max distance, tp x the light's
+    contribution if unoccluded)."""
+    x_hit, nrm, nl, nl_off = q["x_hit"], q["nrm"], q["nl"], q["nl_off"]
+    albedo, emission = q["albedo"], q["emission"]
+    metallic, roughness = q["metallic"], q["roughness"]
+    transmission = q["transmission"]
+
+    rad = rad + torch.where((alive & prev_spec)[:, None], tp * emission,
+                            0.0)
+    is_emitter = (emission > cfg.emitter_stop_threshold).any(dim=-1)
+    alive = alive & ~is_emitter
+
+    p_spec, p_trans, fres = pbr_weights(albedo, metallic, roughness,
+                                        transmission, nl, d)
+
+    # Russian roulette (renderer.cu:559-565).
+    p_live = torch.clamp(albedo.amax(dim=-1), min=cfg.rr_min_p)
+    survive = u[:, rng.SLOT_RR] < p_live
+    tp = torch.where((rr_on & alive & survive)[:, None],
+                     tp * (1.0 / p_live)[:, None], tp)
+    alive = alive & (~rr_on | survive)
+
+    # Exclusive branch selection (renderer.cu:567-571,592,651).
+    u_b = u[:, rng.SLOT_BRANCH]
+    m_spec = alive & (u_b < p_spec)
+    m_trans = alive & ~m_spec & (u_b < p_spec + p_trans)
+    m_diff = alive & ~m_spec & ~m_trans
+    u_d1 = u[:, rng.SLOT_DIR_R1]
+    u_d2 = u[:, rng.SLOT_DIR_R2]
+    o_off = x_hit + nl_off * cfg.shadow_eps
+
+    # Branch A: specular (renderer.cu:571-589).
+    d_spec = rough_perturb(reflect(d, nrm), roughness, u_d1, u_d2)
+    kill_spec = vec.dot(d_spec, nl) <= 0.0
+    tp_spec = tp * fres * (1.0 / p_spec)[:, None]
+
+    # Branch B: transmission (renderer.cu:592-648).
+    d_trans, _ = refract_branch(d, nrm, nl, q["ior"], roughness, u_d1, u_d2)
+    p_branch = (1.0 - p_spec) * transmission
+    tp_trans = torch.where(
+        (p_branch > 1e-4)[:, None],
+        tp * albedo / torch.where(p_branch > 1e-4, p_branch, 1.0)[:, None],
+        tp)
+    o_trans = x_hit + d_trans * cfg.refr_offset
+
+    # Branch C: diffuse + NEE (renderer.cu:651-733).
+    nee = None
+    if scene.num_lights > 0:
+        lcount = scene.num_lights
+        lrows = scene.trimat[scene.light_indices[:lcount]]
+        if lcount == 1:
+            lrow = lrows[0].expand(u.shape[0], -1)
+        else:
+            pick = torch.clamp((u[:, rng.SLOT_LIGHT_PICK]
+                                * (lcount - 0.001)).to(torch.int64),
+                               0, lcount - 1)
+            lrow = lrows[pick]
+        lv0, lv1, lv2 = lrow[:, 0:3], lrow[:, 3:6], lrow[:, 6:9]
+        light_pos = sample_triangle(lv0, lv1, lv2, u[:, rng.SLOT_LIGHT_R1],
+                                    u[:, rng.SLOT_LIGHT_R2])
+        to_light = light_pos - x_hit
+        dist_sq = vec.dot(to_light, to_light)
+        if cfg.nee_dist_floor_enabled:
+            dist_sq = torch.clamp(dist_sq, min=cfg.nee_dist_sq_floor)
+        dist = vec.sqrt(dist_sq)
+        l_dir = to_light * (1.0 / dist)[:, None]
+        cos_theta = vec.dot(nl, l_dir)
+        light_n = vec.norm(vec.cross(lv1 - lv0, lv2 - lv0))
+        cos_light = -vec.dot(light_n, l_dir)
+        geo_ok = m_diff & (cos_theta > 0.0) & (cos_light > 0.0)
+
+        area = lrow[:, 20]  # precomputed triangle area (renderer.cu:188-192)
+        pdf = 1.0 / (area * lcount)
+        g_term = (cos_theta * cos_light) / dist_sq
+        contrib = lrow[:, 12:15] * (albedo * INV_PI) * (g_term / pdf)[:, None]
+        nee = (geo_ok, o_off, l_dir, dist - cfg.shadow_max_dist_eps,
+               tp * contrib)
+    d_diff = cosine_hemisphere(nl, u_d1, u_d2)
+    p_diff = 1.0 - p_spec - (1.0 - p_spec) * transmission  # renderer.cu:727
+    tp_diff = (tp * (albedo * (1.0 - metallic)[:, None])
+               * (1.0 / p_diff)[:, None])  # unguarded, renderer.cu:728
+
+    ms3, mt3, md3 = m_spec[:, None], m_trans[:, None], m_diff[:, None]
+    return dict(
+        rad=rad,
+        alive=alive & ~(m_spec & kill_spec),
+        o=torch.where(ms3, o_off, torch.where(mt3, o_trans, o_off)),
+        d=torch.where(ms3, d_spec, torch.where(mt3, d_trans, d_diff)),
+        tp=torch.where(ms3, tp_spec, torch.where(
+            mt3, tp_trans, torch.where(md3, tp_diff, tp))),
+        prev_spec=torch.where(m_spec | m_trans, True,
+                              torch.where(m_diff, False, prev_spec)),
+        nee=nee)

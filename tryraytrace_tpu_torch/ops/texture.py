@@ -3,12 +3,14 @@
 The counterpart of tryraytrace_tpu/ops/texture.py.  Textures are cut
 into TEX_TILE x TEX_TILE base tiles, each stored as one row of
 (TEX_TILE+1)^2 texels (a one-texel wrap apron right and below), so any
-bilinear footprint is served by one row of the engine's unified table.
-``build_texture_tiles`` builds those rows on the host (NumPy,
-byte-identical to the JAX package); ``tile_coords`` and
+bilinear footprint is served by one row of the persistent engine's
+unified table.  ``build_texture_tiles`` builds those rows on the host
+(NumPy, byte-identical to the JAX package); ``tile_coords`` and
 ``tile_bilinear`` address and filter them on torch tensors with the
 tap arithmetic of the reference's CUDA sampler (texel centres at
 (i+0.5)/W, wrap addressing, bilinear filter; renderer.cu:80-129).
+The bounce engine samples the raw textures with the same arithmetic
+(``sample_bilinear_wrap``, ``sample_textures``), a 4-tap gather.
 """
 
 from __future__ import annotations
@@ -19,6 +21,45 @@ import torch
 TEX_TILE = 4
 TEX_APRON = TEX_TILE + 1
 TEX_ROW = TEX_APRON * TEX_APRON * 3  # 75 f32 per tile row
+
+
+def sample_bilinear_wrap(tex, u, v):
+    """Sample ``tex`` [H, W, 3] at normalized (u, v) [N] -> [N, 3], as the
+    reference's CUDA linear filter does: texel centres at (i+0.5)/W,
+    sample point x = frac(u)*W - 0.5, wrap addressing of the taps."""
+    h, w = int(tex.shape[0]), int(tex.shape[1])
+    x = (u - torch.floor(u)) * w - 0.5
+    y = (v - torch.floor(v)) * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    x0i = x0.to(torch.int64) % w
+    y0i = y0.to(torch.int64) % h
+    x1i = (x0i + 1) % w
+    y1i = (y0i + 1) % h
+    flat = tex.reshape(h * w, tex.shape[2])
+    c00 = flat[y0i * w + x0i]
+    c10 = flat[y0i * w + x1i]
+    c01 = flat[y1i * w + x0i]
+    c11 = flat[y1i * w + x1i]
+    top = c00 * (1.0 - fx) + c10 * fx
+    bot = c01 * (1.0 - fx) + c11 * fx
+    return top * (1.0 - fy) + bot * fy
+
+
+def sample_textures(textures, tex_id, u, v):
+    """Multiplicative texture factor [N, 3] at (u, v): texture slot k
+    where ``tex_id == k``, 1 elsewhere (no texture, or a slot past the
+    last).  ``textures`` is a sequence of [H, W, 3] float32 tensors on
+    the lanes' device; each is sampled for the whole wave and selected
+    by mask, as the JAX sampler does."""
+    factor = torch.ones(u.shape + (3,), dtype=torch.float32,
+                        device=u.device)
+    for k, tex in enumerate(textures):
+        texel = sample_bilinear_wrap(tex, u, v)
+        factor = torch.where((tex_id == k)[..., None], texel, factor)
+    return factor
 
 
 def planar_uv(x_hit, n, scale: float):

@@ -1,7 +1,9 @@
-"""Quad-row BVH traversal on torch tensors.
+"""BVH traversal on torch tensors: the quad walk of the persistent
+engine and the threaded walk of the bounce engine.
 
-The counterpart of the quad walk in tryraytrace_tpu/ops/traverse.py
-(table layout: accel/bvh.py ``pack_quad_table``).  A fetched internal
+The counterpart of the quad and threaded walks in
+tryraytrace_tpu/ops/traverse.py (table layouts: accel/bvh.py
+``pack_quad_table`` and ``pack_traversal_table``).  A fetched internal
 row tests its four child boxes and jumps to the first hit child in
 per-octant front-to-back order; later siblings the walk knows it
 missed enter a per-lane skip-register file (entry -> thread
@@ -14,6 +16,13 @@ The JAX kernels unroll over the four children and K leaf slots; here
 those axes are tensor axes.  Each choice keeps the JAX rule exactly:
 the first hit position wins, the lowest leaf slot wins a tie in t,
 and the pushes and redirects run in the JAX order.
+
+The threaded walk (``closest_hit_packed``, ``any_hit_packed``) fetches
+one binary-tree row per lane per step and follows the row's
+per-octant links: the near child after a hit internal box, else the
+thread's miss link.  These two are the plain versions of the bounce
+engine's CUDA kernel (ops/threaded.py, csrc/threaded_walk.cu), step for
+step the JAX functions.
 """
 
 from __future__ import annotations
@@ -45,13 +54,13 @@ def ray_octant(r_d) -> torch.Tensor:
 
 
 def _fat_leaf_intersect(row, k: int, r_o, r_d, prim_start, tlo, thi, *,
-                        fmt: str):
-    """Closest (t, prim_id) among the K leaf slots (format ``fmt``) of
-    each gathered quad row, inside the open window (tlo, thi).  All-zero
-    pad slots miss by themselves; internal rows (prim_start < 0) report
-    a miss."""
+                        fmt: str, base: int = QUAD_COL_BODY):
+    """Closest (t, prim_id) among the K leaf slots (format ``fmt``) that
+    start at column ``base`` of each gathered row (a quad row's by
+    default), inside the open window (tlo, thi).  All-zero pad slots
+    miss by themselves; internal rows (prim_start < 0) report a miss."""
     st = LEAF_STRIDE[fmt]
-    slots = row[:, QUAD_COL_BODY:QUAD_COL_BODY + st * k].unflatten(1, (k, st))
+    slots = row[:, base:base + st * k].unflatten(1, (k, st))
     ro, rd = r_o[:, None, :], r_d[:, None, :]
     if fmt == "bw":
         t = baldwin_intersect(slots, ro, rd)
@@ -204,3 +213,111 @@ def any_hit_quad(table, k: int, r_o, r_d, max_dist, active, *, fmt: str):
         occ = occ | (lid >= 0)
         cur = torch.where(occ, sentinel, cur)
     return occ
+
+
+# --- Threaded walk (the bounce engine's; accel/bvh.py
+# pack_traversal_table rows: box 0:6, K leaf slots from column 6,
+# prim_start, prim_count, next_hit[8], next_miss[8]) ---
+
+
+def _mux8(octant, cols):
+    """Column ``octant`` of the eight per-octant columns ``cols``: a pure
+    selection, as the JAX select tree is."""
+    return torch.stack(cols, 1).gather(1, octant[:, None])[:, 0]
+
+
+def _decode_links(row, octant, k: int, *, fmt: str):
+    """Per-lane (next_hit, next_miss) node ids from a threaded row's 16
+    octant-link columns."""
+    col = 6 + LEAF_STRIDE[fmt] * k + 2
+    nh = _mux8(octant, [row[:, col + o] for o in range(8)])
+    nm = _mux8(octant, [row[:, col + 8 + o] for o in range(8)])
+    return nh.to(torch.int64), nm.to(torch.int64)
+
+
+def _leaf_intersect(row, k: int, r_o, r_d, prim_start, tlo, thi, *,
+                    fmt: str):
+    """Closest (t, prim_id) among a threaded row's K inline leaf slots
+    inside the open window (tlo, thi); slots are tested in order and the
+    lowest wins a tie (the JAX strict-< update); internal rows miss."""
+    return _fat_leaf_intersect(row, k, r_o, r_d, prim_start, tlo, thi,
+                               fmt=fmt, base=6)
+
+
+def _threaded_rows(table, cur, sentinel: int, live, k: int, fmt: str):
+    """This step's rows of the live lanes (row 0 for the others) and
+    their prim_start."""
+    row = table[torch.where(live, torch.clamp(cur, max=sentinel - 1), 0)]
+    col_ps = 6 + LEAF_STRIDE[fmt] * k
+    return row, row[:, col_ps].to(torch.int64)
+
+
+def closest_hit_packed(table, k: int, r_o, r_d, active, *, fmt: str):
+    """Closest hit over the threaded table [M, stride * K + 24] ->
+    (t [N] f32, prim id [N] int64; 1e20 / -1 on a miss, rows fetched as
+    an int64 tensor).  JAX
+    ``closest_hit_packed``: the safe inverse direction, the box window
+    (0, d_min), leaf slots in order with the strict-< update inside
+    (0, d_min), then the near child after a hit internal box, else the
+    miss link, by the ray's octant."""
+    n = r_o.shape[0]
+    sentinel = table.shape[0]
+    d_min = torch.full((n,), MISS_T, device=r_o.device)
+    hit_id = torch.full((n,), -1, dtype=torch.int64, device=r_o.device)
+    rows = torch.zeros((), dtype=torch.int64, device=r_o.device)
+    if sentinel == 0:
+        return d_min, hit_id, rows
+    inv_d = vec.safe_inv(r_d)
+    octant = ray_octant(r_d)
+    cur = torch.where(active, 0, sentinel).to(torch.int64)
+    while True:
+        live = cur < sentinel
+        n_live = live.sum()
+        if not bool(n_live):
+            break
+        rows = rows + n_live
+        row, prim_start = _threaded_rows(table, cur, sentinel, live, k, fmt)
+        hit = aabb_hit(row[:, :6], r_o, inv_d, 0.0, d_min) & live
+        is_leaf = prim_start >= 0
+        lt, lid = _leaf_intersect(row, k, r_o, r_d, prim_start, 0.0, d_min,
+                                  fmt=fmt)
+        take = hit & is_leaf & (lid >= 0)
+        d_min = torch.where(take, lt, d_min)
+        hit_id = torch.where(take, lid, hit_id)
+        nh, nm = _decode_links(row, octant, k, fmt=fmt)
+        cur = torch.where(live, torch.where(hit & ~is_leaf, nh, nm),
+                          sentinel)
+    return d_min, hit_id, rows
+
+
+def any_hit_packed(table, k: int, r_o, r_d, max_dist, active, *, fmt: str):
+    """Shadow traversal over the threaded table -> (occluded [N] bool,
+    rows fetched as an int64 tensor).  JAX
+    ``any_hit_packed`` (trace_shadow parity): the plain 1/d, the box
+    window (1e-3, max_dist), the leaf window (1e-3, max_dist - 1e-3), and
+    the walk stops at the first occluder."""
+    n = r_o.shape[0]
+    sentinel = table.shape[0]
+    occ = torch.zeros((n,), dtype=torch.bool, device=r_o.device)
+    rows = torch.zeros((), dtype=torch.int64, device=r_o.device)
+    if sentinel == 0:
+        return occ, rows
+    inv_d = 1.0 / r_d
+    octant = ray_octant(r_d)
+    cur = torch.where(active, 0, sentinel).to(torch.int64)
+    while True:
+        live = cur < sentinel
+        n_live = live.sum()
+        if not bool(n_live):
+            break
+        rows = rows + n_live
+        row, prim_start = _threaded_rows(table, cur, sentinel, live, k, fmt)
+        hit = aabb_hit(row[:, :6], r_o, inv_d, 1e-3, max_dist) & live
+        is_leaf = prim_start >= 0
+        _, lid = _leaf_intersect(row, k, r_o, r_d, prim_start, 1e-3,
+                                 max_dist - 1e-3, fmt=fmt)
+        occ = occ | (hit & is_leaf & (lid >= 0))
+        nh, nm = _decode_links(row, octant, k, fmt=fmt)
+        cur = torch.where(live & ~occ, torch.where(hit & ~is_leaf, nh, nm),
+                          sentinel)
+    return occ, rows

@@ -46,7 +46,7 @@ import ctypes
 
 import torch
 
-from tryraytrace_tpu_torch.accel.bvh import LEAF_STRIDE, quad_row_width
+from tryraytrace_tpu_torch.accel.bvh import LEAF_FORMATS, quad_row_width
 from tryraytrace_tpu_torch.ops._build import KernelLibrary
 from tryraytrace_tpu_torch.ops.traverse import (MISS_T, _fat_leaf_intersect,
                                                 _quad_decode, _regfile_apply,
@@ -64,9 +64,6 @@ TEXG = 6
 # Skip-register counts the kernel is compiled for (its template
 # argument): none, and the engine's default (config.py ``quad_regs``).
 KERNEL_REGS = (0, 3)
-# Leaf slot formats (config.py ``leaf_isect``) and their number in the
-# kernel (its other template argument): their order in LEAF_STRIDE.
-LEAF_FORMATS = {fmt: i for i, fmt in enumerate(LEAF_STRIDE)}
 
 # The state fields the walk writes.
 WRITES = ("mode", "cur", "d_min", "hit_id", "rad")
