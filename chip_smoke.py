@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written CUDA kernels (tonemap, fetch_chain,
-quad_walk, threaded_walk; one nvcc each, side by side) from the sources
+quad_walk, threaded_walk, service_pass; one nvcc each, side by side)
+from the sources
 in this checkout and holds each against its plain PyTorch version on
 the card at the shapes its path gives it.  It drives the port's paths,
 each with the kernels' launch counts set to 0 just before and read just
@@ -12,7 +13,7 @@ after:
   - the main path (Renderer -> render_frame_persistent -> Renderer.image)
     at the reference's interactive operating point, 1200x800 at 1 spp
     per step, on a 20,487-triangle Cornell box built in the repo: the
-    round loop, one walk-kernel launch and one eager service pass per
+    round loop, one walk-kernel launch and one service-kernel launch per
     round.  It runs first, before any kernel is timed under
     torch.profiler;
   - the progressive path (ProgressiveRenderer.step / snapshot) on the
@@ -66,7 +67,14 @@ tree with its Baldwin-Weber leaf slots, and the [features] path's SBVH
 with its Moller-Trumbore ("mt") slots at the auto leaf size; the
 threaded-walk kernel is held to its plain version on three states of a
 full-width bounce frame (camera rays, the first bounce's shadow rays,
-a late bounce) over both trees.  It also checks the port's render on the card
+a late bounce) over both trees.  ``[service]`` holds the service kernel
+to its plain version (persistent.service_plain, the eager service
+block) on each of the walk kernel's six states just after its walk
+(the main path's: textured, TEXG lanes in flight; the [features]
+path's: smooth shading and UV mapping on) and on rounds SERVICE_ROUNDS
+of two more full-width frames: 17 lights, and the main path's scene at
+leaf 6, two trimat rows a table row; field for field and its three
+counters exactly.  It also checks the port's render on the card
 (round loop, kernel) against the plain version of the whole on the CPU
 (the interleaved eager loop, one row per lane per step), bit for bit
 at 64x64 and 64x48.  Every phase prints its own lines; any failure
@@ -86,7 +94,10 @@ other kernels' entries carry the entry points', ``[features]``',
 from 0 around its ``step`` and ``image`` alone, and
 ``parallel_mesh_launches`` gives each mesh's count; the threaded
 walk's ``launches`` are the bounce path's, and its ``states`` and ``mt``
-entries hold each state's numbers).  Without a CUDA device it
+entries hold each state's numbers; the service kernel's entry carries
+every path's count as the walk kernel's does, equal to the walk's on
+each path (one of each a round) and 0 on ``[bounce]``, and its
+``states`` entry each ``[service]`` state's numbers).  Without a CUDA device it
 exits non-zero and prints no result.
 
 A kernel's ``ms`` is its own device time per launch (torch.profiler's
@@ -134,7 +145,7 @@ from tryraytrace_tpu_torch.io.ppm import load_ppm
 from tryraytrace_tpu_torch.io.snapshot import tonemap_accum
 from tryraytrace_tpu_torch.ops import _build, fetch, threaded, traverse
 from tryraytrace_tpu_torch.ops import tonemap as tm
-from tryraytrace_tpu_torch.ops import walk
+from tryraytrace_tpu_torch.ops import service, walk
 from tryraytrace_tpu_torch.ops.texture import TEX_ROW
 from tryraytrace_tpu_torch.oracle import oracle_render
 from tryraytrace_tpu_torch.parallel.mesh import make_mesh
@@ -173,6 +184,7 @@ PROGRESSIVE_ROUNDS = 8
 PROGRESSIVE_FRAMES = (6, 2)
 TILES = 4                      # [tiled]: step_tiled against step
 LATE_DONE_SHARE = 0.9          # [walk]'s third state: this share DONE
+SERVICE_ROUNDS = (0, 4)        # [service]: the rounds of its other states
 CLI_FRAMES = 4                 # [cli]: frames of the plain render
 # [app]: the batch App's script (a camera move on tick 3, a save on tick
 # 5) and checkpoint period; the ProgressiveApp's ticks, with a camera
@@ -297,7 +309,8 @@ def phase_environment() -> str:
         f"{nvcc.stdout.strip().splitlines()[-1]}")
     log(f"[env] device {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    libraries = [tm.LIBRARY, fetch.LIBRARY, walk.LIBRARY, threaded.LIBRARY]
+    libraries = [tm.LIBRARY, fetch.LIBRARY, walk.LIBRARY, threaded.LIBRARY,
+                 service.LIBRARY]
     _build.build_all(libraries)
     for lib in libraries:
         log(f"[build] {lib.path} in {lib.build_seconds:.3f} s")
@@ -606,14 +619,99 @@ def _check_walk(label: str, rnd: int, s, inline, k: int, passes: int,
     return out
 
 
-def phase_walk(r: Renderer, params) -> dict:
+def service_state_bytes(s, want, counts, params) -> int:
+    """Bytes of lane state and table rows a service pass's outputs
+    depend on, plus those it writes, for the lanes of state ``s`` in
+    each mode (``want``: the state after the pass, ``counts`` its
+    COUNTERS, ``params`` its ServiceParams).  Every lane's mode is read
+    (8 B).  A SHADEG lane reads hit_id, o, d and d_min (36 B); one parked
+    in TEXG writes so, sd, pend, its 10-float stash, mode, cur and hit_id
+    (100 B).  A TEXG lane reads cur, hit_id, o, d, d_min, its stash, so,
+    sd and pend (140 B).  A lane shaded reads depth, seed, pix, tp, rad
+    and prev_spec (49 B) and writes mode, cur, hit_id, depth, d_min, o,
+    d, tp, rad, prev_spec and pend (97 B); one that fires a shadow ray
+    also writes so, sd, smax and cont_after_shadow (29 B).  A lane
+    refilled reads rad, out, sample and pix (40 B) and writes out, rad,
+    sample, seed and mode (48 B); one that starts a sample also writes
+    cur, d_min, hit_id, o, d, tp, depth and prev_spec (65 B).  The table
+    counts once, as the walk bounds count theirs: each distinct trimat
+    row the SHADEG lanes hit (148 B) and four texels (48 B, at least) of
+    each distinct tile row the TEXG lanes read.  The light rows and the
+    texture layout count once too."""
+    mode = s["mode"]
+    shadeg = mode == walk.SHADEG
+    texg = mode == walk.TEXG
+    parked = shadeg & (want["mode"] == walk.TEXG)
+    shaded = (shadeg & ~parked) | texg
+    refilled = want["sample"] != s["sample"]
+    n = lambda m: int(m.sum())
+    distinct = lambda v: int(torch.unique(v).numel())
+    return (8 * mode.numel() + 36 * n(shadeg) + 100 * n(parked)
+            + 140 * n(texg) + 146 * n(shaded) + 29 * int(counts[1])
+            + 88 * n(refilled) + 65 * int(counts[2])
+            + 148 * distinct(s["hit_id"][shadeg & (s["hit_id"] >= 0)])
+            + 48 * distinct(s["cur"][texg])
+            + params.lights.numel() * 4 + params.metas.numel() * 8)
+
+
+def _check_service(label: str, rnd: int, s, r: Renderer, fr) -> dict:
+    """One state whose walks have ended through the service kernel and
+    through its plain version (persistent.service_plain) on the card:
+    every field and the three counters must be equal (-0.0 == 0.0, NaN ==
+    NaN).  Then the kernel's own time, the wrapper's (each call on a
+    fresh copy: the pass writes in place) and the plain version's."""
+    inline = r.inline
+    modes = torch.bincount(s["mode"], minlength=walk.TEXG + 1).tolist()
+    fresh = lambda: {key: val.clone() for key, val in s.items()}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want, want_counts = persistent.service_plain(s, inline, fr)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t1)
+    run = lambda st: service.service_pass_cuda(st, inline, fr.service)
+    got, counts = run(fresh())
+    torch.cuda.synchronize()
+    fields = [f for f, _, _ in service.FIELDS if f in s]
+    bad = [f for f in fields if not _same(got[f], want[f])]
+    err = max(float((got[f].double() - want[f].double()).abs()
+                    .nan_to_num(0.0).max()) for f in fields)
+    log(f"[service] {label} state (round {rnd}): SHADEG {modes[walk.SHADEG]}"
+        f", TEXG {modes[walk.TEXG]}, REFILL {modes[walk.REFILL]}, DONE "
+        f"{modes[walk.DONE]} of {len(s['mode'])} lanes; counters (cont, "
+        f"shadow, start) kernel {counts.tolist()} plain "
+        f"{want_counts.tolist()}; fields differing {bad} (-0.0 == 0.0, NaN "
+        f"== NaN), max abs err {err!r}")
+    if bad or counts.tolist() != want_counts.tolist():
+        raise AssertionError(f"the service kernel disagrees with its plain "
+                             f"version on the {label} state: {bad}")
+    copies = iter([fresh() for _ in range(6)])
+    wrapper_ms = _time_ms(lambda: run(next(copies)), reps=5)
+    ms = _kernel_ms(lambda: run(fresh()), "service_pass_kernel", reps=10)
+    del copies
+    # Operations: an estimate of 400 float32 operations a lane shaded
+    # and 120 a camera ray; the bytes bound it by far.
+    shaded = modes[walk.SHADEG] + modes[walk.TEXG]
+    out = dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
+               plain_ms=plain_ms, library_ms=None, modes=modes,
+               counts=counts.tolist(),
+               **bound(service_state_bytes(s, want, counts, fr.service),
+                       400 * shaded + 120 * int(counts[2])))
+    log(f"[service] {label} state: kernel's own time {ms:.4f} ms, wrapper "
+        f"{wrapper_ms:.4f} ms, plain {plain_ms:.1f} ms; bound "
+        f"{out['bound_ms']:.5f} ms by {out['bound_by']}")
+    return out
+
+
+def phase_walk(r: Renderer, params) -> tuple:
     """quad_walk_cuda against walk_plain over the walk-order rows of
     ``r`` (a path's Renderer, with its tree and leaf format) in three
     states of one frame's rounds: the fresh 960,000-lane state (a
     closest-hit round), the first round with at least SHADOW_LANES_MIN
     lanes in SHADOW, and the first round with at least LATE_DONE_SHARE
-    of its lanes DONE (threads skip most lanes and refill often).
-    Returns the fresh state's numbers."""
+    of its lanes DONE (threads skip most lanes and refill often); and the
+    service kernel against its plain version on each of these states
+    just after its walk.  Returns the fresh state's walk numbers and
+    each state's service numbers."""
     inline, k, cfg = r.inline, r.scene.leaf_size, r.cfg
     fmt = r.scene.leaf_fmt
     passes = max(1, cfg.quad_redirect_passes)
@@ -623,11 +721,13 @@ def phase_walk(r: Renderer, params) -> dict:
     cam = params.to(r.device)
     fr = persistent._Frame(r.scene, inline, cfg, cam, 1, WIDTH, HEIGHT, 1,
                            1)
+    fr.service = service.service_params(fr)
     s = persistent.init_lane_ctx(
         1, 1, torch.arange(WIDTH * HEIGHT, device=r.device), cam, WIDTH,
         HEIGHT, cfg, with_tstash=inline.tex0 is not None)
     todo = ["fresh", "shadow", "late"]
     fresh = None
+    services = {}
     for rnd in range(cfg.max_depth * 2 + 2):
         modes = torch.bincount(s["mode"], minlength=walk.TEXG + 1).tolist()
         walking = modes[walk.TRAVERSE] + modes[walk.SHADOW]
@@ -645,16 +745,67 @@ def phase_walk(r: Renderer, params) -> dict:
                               fmt)
             fresh = fresh or res
             todo.remove(label)
+        walked, _ = walk.quad_walk(s, inline.walk, inline.sentinel, k,
+                                   passes, inline.walk_levels, fmt=fmt)
+        if label:
+            services[label] = _check_service(f"{label} ({fmt})", rnd, walked,
+                                             r, fr)
             if not todo:
-                return fresh
-        s = persistent._round_quad(s, inline, k, fr, passes)[0]
+                return fresh, services
+        s = service.service_pass_cuda(walked, inline, fr.service)[0]
     raise AssertionError(f"no round gave the {todo} states")
+
+
+def phase_service(params) -> dict:
+    """The service kernel against its plain version on states of two
+    more full-width frames, each just after a round's walks: the
+    [features] "lights" scene (17 lights) and the main path's scene at
+    leaf 6 (quad rows of 82 floats, so two trimat rows a table row),
+    at the rounds SERVICE_ROUNDS."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lights, knobs = _feature_scene(tmp, "lights")
+        runs = (("17 lights", lights,
+                 RenderConfig(width=WIDTH, height=HEIGHT, spp=1, **knobs)),
+                ("pack 2", main_path_arrays(),
+                 RenderConfig(width=WIDTH, height=HEIGHT, spp=1,
+                              bvh_leaf_size=6)))
+        for name, arrays, cfg in runs:
+            r = Renderer(arrays, cfg=cfg)
+            inline = r.inline
+            log(f"[service] {name}: {arrays.num_objects} triangles, "
+                f"{r.scene.num_lights} lights, leaf {r.scene.leaf_fmt} x"
+                f"{r.scene.leaf_size}, unified table "
+                f"{tuple(inline.table.shape)}, pack {inline.pack}")
+            if name == "pack 2" and inline.pack != 2:
+                raise AssertionError(f"pack {inline.pack}, not 2")
+            if name == "17 lights" and r.scene.num_lights != 17:
+                raise AssertionError(f"{r.scene.num_lights} lights")
+            cam = params.to(r.device)
+            fr = persistent._Frame(r.scene, inline, cfg, cam, 1, WIDTH,
+                                   HEIGHT, 1, 1)
+            fr.service = service.service_params(fr)
+            s = persistent.init_lane_ctx(
+                1, 1, torch.arange(WIDTH * HEIGHT, device=r.device), cam,
+                WIDTH, HEIGHT, cfg, with_tstash=inline.tex0 is not None)
+            for rnd in range(max(SERVICE_ROUNDS) + 1):
+                s, _ = walk.quad_walk(s, inline.walk, inline.sentinel,
+                                      r.scene.leaf_size, 1,
+                                      inline.walk_levels,
+                                      fmt=r.scene.leaf_fmt)
+                if rnd in SERVICE_ROUNDS:
+                    out[f"{name}, round {rnd}"] = _check_service(
+                        name, rnd, s, r, fr)
+                s = service.service_pass_cuda(s, inline, fr.service)[0]
+            del r, s, fr
+    return out
 
 
 def phase_main_path(r: Renderer, params) -> dict:
     torch.cuda.reset_peak_memory_stats()
     tm.tonemap_cuda.launches = 0
     walk.quad_walk_cuda.launches = 0
+    service.service_pass_cuda.launches = 0
     t0 = time.perf_counter()
     r.step(params)
     r.block_until_ready()
@@ -681,6 +832,7 @@ def phase_main_path(r: Renderer, params) -> dict:
     img = r.image()
     launches = tm.tonemap_cuda.launches
     walk_launches = walk.quad_walk_cuda.launches
+    service_launches = service.service_pass_cuda.launches
     accum = r.state.accum
     peak = torch.cuda.max_memory_allocated()
     if not bool(torch.isfinite(accum).all()):
@@ -691,17 +843,20 @@ def phase_main_path(r: Renderer, params) -> dict:
         raise AssertionError("the main path never launched the tonemap kernel")
     if walk_launches < 1:
         raise AssertionError("the main path never launched the walk kernel")
-    if walk_launches != warm_rounds + sum(s["rounds"] for s in steps):
-        raise AssertionError(f"{walk_launches} walk launches in "
-                             f"{warm_rounds} + {[s['rounds'] for s in steps]} "
-                             "rounds: a round is one launch")
+    rounds = warm_rounds + sum(s["rounds"] for s in steps)
+    if walk_launches != rounds or service_launches != rounds:
+        raise AssertionError(f"{walk_launches} walk and {service_launches} "
+                             f"service launches in {warm_rounds} + "
+                             f"{[s['rounds'] for s in steps]} rounds: a round "
+                             "is one launch of each")
     if not img.max() > 0:
         raise AssertionError("the image is all black")
     want = tm.tonemap_plain(accum.cpu(), r.spp()).numpy().reshape(img.shape)
     off = np.abs(img.astype(np.int32) - want.astype(np.int32))
     log(f"[main] image mean {float(img.mean())!r}, spp {r.spp()}, peak "
         f"device memory {peak} B, tonemap launches {launches}, walk "
-        f"launches {walk_launches}, bytes off the CPU tonemap "
+        f"launches {walk_launches}, service launches {service_launches} "
+        f"({rounds} rounds), bytes off the CPU tonemap "
         f"{int((off > 0).sum())} (max {int(off.max())})")
     if float(img.mean()) != MAIN_IMAGE_MEAN:
         raise AssertionError(f"image mean {float(img.mean())!r} is not "
@@ -713,23 +868,31 @@ def phase_main_path(r: Renderer, params) -> dict:
                              f"{MAIN_STEP_COUNTS}: the work changed")
     ms = float(np.mean([s["ms"] for s in steps]))
     return dict(steps=steps, launches=launches, walk_launches=walk_launches,
-                ms_per_step=ms,
+                service_launches=service_launches, ms_per_step=ms,
                 mrays_per_s=float(np.mean([s["mrays_per_s"] for s in steps])),
                 peak_bytes=peak, image_mean=float(img.mean()))
 
 
-def _progressive_steps(pr: ProgressiveRenderer, params, rounds) -> int:
+def _progressive_steps(pr: ProgressiveRenderer, params, rounds) -> tuple:
     """``pr.step(params, n)`` for each n of ``rounds`` while the wave is
-    not done, with a snapshot after each; the walk launches they made."""
-    launches = 0
+    not done, with a snapshot after each; the walk and the service
+    launches they made, equal in every step."""
+    launches = services_in_all = 0
     for n in rounds:
         if pr.done() and pr.wave is not None:
             break
-        before = walk.quad_walk_cuda.launches
+        before = (walk.quad_walk_cuda.launches,
+                  service.service_pass_cuda.launches)
         pr.step(params, n)
-        launches += walk.quad_walk_cuda.launches - before
+        walks = walk.quad_walk_cuda.launches - before[0]
+        services = service.service_pass_cuda.launches - before[1]
+        if walks != services:
+            raise AssertionError(f"{walks} walk and {services} service "
+                                 "launches: a round is one of each")
+        launches += walks
+        services_in_all += services
         pr.snapshot()
-    return launches
+    return launches, services_in_all
 
 
 def phase_progressive(r: Renderer, arrays, params) -> dict:
@@ -742,17 +905,19 @@ def phase_progressive(r: Renderer, arrays, params) -> dict:
       (b) an unbounded run: PROGRESSIVE_FRAMES[0] frames of
           PROGRESSIVE_ROUNDS rounds, reset(), PROGRESSIVE_FRAMES[1] more;
           counts only grow between resets, and reset() zeroes them.
-    Every round is one walk-kernel launch.  Returns the launches the
-    progressive renderers made and the unbounded frames."""
+    Every round is one walk-kernel and one service-kernel launch.
+    Returns the launches of each kernel the progressive renderers made
+    and the unbounded frames."""
     cfg = RenderConfig(width=WIDTH, height=HEIGHT)
     cap, seed = PROGRESSIVE_CAP, PROGRESSIVE_FRAME_SEED
     n = WIDTH * HEIGHT
-    launches = 0
+    launches = services = 0
     t0 = time.perf_counter()
     pr = ProgressiveRenderer(arrays, cfg=cfg, spp_cap=cap, frame_seed=seed,
                              seed_spp=cap, device=r.device)
     t1 = time.perf_counter()
-    launches += _progressive_steps(pr, params, [1 << 20])
+    walks, served = _progressive_steps(pr, params, [1 << 20])
+    launches, services = launches + walks, services + served
     pr.block_until_ready()
     t2 = time.perf_counter()
     capped_rounds = pr.wave.rounds
@@ -775,7 +940,8 @@ def phase_progressive(r: Renderer, arrays, params) -> dict:
         raise AssertionError("capped progressive run differs from the batch "
                              f"step: rays {rays} vs {want_rays}")
     pr.reset()
-    launches += _progressive_steps(pr, params, range(1, 1 << 20))
+    walks, served = _progressive_steps(pr, params, range(1, 1 << 20))
+    launches, services = launches + walks, services + served
     split = pr.snapshot()
     log(f"[progressive] split into calls of 1, 2, 3, ... rounds: "
         f"{pr.wave.rounds} rounds, sums equal "
@@ -798,11 +964,13 @@ def phase_progressive(r: Renderer, arrays, params) -> dict:
         tr0, sh0 = ((int(pu.wave.n_traced), int(pu.wave.n_shadow))
                     if pu.wave is not None else (0, 0))
         before = walk.quad_walk_cuda.launches
+        before_service = service.service_pass_cuda.launches
         t0 = time.perf_counter()
         pu.step(params, PROGRESSIVE_ROUNDS)
         pu.block_until_ready()
         dt = time.perf_counter() - t0
         frame_launches = walk.quad_walk_cuda.launches - before
+        frame_services = service.service_pass_cuda.launches - before_service
         t1 = time.perf_counter()
         acc, cnt = pu.snapshot()
         snap_ms = 1e3 * (time.perf_counter() - t1)
@@ -814,22 +982,29 @@ def phase_progressive(r: Renderer, arrays, params) -> dict:
                  mrays_per_s=(path + shadow) / dt / 1e6)
         frames.append(f)
         launches += frame_launches
+        services += frame_services
         log(f"[progressive] unbounded frame {i + 1}: {f['ms']:.1f} ms "
             f"(snapshot {snap_ms:.1f} ms), {frame_launches} walk launches, "
             f"spp mean {f['mean_spp']!r} min {f['min_spp']} max "
             f"{f['max_spp']}, path rays {path}, shadow rays {shadow}, "
             f"{f['mrays_per_s']:.3f} Mrays/s")
-        if frame_launches != PROGRESSIVE_ROUNDS or pu.done():
-            raise AssertionError(f"frame {i + 1}: {frame_launches} launches "
-                                 f"for {PROGRESSIVE_ROUNDS} rounds")
+        if (frame_launches != PROGRESSIVE_ROUNDS
+                or frame_services != PROGRESSIVE_ROUNDS or pu.done()):
+            raise AssertionError(f"frame {i + 1}: {frame_launches} walk and "
+                                 f"{frame_services} service launches for "
+                                 f"{PROGRESSIVE_ROUNDS} rounds")
         if not (cnt >= prev).all() or not cnt.sum() > prev.sum():
             raise AssertionError(f"frame {i + 1}: a count fell or none grew")
         if not np.isfinite(acc).all() or not path > 0:
             raise AssertionError(f"frame {i + 1}: non-finite sums or no rays")
         prev = cnt
-    if launches != 2 * capped_rounds + len(frames) * PROGRESSIVE_ROUNDS:
-        raise AssertionError(f"{launches} walk launches: a round is one")
-    return dict(launches=launches, frames=frames, capped_rounds=capped_rounds)
+    rounds = 2 * capped_rounds + len(frames) * PROGRESSIVE_ROUNDS
+    if launches != rounds or services != rounds:
+        raise AssertionError(f"{launches} walk and {services} service "
+                             f"launches in {rounds} rounds: a round is one "
+                             "of each")
+    return dict(launches=launches, service_launches=services, frames=frames,
+                capped_rounds=capped_rounds)
 
 
 def phase_tiled(r: Renderer, params) -> dict:
@@ -840,11 +1015,13 @@ def phase_tiled(r: Renderer, params) -> dict:
     want, want_stats = r.state.accum.clone(), r.last_stats
     r.reset()
     before = walk.quad_walk_cuda.launches
+    before_service = service.service_pass_cuda.launches
     t0 = time.perf_counter()
     r.step_tiled(params, TILES)
     r.block_until_ready()
     dt = time.perf_counter() - t0
     launches = walk.quad_walk_cuda.launches - before
+    services = service.service_pass_cuda.launches - before_service
     st = r.last_stats
     counts = [(int(x["n_traced"]), int(x["n_shadow"]), int(x["rows_fetched"]))
               for x in (want_stats, st)]
@@ -852,19 +1029,21 @@ def phase_tiled(r: Renderer, params) -> dict:
     img = r.image()
     off = int((r.image(on_device=False) != img).sum())
     log(f"[tiled] {TILES} tiles: {1e3 * dt:.1f} ms, {st['iterations']} rounds "
-        f"({launches} walk launches; step: {want_stats['iterations']}), "
+        f"({launches} walk and {services} service launches; step: "
+        f"{want_stats['iterations']}), "
         f"(path, shadow, rows) {counts[1]} vs step {counts[0]}; sums equal "
         f"{equal}; image bytes off the host tonemap {off}")
     if not equal or counts[0] != counts[1]:
         raise AssertionError("step_tiled differs from step")
-    if launches != st["iterations"] or launches < TILES:
-        raise AssertionError(f"{launches} walk launches in "
-                             f"{st['iterations']} rounds")
+    if (launches != st["iterations"] or services != st["iterations"]
+            or launches < TILES):
+        raise AssertionError(f"{launches} walk and {services} service "
+                             f"launches in {st['iterations']} rounds")
     if not np.array_equal(r.image(on_device=True), img):
         raise AssertionError("image(on_device=True) differs from image()")
     if off > MAX_BOUNDARY_SHARE * img.size:
         raise AssertionError(f"{off} image bytes off the host tonemap")
-    return dict(launches=launches)
+    return dict(launches=launches, service_launches=services)
 
 
 def phase_checkpoint(r: Renderer, params) -> None:
@@ -919,7 +1098,8 @@ def write_icosphere_obj(path: str, subdiv: int = 5, uv: bool = False) -> int:
 # of their key in those phases' results.
 COUNTED = dict(tonemap=tm.tonemap_cuda, fetch_chain=fetch.fetch_chain_cuda,
                walk=walk.quad_walk_cuda,
-               threaded_walk=threaded.threaded_walk_cuda)
+               threaded_walk=threaded.threaded_walk_cuda,
+               service=service.service_pass_cuda)
 
 
 def _zero_counts() -> None:
@@ -965,10 +1145,14 @@ def phase_cli(tmp: str) -> dict:
         res["ppm"] = load_ppm(path(f"{name}.ppm"))
         dt = float(re.search(r"spp, ([0-9.]+)s\)$", res["stdout"]).group(1))
         res["ms_per_frame"] = 1e3 * dt / frames
+        if res["service"] != res["walk"]:
+            raise AssertionError(f"[cli] {name}: {res['walk']} walk and "
+                                 f"{res['service']} service launches: a "
+                                 "round is one of each")
         log(f"[cli] {name}: {res['stdout']}; {res['ms_per_frame']:.1f} ms a "
             f"frame, {res['seconds']:.2f} s in all; launches: tonemap "
             f"{res['tonemap']}, fetch_chain {res['fetch_chain']}, walk "
-            f"{res['walk']}")
+            f"{res['walk']}, service {res['service']}")
         return res
 
     plain = render("plain", CLI_FRAMES)
@@ -996,9 +1180,11 @@ def phase_cli(tmp: str) -> dict:
         raise AssertionError("the CLI's image differs from the Renderer's")
     if plain["ck"]["accum"].tobytes() != r.state.accum.cpu().numpy().tobytes():
         raise AssertionError("the CLI's sums differ from the Renderer's")
-    if plain["tonemap"] != 1 or plain["walk"] != rounds:
-        raise AssertionError(f"{plain['tonemap']} tonemap and {plain['walk']}"
-                             f" walk launches for {rounds} rounds")
+    if (plain["tonemap"] != 1 or plain["walk"] != rounds
+            or plain["service"] != rounds):
+        raise AssertionError(f"{plain['tonemap']} tonemap, {plain['walk']}"
+                             f" walk and {plain['service']} service launches "
+                             f"for {rounds} rounds")
     if off > MAX_BOUNDARY_SHARE * host.size:
         raise AssertionError(f"{off} image bytes off the host tonemap")
     if not np.isfinite(plain["ck"]["accum"]).all() or not want.max() > 0:
@@ -1059,14 +1245,15 @@ def phase_app(arrays, tmp: str) -> dict:
         f"Renderer {equal}; last checkpoint frame {frame_seed}, spp "
         f"{state.spp}, equal {ck_equal}; launches: tonemap "
         f"{launches['tonemap']}, fetch_chain {launches['fetch_chain']}, walk"
-        f" {launches['walk']} ({rounds} rounds)")
+        f" {launches['walk']}, service {launches['service']} ({rounds} "
+        f"rounds)")
     if not equal or not ck_equal or (frame_seed, state.spp) != (3, 2):
         raise AssertionError("the App differs from the hand-driven Renderer")
     if len(app.snapshots) != 2 or app.frames_displayed < 1:
         raise AssertionError(f"{len(app.snapshots)} snapshots, "
                              f"{app.frames_displayed} frames displayed")
     if launches != dict(tonemap=0, fetch_chain=0, walk=rounds,
-                        threaded_walk=0):
+                        threaded_walk=0, service=rounds):
         raise AssertionError(f"launches {launches} for {rounds} rounds")
     del app, r
 
@@ -1129,9 +1316,10 @@ def phase_app(arrays, tmp: str) -> dict:
         f"ARGB packing {len(packs)} x {np.mean(packs):.2f} ms (min "
         f"{min(packs):.2f}, max {max(packs):.2f}); launches {plaunches} for "
         f"{sum(t['rounds'] for t in ticks)} rounds")
+    tick_rounds = sum(t["rounds"] for t in ticks)
     if len(ticks) != PROGRESSIVE_TICKS or plaunches != dict(
-            tonemap=0, fetch_chain=0, walk=sum(t["rounds"] for t in ticks),
-            threaded_walk=0):
+            tonemap=0, fetch_chain=0, walk=tick_rounds, threaded_walk=0,
+            service=tick_rounds):
         raise AssertionError("a round is one walk launch, a tick one step")
     if not all(4 <= t["rounds"] <= 4096 for t in ticks) or not packs:
         raise AssertionError("budget out of [4, 4096] or nothing displayed")
@@ -1160,7 +1348,8 @@ def phase_bench() -> dict:
         log(f"[bench] {json.dumps(rec)}")
     log(f"[bench] cube256 with its oracle check {t1 - t0:.1f} s; launches: "
         f"tonemap {launches['tonemap']}, fetch_chain "
-        f"{launches['fetch_chain']}, walk {launches['walk']}")
+        f"{launches['fetch_chain']}, walk {launches['walk']}, service "
+        f"{launches['service']}")
     if not cube["mse_vs_oracle"] < ORACLE_MSE:
         raise AssertionError(f"cube256 MSE {cube['mse_vs_oracle']!r} vs the "
                              "oracle")
@@ -1170,6 +1359,9 @@ def phase_bench() -> dict:
             raise AssertionError(f"bad record {rec}")
     if not prog["spp_per_frame"] > 0 or launches["walk"] < 1:
         raise AssertionError("the progressive bench did not advance")
+    if launches["service"] != launches["walk"] or launches["threaded_walk"]:
+        raise AssertionError(f"bench launches {launches}: a round is one "
+                             "walk and one service launch")
     return dict(launches, records=[cube, batch, prog])
 
 
@@ -1284,6 +1476,7 @@ def phase_features(r: Renderer, params, tmp: str) -> dict:
     setup = time.perf_counter() - t0
     rounds, path, shadow = 0, 0, 0
     before = walk.quad_walk_cuda.launches
+    before_service = service.service_pass_cuda.launches
     for _ in range(FEATURE_FRAMES):
         rf.step(params)
         st = rf.last_stats
@@ -1291,6 +1484,7 @@ def phase_features(r: Renderer, params, tmp: str) -> dict:
         path += int(st["n_traced"])
         shadow += int(st["n_shadow"])
     hand_walks = walk.quad_walk_cuda.launches - before
+    hand_services = service.service_pass_cuda.launches - before_service
     img = rf.image()
     same_ppm = load_ppm(ppm).tobytes() == img.tobytes()
     same_sums = sums.tobytes() == rf.state.accum.cpu().numpy().tobytes()
@@ -1303,7 +1497,8 @@ def phase_features(r: Renderer, params, tmp: str) -> dict:
         f"walk rows of {rf.inline.walk.shape[1]} floats, {rf.bvh.perm.size} "
         f"references; hand-driven setup {setup:.2f} s, {rounds} rounds, "
         f"path rays {path}, shadow rays {shadow}; launches: walk "
-        f"{cli_counts['walk']} (hand-driven {hand_walks}), tonemap "
+        f"{cli_counts['walk']} (hand-driven {hand_walks}), service "
+        f"{cli_counts['service']} (hand-driven {hand_services}), tonemap "
         f"{cli_counts['tonemap']}, fetch_chain {cli_counts['fetch_chain']};"
         f" PPM equal {same_ppm}, sums equal {same_sums}")
     if n_tris != 20480 or int(mesh.sum()) != n_tris or not (
@@ -1313,6 +1508,7 @@ def phase_features(r: Renderer, params, tmp: str) -> dict:
     if not same_ppm or not same_sums:
         raise AssertionError("the features render differs from the Renderer")
     if (cli_counts["walk"] != rounds or hand_walks != rounds
+            or cli_counts["service"] != rounds or hand_services != rounds
             or cli_counts["tonemap"] != 1 or cli_counts["fetch_chain"]):
         raise AssertionError(f"launches {cli_counts} for {rounds} rounds")
     if rf.scene.leaf_fmt != "mt" or not np.isfinite(sums).all():
@@ -1382,7 +1578,11 @@ def phase_features(r: Renderer, params, tmp: str) -> dict:
     seconds = time.perf_counter() - t_phase
     log(f"[features] {seconds:.1f} s in all; launches: tonemap "
         f"{launches['tonemap']}, fetch_chain {launches['fetch_chain']}, walk "
-        f"{launches['walk']} (mt leaves {cli_counts['walk'] + hand_walks})")
+        f"{launches['walk']} (mt leaves {cli_counts['walk'] + hand_walks}), "
+        f"service {launches['service']}")
+    if launches["service"] != launches["walk"]:
+        raise AssertionError(f"[features] launches {launches}: a round is "
+                             "one walk and one service launch")
     return dict(launches, mt_walk=cli_counts["walk"] + hand_walks,
                 ms_per_frame=1e3 * dt / FEATURE_FRAMES, refit_s=refit_s,
                 fresh_setup_s=fresh_s, small=small, seconds=seconds), rf
@@ -1480,13 +1680,14 @@ def phase_bounce(arrays, r: Renderer, params, tmp: str) -> tuple:
     log(f"[bounce] image mean {float(img.mean())!r}, spp {rb.spp()}; "
         f"launches: threaded_walk {launches['threaded_walk']}, tonemap "
         f"{launches['tonemap']}, walk {launches['walk']}, fetch_chain "
-        f"{launches['fetch_chain']}")
+        f"{launches['fetch_chain']}, service {launches['service']}")
     if not bool(torch.isfinite(rb.state.accum).all()) or not img.max() > 0:
         raise AssertionError("non-finite sums or a black bounce image")
     # Two walks a bounce: the closest hit and the NEE any hit.
     walks = 2 * (warm_bounces + sum(s["bounces"] for s in steps))
     if (launches["threaded_walk"] != walks or launches["tonemap"] != 1
-            or launches["walk"] or launches["fetch_chain"]):
+            or launches["walk"] or launches["fetch_chain"]
+            or launches["service"]):
         raise AssertionError(f"bounce path launches {launches} for {walks} "
                              "walks")
 
@@ -1560,8 +1761,8 @@ def phase_bounce(arrays, r: Renderer, params, tmp: str) -> tuple:
         f" the hand-driven Renderer's {same}; launches: threaded_walk "
         f"{res['threaded_walk']}, tonemap {res['tonemap']}, walk "
         f"{res['walk']}")
-    if not same or res["tonemap"] != 1 or res["walk"] or not res[
-            "threaded_walk"]:
+    if not same or res["tonemap"] != 1 or res["walk"] or res["service"] or \
+            not res["threaded_walk"]:
         raise AssertionError("render --engine bounce differs from the "
                              "Renderer")
     ms = float(np.mean([s["ms"] for s in steps]))
@@ -1682,11 +1883,12 @@ def phase_parallel(arrays, r: Renderer, rb: Renderer, params,
     counts are set to 0 after each reference render, just before each
     mesh's ``sr.step``, and read just after its ``sr.image()``: they
     must be exactly what the sharded step alone launches (a walk kernel
-    a round, two threaded walks a bounce, summed over the shards; one
-    tonemap).  Then two processes of ``tpurt-torch render --coordinator
-    ... --num-processes 2`` over gloo on the one card, whose PPM must
-    equal a one-process render's byte for byte.  NCCL across cards
-    needs more than one card, so it is not run here."""
+    and a service kernel a round, two threaded walks a bounce, summed
+    over the shards; one tonemap).  Then two processes of ``tpurt-torch
+    render --coordinator ... --num-processes 2`` over gloo on the one
+    card, whose PPM must equal a one-process render's byte for byte.
+    NCCL across cards needs more than one card, so it is not run
+    here."""
     card = torch.device("cuda", torch.cuda.current_device())
     out = dict(meshes=[])
     totals = dict.fromkeys(COUNTED, 0)
@@ -1717,7 +1919,8 @@ def phase_parallel(arrays, r: Renderer, rb: Renderer, params,
             expect = dict(tonemap=1, fetch_chain=0,
                           walk=n_iter if engine == "persistent" else 0,
                           threaded_walk=2 * n_iter if engine == "bounce"
-                          else 0)
+                          else 0,
+                          service=n_iter if engine == "persistent" else 0)
             got = sr.accum_host()
             rays = (int(sr.last_stats["n_traced"]),
                     int(sr.last_stats["n_shadow"]))
@@ -1757,7 +1960,8 @@ def phase_parallel(arrays, r: Renderer, rb: Renderer, params,
         ref.reset()
     log(f"[parallel] launches of the sharded steps and images, summed over "
         f"the meshes: {totals}")
-    if totals["walk"] < 1 or totals["threaded_walk"] < 1:
+    if (totals["walk"] < 1 or totals["threaded_walk"] < 1
+            or totals["service"] != totals["walk"]):
         raise AssertionError(f"the sharded renders launched {totals}")
 
     # Two processes on the one card over gloo, against one process.
@@ -1822,9 +2026,9 @@ def main() -> int:
     # (_kernel_ms): after one, the same process steps far slower
     # (PERF.md; scripts/time_torch_step.py --profile-first).
     main_run = phase_main_path(r, params)
-    walk.quad_walk_cuda.launches = 0
+    _zero_counts()
     progressive = phase_progressive(r, arrays, params)
-    walk.quad_walk_cuda.launches = 0
+    _zero_counts()
     tiled = phase_tiled(r, params)
     phase_checkpoint(r, params)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1836,9 +2040,14 @@ def main() -> int:
         parallel_run = phase_parallel(arrays, r, rb, params, tmp)
     tone = phase_tonemap()
     chain = phase_fetch(seed=0)
-    walked = phase_walk(r, params)
-    # The Moller-Trumbore leaf slots on the table the features path walks.
-    walked_mt = phase_walk(features_r, params)
+    walked, serviced = phase_walk(r, params)
+    # The Moller-Trumbore leaf slots on the table the features path walks
+    # (smooth shading and UV mapping on for its service states).
+    walked_mt, serviced_features = phase_walk(features_r, params)
+    serviced_more = phase_service(params)
+    if not any(x["modes"][walk.TEXG] for x in serviced.values()):
+        raise AssertionError("no [service] state of the main path had TEXG "
+                             "lanes in flight")
     threaded_states = phase_threaded_walk(rb, features_r, params)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     keys = ("max_abs_err", "ms", "wrapper_ms", "plain_ms", "bound_ms",
@@ -1890,7 +2099,23 @@ def main() -> int:
              states={label: {k: res[k] for k in state_keys}
                      for label, res in bw_walk.items()},
              mt={label: {k: res[k] for k in state_keys}
-                 for label, res in threaded_states["mt"].items()})]}))
+                 for label, res in threaded_states["mt"].items()}),
+        dict(name="service_pass", route="cuda",
+             source="tryraytrace_tpu_torch/csrc/service_pass.cu",
+             replaces="tryraytrace_tpu/engine/persistent.py:793",
+             also_replaces="tryraytrace_tpu/engine/persistent.py:776,1166,"
+                           "1265,1450",
+             launches=main_run["service_launches"],
+             progressive_launches=progressive["service_launches"],
+             tiled_launches=tiled["service_launches"],
+             **path_counts("service"),
+             **{k: serviced["fresh"][k] for k in keys},
+             states={label: {k: res[k] for k in (*keys, "modes", "counts")}
+                     for label, res in (
+                         *((f"main {x}", y) for x, y in serviced.items()),
+                         *((f"features {x}", y)
+                           for x, y in serviced_features.items()),
+                         *serviced_more.items())})]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,11 +5,12 @@
 
 Renders chip_smoke.py's main-path scene (Cornell box + icosphere(5),
 20,487 triangles) once to warm up, then profiles rounds ``window`` of
-the next step's round loop (one walk-kernel launch and one eager
-service pass per round) with torch.profiler: host wall time and device
-kernel time per round (their ratio is the device's busy share), kernel
-launches per round, the walk kernel's share of the device time, and the
-kernels that take the most device time.  Needs a CUDA device.
+the next step's round loop (one walk-kernel launch and one
+service-kernel launch per round, and the small launches around them)
+with torch.profiler: host wall time and device kernel time per round
+(their ratio is the device's busy share), kernel launches per round,
+the walk and service kernels' device time, and the kernels that take
+the most device time.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -92,13 +93,16 @@ def main() -> int:
     launches = sum(e.count for e in kernels)
     walk_us = sum(e.device_time_total for e in kernels
                   if "quad_walk_kernel" in e.key)
+    service_us = sum(e.device_time_total for e in kernels
+                     if "service_pass_kernel" in e.key)
     print(f"[profile] {torch.cuda.get_device_name(0)}; {w}x{h}; step "
           f"{step_s * 1e3:.1f} ms under the profiler, "
           f"{r.last_stats['iterations']} rounds")
     print(f"[profile] rounds {lo}..{hi - 1}: wall "
           f"{state['wall'] / n_it * 1e3:.3f} ms/round, device kernels "
           f"{dev_us / n_it / 1e3:.3f} ms/round (walk kernel "
-          f"{walk_us / n_it / 1e3:.3f}), busy share "
+          f"{walk_us / n_it / 1e3:.3f}, service kernel "
+          f"{service_us / n_it / 1e3:.3f}), busy share "
           f"{dev_us / 1e6 / state['wall']:.3f}, kernel launches "
           f"{launches / n_it:.0f}/round")
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:15]:

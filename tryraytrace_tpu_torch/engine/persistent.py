@@ -1,4 +1,4 @@
-"""Persistent-wave path tracer with path regeneration, in eager PyTorch.
+"""Persistent-wave path tracer with path regeneration.
 
 The counterpart of tryraytrace_tpu/engine/persistent.py on its default
 path: owner schedule (one lane per pixel renders that pixel's samples
@@ -18,10 +18,12 @@ tile row for a TEXG lane.
 
 ``render_frame_persistent`` runs it in rounds, on every device: one call
 of ``quad_walk`` (ops/walk.py) runs every TRAVERSE and SHADOW lane's
-walk to its end (the hand-written CUDA kernel for CUDA tensors, its
-plain version for CPU tensors), then one service pass (a row fetch for
-the SHADEG and TEXG lanes, shade, texture, refill) in eager PyTorch;
-rounds repeat until every lane is DONE.  The loop is a ``Wave``: its
+walk to its end, then one service pass serves every SHADEG, TEXG and
+REFILL lane once (a row fetch, shade, texture, refill).  For CUDA
+tensors each is one launch of a hand-written kernel (ops/walk.py,
+ops/service.py), for CPU tensors its plain version: ``walk_plain``,
+and ``service_plain``, the eager service block of this module.  Rounds
+repeat until every lane is DONE.  The loop is a ``Wave``: its
 lane state lives across calls, it advances by a given number of rounds
 and is read without being consumed, so the progressive engine
 (engine/progressive.py) and tiled steps (a wave over a pixel subset)
@@ -29,10 +31,10 @@ run the same code as a batch frame.
 
 ``render_frame_interleaved`` is the plain version of the whole: a Python
 ``while`` over eager tensor steps, each of which advances every walking
-lane by one row (ops/walk.py ``walk_step``) and runs the service block
-on the same row fetch, as the JAX engine does once per unrolled body.
-Nothing but the tests and the smoke run calls it.  It gives every lane
-the same state as the round loop, so the same per-pixel sums, ray
+lane by one row (ops/walk.py ``walk_step``) and runs the eager service
+block on the same row fetch, as the JAX engine does once per unrolled
+body.  Nothing but the tests and the smoke run calls it.  It gives every
+lane the same state as the round loop, so the same per-pixel sums, ray
 counts and row counts: a lane's draws are addressed by (sample seed,
 pixel, depth, slot) and a walk draws nothing, so when a lane is
 serviced cannot change what it draws.
@@ -43,9 +45,7 @@ nothing), and once at most half the lanes are live both loops keep only
 the live ones (a lane permutation, the eager counterpart of the JAX
 spill ladder).
 
-The interleaved loop is also the plain version of the
-hand-written state-machine kernel that takes the service block in as
-well in a later change.  The ray counters are int64.
+The ray counters are int64.
 """
 
 from __future__ import annotations
@@ -60,6 +60,8 @@ from tryraytrace_tpu_torch.core import rng, vec
 from tryraytrace_tpu_torch.engine.camera_rays import generate_rays
 from tryraytrace_tpu_torch.engine.wavefront import _sanitize
 from tryraytrace_tpu_torch.ops import shade
+from tryraytrace_tpu_torch.ops.service import (service_params,
+                                               service_pass_cuda)
 from tryraytrace_tpu_torch.ops.texture import (TEX_ROW, TEX_TILE,
                                                build_texture_tiles,
                                                tile_bilinear, tile_coords)
@@ -143,6 +145,7 @@ class _Frame:
     spp_cap: int   # a lane retires once its pixel has this many samples
     seed_spp: int  # the spp of the seed schedule (core/rng.py sample_seed)
     sample_offset: int = 0  # the seed schedule's number of sample 0
+    service: object = None  # the service kernel's ServiceParams, packed once
 
 
 def init_lane_ctx(frame_seed: int, seed_spp: int, pix0, cam, width: int,
@@ -196,7 +199,8 @@ def render_frame_persistent(scene, inline: InlineTable, cam, frame_seed: int,
                             seed_spp: int | None = None):
     """All ``spp`` samples of one frame in one regenerating wave on the
     scene's device, one lane per pixel, in rounds: every walk run to its
-    end (the CUDA walk kernel on a CUDA device), then one service pass.
+    end, then one service pass (on a CUDA device, one launch each of the
+    walk and service kernels).
     ``inline`` is the scene's ``build_inline_table``; ``cam`` a
     CameraParams (NumPy or tensors); ``pixels`` the pixel ids to render
     (an int64 tensor on the scene's device; all ``width * height`` by
@@ -244,14 +248,14 @@ class Wave:
     retires once the pixel has ``spp_cap`` of them.
 
     ``advance`` runs rounds of ``round_fn`` (``_round_quad``, the
-    default: the walk kernel on a card, then a service pass; or
-    ``_step_quad``, the interleaved loop's step), looking for a live lane every
-    ``check_every`` of them; once at most half the lanes are live and
-    the wave is wider than ``MIN_COMPACT_WIDTH`` it keeps only the live
-    ones and holds the retired lanes' sums and counts itself.  ``read``
-    gives the per-pixel sums and completed-sample counts and leaves the
-    wave as it was, so a wave advanced in several calls ends where one
-    call takes it."""
+    default: the walks, then a service pass, a kernel launch each on a
+    card; or ``_step_quad``, the interleaved loop's step), looking for a
+    live lane every ``check_every`` of them; once at most half the lanes
+    are live and the wave is wider than ``MIN_COMPACT_WIDTH`` it keeps
+    only the live ones and holds the retired lanes' sums and counts
+    itself.  ``read`` gives the per-pixel sums and completed-sample
+    counts and leaves the wave as it was, so a wave advanced in several
+    calls ends where one call takes it."""
 
     def __init__(self, scene, inline: InlineTable, cam, frame_seed: int,
                  width: int, height: int, cfg: RenderConfig, pixels,
@@ -340,24 +344,41 @@ def _step_quad(s, inline: InlineTable, k: int, fr: _Frame,
     row = inline.table[idx]
     out = walk_step(s, row, inline.sentinel, k, redirect_passes,
                     fmt=fr.scene.leaf_fmt)
-    out, tr, sh = _service_shade(out, s, row, live_g, live_x, fr)
-    return out, tr, sh, stepping.sum()
+    out, cont, sh, start = _service_shade(out, s, row, live_g, live_x, fr)
+    return out, cont + start, sh, stepping.sum()
 
 
 def _round_quad(s, inline: InlineTable, k: int, fr: _Frame,
                 redirect_passes: int = 1):
     """One round of the round loop: every TRAVERSE and SHADOW lane's walk
-    run to its end over the walk-order rows (the CUDA kernel on a card),
-    then one service pass.  A lane the pass sends to TEXG is shaded by
-    the next round's pass.  Returns (state', path rays started, shadow
-    rays started, quad rows fetched)."""
+    run to its end over the walk-order rows, then one service pass (on a
+    card each is one kernel launch).  A lane the pass sends to TEXG is
+    shaded by the next round's pass.  Returns (state', path rays
+    started, shadow rays started, quad rows fetched)."""
     s, rows = quad_walk(s, inline.walk, inline.sentinel, k, redirect_passes,
                         inline.walk_levels, fmt=fr.scene.leaf_fmt)
+    if inline.table.device.type == "cpu":
+        s, counts = service_plain(s, inline, fr)
+    else:
+        if fr.service is None:
+            fr.service = service_params(fr)
+        s, counts = service_pass_cuda(s, inline, fr.service)
+    cont, shadow, start = counts
+    return s, cont + start, shadow, rows
+
+
+def service_plain(s, inline: InlineTable, fr: _Frame):
+    """The plain version of the service kernel (ops/service.py): the
+    material or tile row fetch of the SHADEG and TEXG lanes, then the
+    eager service block, over a state whose walks have ended.  Returns
+    (state', counts): ``counts`` an int64 tensor of the kernel's
+    ``COUNTERS`` (paths continued, shadow rays fired, camera rays
+    started)."""
     idx, live_g, live_x = _service_select(s, torch.zeros_like(s["cur"]),
                                           inline)
-    row = inline.table[idx]
-    out, tr, sh = _service_shade(s, s, row, live_g, live_x, fr)
-    return out, tr, sh, rows
+    out, cont, sh, start = _service_shade(s, s, inline.table[idx], live_g,
+                                          live_x, fr)
+    return out, torch.stack([cont, sh, start])
 
 
 def _service_select(s, idx, inline: InlineTable):
@@ -378,7 +399,8 @@ def _service_select(s, idx, inline: InlineTable):
 def _service_shade(out, s, row, live_g, live_x, fr: _Frame):
     """The in-step shade / texture / regenerate block.  ``row`` is this
     step's fetched row, ``s`` the pre-step state (hit_id, so, sd, pend
-    and tstash carry the TEXG stash across steps)."""
+    and tstash carry the TEXG stash across steps).  Returns (state',
+    paths continued, shadow rays fired, camera rays started)."""
     if fr.inline.pack == 2:
         trow = torch.where(((s["hit_id"] & 1) == 1)[:, None],
                            row[:, 37:74], row[:, 0:37])
@@ -408,9 +430,9 @@ def _service_shade(out, s, row, live_g, live_x, fr: _Frame):
         qq["transmission"] = torch.where(live_x, ts[:, 6],
                                          qq["transmission"])
         m_all = ready_u | live_x
-    out, tr, sh = _shade_finish(out, m_all, qq, fr.scene, fr.cfg)
-    out, tr2 = _refill(out, fr)
-    return out, tr + tr2, sh
+    out, cont, sh = _shade_finish(out, m_all, qq, fr.scene, fr.cfg)
+    out, start = _refill(out, fr)
+    return out, cont, sh, start
 
 
 def _shade_prepare(s, hitrow, mask, fr: _Frame):
