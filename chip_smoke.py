@@ -71,10 +71,12 @@ a late bounce) over both trees.  ``[service]`` holds the service kernel
 to its plain version (persistent.service_plain, the eager service
 block) on each of the walk kernel's six states just after its walk
 (the main path's: textured, TEXG lanes in flight; the [features]
-path's: smooth shading and UV mapping on) and on rounds SERVICE_ROUNDS
-of two more full-width frames: 17 lights, and the main path's scene at
-leaf 6, two trimat rows a table row; field for field and its three
-counters exactly.  It also checks the port's render on the card
+path's: smooth shading and UV mapping on), on rounds SERVICE_ROUNDS
+of two more full-width frames (17 lights, and the main path's scene at
+leaf 6, two trimat rows a table row) and on a seed-made 960,000-lane
+state whose every warp mixes SHADEG, TEXG, REFILL, DONE, TRAVERSE and
+SHADOW lanes and takes every branch (mixed_state); field for field and
+the wave's four totals exactly.  It also checks the port's render on the card
 (round loop, kernel) against the plain version of the whole on the CPU
 (the interleaved eager loop, one row per lane per step), bit for bit
 at 64x64 and 64x48.  Every phase prints its own lines; any failure
@@ -107,7 +109,12 @@ its Python wrapper with everything the wrapper does around the launch
 the card could take: the larger of the bytes its outputs depend on
 plus the bytes it writes (each counted once) over the device-memory
 rate and the float32 operations those outputs need over the float32
-rate, both NVIDIA's published figures for the H100 SXM.
+rate, both NVIDIA's published figures for the H100 SXM.  The service
+kernel's operations are its double-precision calls on the branches its
+lanes take (service_work), at the FP64 instructions a call of each kind
+takes in the machine code nvcc builds (fp64_per_call), over the FP64
+rate; its entry also gives both times apart (``bytes_ms``,
+``fp64_ms``) and its build's registers, stack and spills.
 """
 
 from __future__ import annotations
@@ -143,9 +150,10 @@ from tryraytrace_tpu_torch.engine.renderer import Renderer
 from tryraytrace_tpu_torch.engine.state import load_checkpoint, save_checkpoint
 from tryraytrace_tpu_torch.io.ppm import load_ppm
 from tryraytrace_tpu_torch.io.snapshot import tonemap_accum
+from tryraytrace_tpu_torch.core import rng, vec
 from tryraytrace_tpu_torch.ops import _build, fetch, threaded, traverse
 from tryraytrace_tpu_torch.ops import tonemap as tm
-from tryraytrace_tpu_torch.ops import service, walk
+from tryraytrace_tpu_torch.ops import service, shade, walk
 from tryraytrace_tpu_torch.ops.texture import TEX_ROW
 from tryraytrace_tpu_torch.oracle import oracle_render
 from tryraytrace_tpu_torch.parallel.mesh import make_mesh
@@ -185,6 +193,7 @@ PROGRESSIVE_FRAMES = (6, 2)
 TILES = 4                      # [tiled]: step_tiled against step
 LATE_DONE_SHARE = 0.9          # [walk]'s third state: this share DONE
 SERVICE_ROUNDS = (0, 4)        # [service]: the rounds of its other states
+MIXED_SPP, MIXED_SEED = 2, 11  # [service]: the seed-made mixed state
 CLI_FRAMES = 4                 # [cli]: frames of the plain render
 # [app]: the batch App's script (a camera move on tick 3, a save on tick
 # 5) and checkpoint period; the ProgressiveApp's ticks, with a camera
@@ -233,10 +242,11 @@ TWO_PROCESS_TIMEOUT_S = 300
 # launches the profiler recorded none of.
 PROFILE_TRIES = 3
 
-# NVIDIA's published H100 SXM figures: device-memory rate and float32
-# rate outside the tensor cores.
+# NVIDIA's published H100 SXM figures: device-memory rate, and float32
+# and float64 rates outside the tensor cores.
 MEM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+F64_FLOP_PER_S = 34e12
 
 
 def log(msg: str) -> None:
@@ -277,6 +287,27 @@ def bound(n_bytes: float, n_flops: float) -> dict:
     by_ops = 1e3 * n_flops / F32_FLOP_PER_S
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def ptxas_numbers(compiler_log: str, kernel: str) -> dict:
+    """Registers, stack frame and spill bytes of the kernel whose name
+    holds ``kernel``, from a library's ``ptxas -v`` output."""
+    lines = compiler_log.splitlines()
+    out = {}
+    for k, line in enumerate(lines):
+        if kernel not in line:
+            continue
+        if "Function properties for" in line:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", lines[k + 1])
+            out.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        elif "Compiling entry function" in line:
+            used = next(m for m in (re.search(r"Used (\d+) registers", x)
+                                    for x in lines[k + 1:]) if m)
+            out["registers"] = int(used.group(1))
+    return out
 
 
 def _sass_sizes(path: str) -> dict:
@@ -619,57 +650,276 @@ def _check_walk(label: str, rnd: int, s, inline, k: int, passes: int,
     return out
 
 
-def service_state_bytes(s, want, counts, params) -> int:
+def service_state_bytes(s, want, params) -> int:
     """Bytes of lane state and table rows a service pass's outputs
     depend on, plus those it writes, for the lanes of state ``s`` in
-    each mode (``want``: the state after the pass, ``counts`` its
-    COUNTERS, ``params`` its ServiceParams).  Every lane's mode is read
-    (8 B).  A SHADEG lane reads hit_id, o, d and d_min (36 B); one parked
-    in TEXG writes so, sd, pend, its 10-float stash, mode, cur and hit_id
-    (100 B).  A TEXG lane reads cur, hit_id, o, d, d_min, its stash, so,
-    sd and pend (140 B).  A lane shaded reads depth, seed, pix, tp, rad
-    and prev_spec (49 B) and writes mode, cur, hit_id, depth, d_min, o,
-    d, tp, rad, prev_spec and pend (97 B); one that fires a shadow ray
-    also writes so, sd, smax and cont_after_shadow (29 B).  A lane
-    refilled reads rad, out, sample and pix (40 B) and writes out, rad,
-    sample, seed and mode (48 B); one that starts a sample also writes
-    cur, d_min, hit_id, o, d, tp, depth and prev_spec (65 B).  The table
-    counts once, as the walk bounds count theirs: each distinct trimat
-    row the SHADEG lanes hit (148 B) and four texels (48 B, at least) of
-    each distinct tile row the TEXG lanes read.  The light rows and the
-    texture layout count once too."""
+    each mode (``want``: the state after the pass, ``params`` its
+    ServiceParams).  Every lane's mode is read (8 B).  A SHADEG lane
+    reads hit_id, o, d and d_min (36 B); one parked in TEXG writes so,
+    sd, pend, its 10-float stash, mode, cur and hit_id (100 B).  A TEXG
+    lane reads cur, hit_id, o, d, d_min, its stash, so, sd and pend (140
+    B).  A lane shaded reads depth, seed, pix, tp, rad and prev_spec (49
+    B) and writes mode, cur, hit_id, depth, d_min, o, d, tp, rad,
+    prev_spec and pend (97 B); one that fires a shadow ray also writes
+    so, sd, smax and cont_after_shadow (29 B).  A lane refilled reads
+    rad, out, sample and pix (40 B) and writes out, rad, sample, seed and
+    mode (48 B); one that starts a sample also writes cur, d_min, hit_id,
+    o, d, tp, depth and prev_spec (65 B).  The table counts once, as the
+    walk bounds count theirs: each distinct trimat row the SHADEG lanes
+    hit (148 B) and four texels (48 B, at least) of each distinct tile
+    row the TEXG lanes read.  The light rows, the texture layout and the
+    four totals count once too."""
     mode = s["mode"]
     shadeg = mode == walk.SHADEG
     texg = mode == walk.TEXG
     parked = shadeg & (want["mode"] == walk.TEXG)
     shaded = (shadeg & ~parked) | texg
+    fired = shaded & (want["mode"] == walk.SHADOW)
     refilled = want["sample"] != s["sample"]
+    started = refilled & (want["mode"] != walk.DONE)
     n = lambda m: int(m.sum())
     distinct = lambda v: int(torch.unique(v).numel())
     return (8 * mode.numel() + 36 * n(shadeg) + 100 * n(parked)
-            + 140 * n(texg) + 146 * n(shaded) + 29 * int(counts[1])
-            + 88 * n(refilled) + 65 * int(counts[2])
+            + 140 * n(texg) + 146 * n(shaded) + 29 * n(fired)
+            + 88 * n(refilled) + 65 * n(started)
             + 148 * distinct(s["hit_id"][shadeg & (s["hit_id"] >= 0)])
             + 48 * distinct(s["cur"][texg])
-            + params.lights.numel() * 4 + params.metas.numel() * 8)
+            + params.lights.numel() * 4 + params.metas.numel() * 8
+            + 8 * len(service.TOTALS))
 
 
-def _check_service(label: str, rnd: int, s, r: Renderer, fr) -> dict:
+# A tiny kernel per double-precision call the service kernel makes, built
+# as the kernels are, whose machine code gives the FP64 instructions of
+# one call (fp64_per_call).
+FP64_PROBE = r"""
+#include <math.h>
+extern "C" __global__ void probe_sqrt(const float* x, float* y) {
+  y[threadIdx.x] = (float)sqrt((double)x[threadIdx.x]);
+}
+extern "C" __global__ void probe_cos(const float* x, float* y) {
+  y[threadIdx.x] = (float)cos((double)x[threadIdx.x]);
+}
+extern "C" __global__ void probe_sin(const float* x, float* y) {
+  y[threadIdx.x] = (float)sin((double)x[threadIdx.x]);
+}
+extern "C" __global__ void probe_pow(const float* x, float* y) {
+  y[threadIdx.x] = (float)pow((double)x[threadIdx.x], 5.0);
+}
+"""
+FP64_OPCODES = re.compile(r"^D(ADD|MUL|FMA|SETP|MNMX|SET)\b")
+_fp64_per_call = {}
+
+
+def _fp64_path(lines: list) -> tuple:
+    """FP64 instructions on a probe's straight path: from its entry to
+    its first unpredicated EXIT, following unpredicated jumps and calls
+    (to their RET); predicated branches (the slow paths of special and
+    huge arguments) are not followed.  Returns (on the path, in the
+    whole listing, calls whose target could not be read)."""
+    at = {addr: k for k, (addr, _) in enumerate(lines)}
+    total = sum(bool(FP64_OPCODES.match(op)) for _, op in lines)
+    count = unread = 0
+    stack, k, seen = [], 0, set()
+    while 0 <= k < len(lines) and k not in seen:
+        seen.add(k)
+        op = lines[k][1]
+        predicated = op.startswith("@")
+        word = op.split()[0] if op else ""
+        target = re.search(r"0x([0-9a-f]+)", op)
+        if FP64_OPCODES.match(op):
+            count += 1
+        if not predicated and word == "EXIT" and not stack:
+            break
+        if not predicated and word.startswith("RET") and stack:
+            k = stack.pop()
+            continue
+        if not predicated and word.startswith(("CALL", "BRA")):
+            dest = at.get(int(target.group(1), 16)) if target else None
+            if dest is None:
+                unread += word.startswith("CALL")
+            else:
+                if word.startswith("CALL"):
+                    stack.append(k + 1)
+                k = dest
+                continue
+        k += 1
+    return count, total, unread
+
+
+def fp64_per_call() -> dict:
+    """FP64 instructions (DADD, DMUL, DFMA, DSETP, DMNMX, DSET) of one
+    double sqrt, cos, sin and pow(x, 5.0) as nvcc builds them for the
+    service kernel (sm_90a, --fmad=false): FP64_PROBE's kernels compiled
+    with the kernels' flags and read with cuobjdump -sass (_fp64_path).
+    Computed once a process; logged with each probe's whole listing."""
+    if _fp64_per_call:
+        return _fp64_per_call
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    src = os.path.join(_build.BUILD_DIR, "fp64_probe.cu")
+    cubin = os.path.join(_build.BUILD_DIR, "fp64_probe.cubin")
+    with open(src, "w") as f:
+        f.write(FP64_PROBE)
+    flags = [f for f in _build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    subprocess.run([_build.nvcc(), *flags, "-cubin", "-o", cubin, src],
+                   check=True, capture_output=True, text=True, timeout=300)
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", cubin], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    listings, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            listings[name] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if name and m:
+            listings[name].append((int(m.group(1), 16), m.group(2).strip()))
+    for call in ("sqrt", "cos", "sin", "pow"):
+        path, total, unread = _fp64_path(listings[f"probe_{call}"])
+        if not path:
+            raise AssertionError(f"no FP64 instruction in probe_{call}")
+        log(f"[service] FP64 instructions of one double {call}: {path} on "
+            f"the straight path ({total} in the probe's listing"
+            f"{f'; {unread} calls not followed' if unread else ''})")
+        _fp64_per_call[call] = path
+    return _fp64_per_call
+
+
+def service_work(s, fr):
+    """The plain service pass on ``s`` (persistent.service_plain) and the
+    work its lanes' taken branches give the kernel.  Returns (state
+    after, totals after, work): ``work["lanes"]`` counts the lanes by
+    what they take (SHADEG lanes parked for a texture; ready lanes by
+    branch: specular with roughness 0 or above, transmission by total
+    internal reflection or refraction with roughness 0 or above,
+    diffuse; ready lanes whose path ended before a branch, by whether
+    they retire or restart; camera rays started) and ``work["calls"]``
+    the double sqrt, cos, sin and pow calls and the DMULs of the
+    kernel's code on those lanes.  The branch of each lane is read from
+    the plain pass's own inputs to ops/shade.py scatter (recorded as it
+    runs) with the pass's own functions."""
+    seen = {}
+    real_surface, real_scatter = shade.surface, shade.scatter
+
+    def surface(hitrow, x_hit, d, *args):
+        seen["hitrow"], seen["x_hit"] = hitrow, x_hit
+        return real_surface(hitrow, x_hit, d, *args)
+
+    def scatter(q, d, tp, rad, alive, prev_spec, u, rr_on, scene, cfg):
+        seen.update(q=q, d=d, alive=alive, u=u, rr_on=rr_on)
+        return real_scatter(q, d, tp, rad, alive, prev_spec, u, rr_on, scene,
+                            cfg)
+
+    totals = torch.zeros(len(service.TOTALS), dtype=torch.int64,
+                         device=s["mode"].device)
+    shade.surface, shade.scatter = surface, scatter
+    try:
+        want = persistent.service_plain(s, fr.inline, fr, totals, 0)
+    finally:
+        shade.surface, shade.scatter = real_surface, real_scatter
+    cfg, scene = fr.cfg, fr.scene
+    q, d, u = seen["q"], seen["d"], seen["u"]
+    mode = s["mode"]
+    shadeg = mode == walk.SHADEG
+    ready = (shadeg & (want["mode"] != walk.TEXG)) | (mode == walk.TEXG)
+    # scatter's liveness: a hit that is no emitter and survives roulette.
+    alive = seen["alive"] & ~(q["emission"]
+                              > cfg.emitter_stop_threshold).any(dim=-1)
+    p_live = torch.clamp(q["albedo"].amax(dim=-1), min=cfg.rr_min_p)
+    alive = alive & (~seen["rr_on"] | (u[:, rng.SLOT_RR] < p_live))
+    p_spec, p_trans, _ = shade.pbr_weights(
+        q["albedo"], q["metallic"], q["roughness"], q["transmission"],
+        q["nl"], d)
+    u_b = u[:, rng.SLOT_BRANCH]
+    m_spec = alive & (u_b < p_spec)
+    m_trans = alive & ~m_spec & (u_b < p_spec + p_trans)
+    m_diff = alive & ~m_spec & ~m_trans
+    tir = m_trans & shade.refract_branch(
+        d, q["nrm"], q["nl"], q["ior"], q["roughness"],
+        u[:, rng.SLOT_DIR_R1], u[:, rng.SLOT_DIR_R2])[1]
+    rough = q["roughness"] > 0.0
+    dead = ready & ~alive
+    refilled = want["sample"] != s["sample"]
+    # ops/shade.py smooth_normal's test, for the SHADEG lanes' second sqrt.
+    smooth_ok = torch.zeros_like(shadeg)
+    if cfg.smooth_shading and scene.has_normals:
+        row, x_hit = seen["hitrow"], seen["x_hit"]
+        b1, b2, ok_den = shade.barycentric(row[:, 0:3], row[:, 3:6],
+                                           row[:, 6:9], x_hit)
+        b0 = 1.0 - b1 - b2
+        ns = (row[:, 21:24] * b0[:, None] + row[:, 24:27] * b1[:, None]
+              + row[:, 27:30] * b2[:, None])
+        smooth_ok = shadeg & ok_den & (vec.dot(ns, ns) > 1e-12)
+    n = lambda m: int(m.sum())
+    lanes = dict(
+        shadeg=n(shadeg), parked=n(shadeg & ~ready), ready=n(ready),
+        spec_smooth=n(m_spec & ~rough), spec_rough=n(m_spec & rough),
+        tir=n(tir), trans_smooth=n(m_trans & ~tir & ~rough),
+        trans_rough=n(m_trans & ~tir & rough), diff=n(m_diff),
+        dead_retire=n(dead & (want["mode"] == walk.DONE)),
+        dead_restart=n(dead & (want["mode"] != walk.DONE)),
+        camera=n(refilled & (want["mode"] != walk.DONE)))
+    # The kernel's calls on these lanes: a face normal (1 sqrt) for every
+    # SHADEG lane and a smooth one (1) where smooth_normal keeps it; pow
+    # and the DMUL of pow(., 2) for every live lane; a perturbed
+    # direction (2 sqrt, cos, sin) for specular lanes, total internal
+    # reflection and rough refraction; a refraction (2 sqrt); the light
+    # sample (3 sqrt) and a cosine-weighted direction (4 sqrt, cos, sin)
+    # for diffuse lanes; that direction for a retiring dead lane; a
+    # camera ray (7 sqrt, cos, sin) for every sample started.
+    trans_refr = lanes["trans_smooth"] + lanes["trans_rough"]
+    perturbed = (lanes["spec_smooth"] + lanes["spec_rough"] + lanes["tir"]
+                 + lanes["trans_rough"])
+    hemisphere = lanes["diff"] + lanes["dead_retire"]
+    trig = perturbed + hemisphere + lanes["camera"]
+    calls = dict(
+        sqrt=(lanes["shadeg"] + n(smooth_ok) + 2 * perturbed
+              + 2 * trans_refr + (3 * lanes["diff"] if scene.num_lights
+                                  else 0)
+              + 4 * hemisphere + 7 * lanes["camera"]),
+        cos=trig, sin=trig, pow=n(alive), dmul=n(alive))
+    return want, totals, dict(lanes=lanes, calls=calls)
+
+
+def service_bound(n_bytes: int, calls: dict) -> dict:
+    """The service pass's bound: the larger of its bytes over the memory
+    rate and its FP64 instructions (each a two-operation slot of the
+    FP64 pipe, the rate's FMA) over NVIDIA's FP64 rate for the H100 SXM,
+    34 TFLOP/s."""
+    per = fp64_per_call()
+    fp64 = sum(calls[k] * per[k] for k in per) + calls["dmul"]
+    by_bytes = 1e3 * n_bytes / MEM_BYTES_PER_S
+    by_fp64 = 1e3 * 2 * fp64 / F64_FLOP_PER_S
+    return dict(bound_ms=max(by_bytes, by_fp64),
+                bound_by="bytes" if by_bytes >= by_fp64 else "operations",
+                bytes_ms=by_bytes, fp64_ms=by_fp64, fp64_instructions=fp64)
+
+
+def _check_service(label: str, rnd, s, r: Renderer, fr) -> dict:
     """One state whose walks have ended through the service kernel and
     through its plain version (persistent.service_plain) on the card:
-    every field and the three counters must be equal (-0.0 == 0.0, NaN ==
+    every field and the four totals must be equal (-0.0 == 0.0, NaN ==
     NaN).  Then the kernel's own time, the wrapper's (each call on a
-    fresh copy: the pass writes in place) and the plain version's."""
+    fresh copy: the pass writes in place), the plain version's, and the
+    bound of the work its lanes' taken branches give the kernel
+    (service_work)."""
     inline = r.inline
     modes = torch.bincount(s["mode"], minlength=walk.TEXG + 1).tolist()
     fresh = lambda: {key: val.clone() for key, val in s.items()}
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    want, want_counts = persistent.service_plain(s, inline, fr)
+    persistent.service_plain(s, inline, fr, torch.zeros(
+        len(service.TOTALS), dtype=torch.int64, device=r.device), 0)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t1)
-    run = lambda st: service.service_pass_cuda(st, inline, fr.service)
-    got, counts = run(fresh())
+    want, want_totals, work = service_work(s, fr)
+    totals = torch.zeros_like(want_totals)
+    scratch = torch.zeros_like(want_totals)
+    run = lambda st, t=scratch: service.service_pass_cuda(
+        st, inline, fr.service, t, 0)
+    got = run(fresh(), totals)
     torch.cuda.synchronize()
     fields = [f for f, _, _ in service.FIELDS if f in s]
     bad = [f for f in fields if not _same(got[f], want[f])]
@@ -677,58 +927,72 @@ def _check_service(label: str, rnd: int, s, r: Renderer, fr) -> dict:
                     .nan_to_num(0.0).max()) for f in fields)
     log(f"[service] {label} state (round {rnd}): SHADEG {modes[walk.SHADEG]}"
         f", TEXG {modes[walk.TEXG]}, REFILL {modes[walk.REFILL]}, DONE "
-        f"{modes[walk.DONE]} of {len(s['mode'])} lanes; counters (cont, "
-        f"shadow, start) kernel {counts.tolist()} plain "
-        f"{want_counts.tolist()}; fields differing {bad} (-0.0 == 0.0, NaN "
+        f"{modes[walk.DONE]} of {len(s['mode'])} lanes; totals (path, "
+        f"shadow, live, other slot) kernel {totals.tolist()} plain "
+        f"{want_totals.tolist()}; fields differing {bad} (-0.0 == 0.0, NaN "
         f"== NaN), max abs err {err!r}")
-    if bad or counts.tolist() != want_counts.tolist():
+    if bad or totals.tolist() != want_totals.tolist():
         raise AssertionError(f"the service kernel disagrees with its plain "
                              f"version on the {label} state: {bad}")
     copies = iter([fresh() for _ in range(6)])
     wrapper_ms = _time_ms(lambda: run(next(copies)), reps=5)
     ms = _kernel_ms(lambda: run(fresh()), "service_pass_kernel", reps=10)
     del copies
-    # Operations: an estimate of 400 float32 operations a lane shaded
-    # and 120 a camera ray; the bytes bound it by far.
-    shaded = modes[walk.SHADEG] + modes[walk.TEXG]
     out = dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
                plain_ms=plain_ms, library_ms=None, modes=modes,
-               counts=counts.tolist(),
-               **bound(service_state_bytes(s, want, counts, fr.service),
-                       400 * shaded + 120 * int(counts[2])))
+               totals=totals.tolist(), lanes=work["lanes"],
+               calls=work["calls"],
+               **service_bound(service_state_bytes(s, want, fr.service),
+                               work["calls"]))
+    log(f"[service] {label} state: lanes taking each branch {work['lanes']};"
+        f" double calls {work['calls']}")
     log(f"[service] {label} state: kernel's own time {ms:.4f} ms, wrapper "
         f"{wrapper_ms:.4f} ms, plain {plain_ms:.1f} ms; bound "
-        f"{out['bound_ms']:.5f} ms by {out['bound_by']}")
+        f"{out['bound_ms']:.5f} ms by {out['bound_by']} (bytes "
+        f"{out['bytes_ms']:.5f} ms, FP64 {out['fp64_ms']:.5f} ms: "
+        f"{out['fp64_instructions']} instructions)")
     return out
 
 
-def phase_walk(r: Renderer, params) -> tuple:
-    """quad_walk_cuda against walk_plain over the walk-order rows of
-    ``r`` (a path's Renderer, with its tree and leaf format) in three
-    states of one frame's rounds: the fresh 960,000-lane state (a
-    closest-hit round), the first round with at least SHADOW_LANES_MIN
-    lanes in SHADOW, and the first round with at least LATE_DONE_SHARE
-    of its lanes DONE (threads skip most lanes and refill often); and the
-    service kernel against its plain version on each of these states
-    just after its walk.  Returns the fresh state's walk numbers and
-    each state's service numbers."""
-    inline, k, cfg = r.inline, r.scene.leaf_size, r.cfg
-    fmt = r.scene.leaf_fmt
-    passes = max(1, cfg.quad_redirect_passes)
-    log(f"[walk] {fmt} leaves x{k}: walk-order rows "
-        f"{tuple(inline.walk.shape)}, rows per level "
-        f"{list(inline.walk_levels)}")
+def service_frame(r: Renderer, params, spp: int = 1):
+    """(_Frame, fresh lane state) of a full-width frame of ``r``'s
+    scene, its service parameters packed."""
     cam = params.to(r.device)
-    fr = persistent._Frame(r.scene, inline, cfg, cam, 1, WIDTH, HEIGHT, 1,
-                           1)
+    fr = persistent._Frame(r.scene, r.inline, r.cfg, cam, 1, WIDTH, HEIGHT,
+                           spp, spp)
     fr.service = service.service_params(fr)
     s = persistent.init_lane_ctx(
-        1, 1, torch.arange(WIDTH * HEIGHT, device=r.device), cam, WIDTH,
-        HEIGHT, cfg, with_tstash=inline.tex0 is not None)
-    todo = ["fresh", "shadow", "late"]
-    fresh = None
-    services = {}
+        1, spp, torch.arange(WIDTH * HEIGHT, device=r.device), cam, WIDTH,
+        HEIGHT, r.cfg, with_tstash=r.inline.tex0 is not None)
+    return fr, s
+
+
+def frame_rounds(r: Renderer, fr, s):
+    """Yield (round, state, state after the round's walks) for each round
+    of the frame of ``fr`` from state ``s``, the rounds run with the two
+    kernels as the round loop runs them."""
+    inline, cfg = r.inline, r.cfg
+    passes = max(1, cfg.quad_redirect_passes)
+    totals = torch.zeros(len(service.TOTALS), dtype=torch.int64,
+                         device=r.device)
     for rnd in range(cfg.max_depth * 2 + 2):
+        walked, _ = walk.quad_walk(s, inline.walk, inline.sentinel,
+                                   r.scene.leaf_size, passes,
+                                   inline.walk_levels, fmt=r.scene.leaf_fmt)
+        yield rnd, s, walked
+        s = service.service_pass_cuda(walked, inline, fr.service, totals,
+                                      rnd % 2)
+
+
+def labelled_rounds(r: Renderer, params):
+    """Yield (label, round, fr, state, state after its walks) for three
+    rounds of a full-width frame of ``r``: the fresh 960,000-lane state
+    (a closest-hit round), the first round with at least
+    SHADOW_LANES_MIN lanes in SHADOW, and the first round with at least
+    LATE_DONE_SHARE of its lanes DONE (uncompacted)."""
+    fr, s0 = service_frame(r, params)
+    todo = ["fresh", "shadow", "late"]
+    for rnd, s, walked in frame_rounds(r, fr, s0):
         modes = torch.bincount(s["mode"], minlength=walk.TEXG + 1).tolist()
         walking = modes[walk.TRAVERSE] + modes[walk.SHADOW]
         if rnd == 0:
@@ -739,38 +1003,166 @@ def phase_walk(r: Renderer, params) -> tuple:
               and modes[walk.DONE] >= LATE_DONE_SHARE * WIDTH * HEIGHT):
             label = "late"
         else:
-            label = None
-        if label:
-            res = _check_walk(f"{label} ({fmt})", rnd, s, inline, k, passes,
-                              fmt)
-            fresh = fresh or res
-            todo.remove(label)
-        walked, _ = walk.quad_walk(s, inline.walk, inline.sentinel, k,
-                                   passes, inline.walk_levels, fmt=fmt)
-        if label:
-            services[label] = _check_service(f"{label} ({fmt})", rnd, walked,
-                                             r, fr)
-            if not todo:
-                return fresh, services
-        s = service.service_pass_cuda(walked, inline, fr.service)[0]
+            continue
+        yield label, rnd, fr, s, walked
+        todo.remove(label)
+        if not todo:
+            return
     raise AssertionError(f"no round gave the {todo} states")
+
+
+def phase_walk(r: Renderer, params) -> tuple:
+    """quad_walk_cuda against walk_plain over the walk-order rows of
+    ``r`` (a path's Renderer, with its tree and leaf format) in the three
+    states of labelled_rounds (threads skip most lanes of the late one
+    and refill often), and the service kernel against its plain version
+    on each of these states just after its walk.  Returns the fresh
+    state's walk numbers and each state's service numbers."""
+    inline, k, cfg = r.inline, r.scene.leaf_size, r.cfg
+    fmt = r.scene.leaf_fmt
+    passes = max(1, cfg.quad_redirect_passes)
+    log(f"[walk] {fmt} leaves x{k}: walk-order rows "
+        f"{tuple(inline.walk.shape)}, rows per level "
+        f"{list(inline.walk_levels)}")
+    fresh = None
+    services = {}
+    for label, rnd, fr, s, walked in labelled_rounds(r, params):
+        res = _check_walk(f"{label} ({fmt})", rnd, s, inline, k, passes, fmt)
+        fresh = fresh or res
+        services[label] = _check_service(f"{label} ({fmt})", rnd, walked, r,
+                                         fr)
+    return fresh, services
+
+
+def service_scenes(tmp: str) -> list:
+    """(name, arrays, config) of the [service] frames beyond the [walk]
+    paths': the [features] "lights" scene (17 lights) and the main path's
+    scene at leaf 6 (quad rows of 82 floats, so two trimat rows a table
+    row)."""
+    lights, knobs = _feature_scene(tmp, "lights")
+    return [("17 lights", lights,
+             RenderConfig(width=WIDTH, height=HEIGHT, spp=1, **knobs)),
+            ("pack 2", main_path_arrays(),
+             RenderConfig(width=WIDTH, height=HEIGHT, spp=1,
+                          bvh_leaf_size=6))]
+
+
+def mixed_arrays():
+    """The main path's scene (Cornell box, checker-textured back wall,
+    the rough metal icosphere) with a mirror cube (roughness 0), a clear
+    glass cube (roughness 0) and a frosted one (roughness 0.3), so that
+    every branch of the shade has lanes."""
+    scene = cornell_with(*icosphere_mesh(5, 15.0), (50.0, 20.0, 50.0),
+                         albedo=(0.75, 0.75, 0.75), metallic=1.0,
+                         roughness=0.1)
+    v0, v1, v2 = cube_mesh(10.0)
+    for off, mat in (((10, 10, 80), dict(metallic=1.0, roughness=0.0)),
+                     ((85, 10, 80), dict(ior=1.5, transmission=1.0)),
+                     ((50, 60, 100), dict(ior=1.5, transmission=1.0,
+                                          roughness=0.3))):
+        o = np.asarray(off, np.float32)
+        for a, b, c in zip(v0 + o, v1 + o, v2 + o):
+            scene.objects.append(Object(v0=tuple(a), v1=tuple(b),
+                                        v2=tuple(c),
+                                        albedo=(0.95, 0.95, 0.95), **mat))
+    return flatten_scene(scene, textures=[checker_texture(256)])
+
+
+def mixed_state(r: Renderer, params, w: int, h: int, seed: int) -> tuple:
+    """(_Frame, state) of w * h lanes over ``r``'s scene (mixed_arrays)
+    made from ``seed``: every warp of 32 lanes holds SHADEG, TEXG,
+    REFILL, DONE, TRAVERSE and SHADOW lanes in a shuffled order; a SHADEG
+    lane hits a triangle of one material class (diffuse, textured,
+    mirror, rough metal, clear glass, frosted glass, emitter), at a
+    random point of it from a random direction (so rays leave the glass
+    too, and some reflect totally), or misses; depths span Russian
+    roulette, samples retire or restart (MIXED_SPP samples a pixel), and
+    radiance sums hold NaN, inf, negative and firefly values."""
+    n = w * h
+    if n % 32:
+        raise ValueError(f"{n} lanes are not whole warps")
+    dev, cfg, inline = r.device, r.cfg, r.inline
+    cam = params.to(dev)
+    fr = persistent._Frame(r.scene, inline, cfg, cam, 1, w, h, MIXED_SPP,
+                           MIXED_SPP)
+    rs = np.random.RandomState(seed)
+    pattern = ([walk.SHADEG] * 12 + [walk.TEXG] * 5 + [walk.REFILL] * 6
+               + [walk.DONE, walk.TRAVERSE, walk.SHADOW] * 3)
+    mode = np.concatenate([rs.permutation(pattern) for _ in range(n // 32)])
+    tm_rows = r.scene.trimat.cpu().numpy()
+    emitter = (tm_rows[:, 12:15] > 0).any(axis=1)
+    metal, rough = tm_rows[:, 15] > 0, tm_rows[:, 16] > 0
+    glass, textured = tm_rows[:, 18] > 0, tm_rows[:, 19] >= 0
+    classes = [np.flatnonzero(m) for m in (
+        ~emitter & ~metal & ~glass & ~textured, textured,
+        metal & ~rough, metal & rough, glass & ~rough, glass & rough,
+        emitter)]
+    if not all(len(c) for c in classes):
+        raise AssertionError("the scene lacks a material class")
+    shadeg = np.flatnonzero(mode == walk.SHADEG)
+    pick = rs.randint(0, len(classes), shadeg.size)
+    hit = np.full(n, -1, np.int64)
+    hit[shadeg] = [c[rs.randint(len(c))] for c in
+                   (classes[k] for k in pick)]
+    hit[shadeg[rs.rand(shadeg.size) < 1 / 16]] = -1  # misses
+    d = rs.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    bary = rs.dirichlet((1.0, 1.0, 1.0), n).astype(np.float32)
+    tri = tm_rows[np.maximum(hit, 0), 0:9].reshape(n, 3, 3)
+    x_hit = (bary[:, :, None] * tri).sum(axis=1)
+    d_min = rs.uniform(1.0, 100.0, n).astype(np.float32)
+    o = (x_hit - d * d_min[:, None]).astype(np.float32)
+    cur = np.zeros(n, np.int64)
+    texg = mode == walk.TEXG
+    tiles = int(inline.table.shape[0]) - inline.tex0
+    cur[texg] = inline.tex0 + rs.randint(0, tiles, int(texg.sum()))
+    hit[texg] = rs.randint(0, 16, int(texg.sum()))
+    rad = rs.uniform(0.0, 3.0, (n, 3)).astype(np.float32)
+    bad = rs.choice(6, n, p=[0.6, 0.08, 0.08, 0.08, 0.08, 0.08])
+    rad[bad == 1, 0] = np.nan
+    rad[bad == 2, 1] = np.inf
+    rad[bad == 3, 2] = -1.0
+    rad[bad == 4] = 500.0
+    unit = lambda: _unit_rows(rs, n)
+    tstash = np.concatenate([
+        rs.uniform(0, 1, (n, 3)), rs.choice([0.0, 0.5, 1.0], (n, 1)),
+        rs.uniform(0, 1, (n, 1)), rs.uniform(1, 2, (n, 1)),
+        rs.choice([0.0, 1.0], (n, 1)), rs.uniform(0, 1, (n, 2)),
+        rs.choice([0.0, 1.0], (n, 1))], axis=1).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    s = persistent.init_lane_ctx(1, MIXED_SPP, torch.arange(n, device=dev),
+                                 cam, w, h, cfg, with_tstash=True)
+    s.update(
+        mode=t(mode), hit_id=t(hit), d_min=t(d_min), cur=t(cur), o=t(o),
+        d=t(d), rad=t(rad), tstash=t(tstash),
+        depth=t(rs.randint(0, cfg.max_depth, n).astype(np.int64)),
+        sample=t(rs.randint(0, MIXED_SPP, n).astype(np.int64)),
+        tp=t(rs.uniform(0.1, 1.0, (n, 3)).astype(np.float32)),
+        prev_spec=t(rs.rand(n) < 0.5),
+        cont_after_shadow=t(rs.rand(n) < 0.5), so=t(unit()), sd=t(unit()),
+        smax=t(rs.uniform(1, 100, n).astype(np.float32)),
+        pend=t(np.where(rs.rand(n, 1) < 0.2, 5.0, 0.0).astype(np.float32)
+               * np.ones((1, 3), np.float32)),
+        out=t(rs.uniform(0, 2, (n, 3)).astype(np.float32)))
+    return fr, s
+
+
+def _unit_rows(rs, n: int) -> np.ndarray:
+    v = rs.normal(size=(n, 3))
+    return (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32)
 
 
 def phase_service(params) -> dict:
     """The service kernel against its plain version on states of two
-    more full-width frames, each just after a round's walks: the
-    [features] "lights" scene (17 lights) and the main path's scene at
-    leaf 6 (quad rows of 82 floats, so two trimat rows a table row),
-    at the rounds SERVICE_ROUNDS."""
+    more full-width frames (service_scenes), each just after the walks
+    of the rounds SERVICE_ROUNDS, and on the seed-made mixed state
+    (mixed_state at 1200x800, every warp mixing every mode and taking
+    every branch).  Logs the kernel's registers, stack and spills."""
+    build = ptxas_numbers(service.LIBRARY.compiler_log, "service_pass_kernel")
+    log(f"[service] kept build: {build}")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        lights, knobs = _feature_scene(tmp, "lights")
-        runs = (("17 lights", lights,
-                 RenderConfig(width=WIDTH, height=HEIGHT, spp=1, **knobs)),
-                ("pack 2", main_path_arrays(),
-                 RenderConfig(width=WIDTH, height=HEIGHT, spp=1,
-                              bvh_leaf_size=6)))
-        for name, arrays, cfg in runs:
+        for name, arrays, cfg in service_scenes(tmp):
             r = Renderer(arrays, cfg=cfg)
             inline = r.inline
             log(f"[service] {name}: {arrays.num_objects} triangles, "
@@ -781,23 +1173,23 @@ def phase_service(params) -> dict:
                 raise AssertionError(f"pack {inline.pack}, not 2")
             if name == "17 lights" and r.scene.num_lights != 17:
                 raise AssertionError(f"{r.scene.num_lights} lights")
-            cam = params.to(r.device)
-            fr = persistent._Frame(r.scene, inline, cfg, cam, 1, WIDTH,
-                                   HEIGHT, 1, 1)
-            fr.service = service.service_params(fr)
-            s = persistent.init_lane_ctx(
-                1, 1, torch.arange(WIDTH * HEIGHT, device=r.device), cam,
-                WIDTH, HEIGHT, cfg, with_tstash=inline.tex0 is not None)
-            for rnd in range(max(SERVICE_ROUNDS) + 1):
-                s, _ = walk.quad_walk(s, inline.walk, inline.sentinel,
-                                      r.scene.leaf_size, 1,
-                                      inline.walk_levels,
-                                      fmt=r.scene.leaf_fmt)
+            fr, s0 = service_frame(r, params)
+            for rnd, _, walked in frame_rounds(r, fr, s0):
                 if rnd in SERVICE_ROUNDS:
                     out[f"{name}, round {rnd}"] = _check_service(
-                        name, rnd, s, r, fr)
-                s = service.service_pass_cuda(s, inline, fr.service)[0]
-            del r, s, fr
+                        name, rnd, walked, r, fr)
+                if rnd == max(SERVICE_ROUNDS):
+                    break
+            del r, walked, fr, s0
+    r = Renderer(mixed_arrays(), cfg=RenderConfig(width=WIDTH, height=HEIGHT,
+                                                  spp=1))
+    fr, s = mixed_state(r, params, WIDTH, HEIGHT, MIXED_SEED)
+    fr.service = service.service_params(fr)
+    res = _check_service("mixed", "-", s, r, fr)
+    empty = [k for k, v in res["lanes"].items() if not v]
+    if empty:
+        raise AssertionError(f"the mixed state has no lanes taking {empty}")
+    out["mixed"] = res
     return out
 
 
@@ -1438,6 +1830,18 @@ def _small_feature_checks(tmp: str) -> dict:
     return out
 
 
+def features_scene_args(tmp: str) -> tuple:
+    """The ``tpurt-torch render`` scene arguments of [features] (the
+    Cornell box and an icosphere(5) with UVs written to an .obj in
+    ``tmp``; smooth shading, UV mapping, "mt" leaves, SBVH) and the
+    icosphere's triangles."""
+    obj = os.path.join(tmp, "icosphere_uv.obj")
+    n_tris = write_icosphere_obj(obj, 5, uv=True)
+    return ["--scene", "cornell", "--obj", f"{obj}:15:50,20,50",
+            "--smooth", "--uv", "--leaf-isect", "mt", "--bvh-method",
+            "sbvh", "--width", str(WIDTH), "--height", str(HEIGHT)], n_tris
+
+
 def phase_features(r: Renderer, params, tmp: str) -> dict:
     """The features past the default path.
       - ``tpurt-torch render --scene cornell --obj <icosphere(5) with UVs>
@@ -1455,11 +1859,7 @@ def phase_features(r: Renderer, params, tmp: str) -> dict:
     checks."""
     _zero_counts()
     t_phase = time.perf_counter()
-    obj = os.path.join(tmp, "icosphere_uv.obj")
-    n_tris = write_icosphere_obj(obj, 5, uv=True)
-    scene = ["--scene", "cornell", "--obj", f"{obj}:15:50,20,50",
-             "--smooth", "--uv", "--leaf-isect", "mt", "--bvh-method",
-             "sbvh", "--width", str(WIDTH), "--height", str(HEIGHT)]
+    scene, n_tris = features_scene_args(tmp)
     ppm, npz = os.path.join(tmp, "features.ppm"), os.path.join(tmp, "f.npz")
     res = _cli(["render", *scene, "--frames", str(FEATURE_FRAMES), "--out",
                 ppm, "--checkpoint", npz])
@@ -1467,8 +1867,8 @@ def phase_features(r: Renderer, params, tmp: str) -> dict:
     dt = float(re.search(r"spp, ([0-9.]+)s\)$", res["stdout"]).group(1))
     with np.load(npz) as z:
         sums = z["accum"]
-    args = cli.build_parser().parse_args(["render", *scene])
-    arrays = cli.build_scene_arrays(args)
+    arrays = cli.build_scene_arrays(
+        cli.build_parser().parse_args(["render", *scene]))
     mesh = arrays.uv_mask > 0
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=1, **FEATURE_CFG)
     t0 = time.perf_counter()
@@ -2110,7 +2510,14 @@ def main() -> int:
              tiled_launches=tiled["service_launches"],
              **path_counts("service"),
              **{k: serviced["fresh"][k] for k in keys},
-             states={label: {k: res[k] for k in (*keys, "modes", "counts")}
+             bytes_ms=serviced["fresh"]["bytes_ms"],
+             fp64_ms=serviced["fresh"]["fp64_ms"],
+             build=ptxas_numbers(service.LIBRARY.compiler_log,
+                                 "service_pass_kernel"),
+             fp64_per_call=fp64_per_call(),
+             states={label: {k: res[k] for k in (
+                         *keys, "bytes_ms", "fp64_ms", "fp64_instructions",
+                         "modes", "totals", "lanes", "calls")}
                      for label, res in (
                          *((f"main {x}", y) for x, y in serviced.items()),
                          *((f"features {x}", y)

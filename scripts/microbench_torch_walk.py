@@ -37,7 +37,7 @@ from tryraytrace_tpu_torch.camera.controller import CameraController  # noqa: E4
 from tryraytrace_tpu_torch.config import RenderConfig  # noqa: E402
 from tryraytrace_tpu_torch.engine import persistent  # noqa: E402
 from tryraytrace_tpu_torch.engine.renderer import Renderer  # noqa: E402
-from tryraytrace_tpu_torch.ops import _build, walk  # noqa: E402
+from tryraytrace_tpu_torch.ops import _build, service, walk  # noqa: E402
 
 # Benchmark builds beside the port's own (label, -D flags).
 BUILDS = (("port", ()),
@@ -61,9 +61,11 @@ def states(r: Renderer, params):
                                  with_tstash=inline.tex0 is not None)
     yield "fresh", s
     passes = max(1, cfg.quad_redirect_passes)
-    for _ in range(cfg.max_depth * 2 + 1):
-        s = persistent._round_quad(s, inline, r.scene.leaf_size, fr,
-                                   passes)[0]
+    totals = torch.zeros(len(service.TOTALS), dtype=torch.int64,
+                         device=r.device)
+    for rnd in range(cfg.max_depth * 2 + 1):
+        s = persistent._round_quad(s, inline, r.scene.leaf_size, fr, passes,
+                                   totals, rnd % 2)[0]
         if int((s["mode"] == walk.SHADOW).sum()) >= \
                 chip_smoke.SHADOW_LANES_MIN:
             yield "shadow", s

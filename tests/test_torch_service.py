@@ -11,15 +11,25 @@
     negatives, fireflies), DONE lanes; over textures on and off, smooth
     shading and UV mapping on and off, 0, 1 and 17 lights, one or two
     trimat rows a table row, and the firefly clamp on and off;
+  - the wave's totals (ops/service.py TOTALS): the plain pass adds its
+    paths continued and camera rays started, and its shadow rays, to the
+    running totals and leaves the count of lanes not DONE in the round's
+    slot, zeroing the other; a whole ``Wave`` (the round loop in one
+    call and in calls of three rounds, and the interleaved loop) gives
+    the rounds, rays, rows and sums it gave before the kernel kept the
+    counts (recorded on commit 3b52d7a, where the engine added them on
+    the host);
   - the dispatch: on the CPU the round loop takes the plain version and
     never loads the kernel;
   - the host packing of the kernel's parameters;
   - on a card (``cuda``-marked, skipped elsewhere): the kernel against
-    the plain version on the same states, a round on the card taking
-    the kernel, and the wrapper's refusals.
+    the plain version on the same states and on a state whose every
+    warp mixes every mode and takes every branch, a round on the card
+    taking the kernel and launching nothing for its counts, and the
+    wrapper's refusals.
 
 Tolerance against the JAX block: every int and bool field and both ray
-counts exactly; float fields within the JAX engine test's _ULP (rtol
+totals exactly; float fields within the JAX engine test's _ULP (rtol
 2e-6, atol 1e-6; NaN equal to NaN).  The JAX block runs op by op, but it
 takes cos, sin and pow in float32 where the port goes through float64
 (core/vec.py), so a few directions and throughputs differ in the last
@@ -32,6 +42,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from tryraytrace_tpu_torch.camera.controller import CameraController
 from tryraytrace_tpu_torch.config import RenderConfig
 from tryraytrace_tpu_torch.engine import persistent
@@ -51,6 +62,14 @@ torch.set_num_threads(1)
 W, H = 24, 16          # 384 lanes
 FRAME = 5
 SPP_CAP, SEED_SPP, SAMPLE_OFFSET = 2, 3, 1
+# A whole wave over the "base" scene at WAVE_W x WAVE_H (wider than
+# persistent.MIN_COMPACT_WIDTH, so it compacts), SPP_CAP samples: its
+# rounds (steps for the interleaved loop), path rays, shadow rays, rows
+# fetched, sum of the sums and completed samples, as commit 3b52d7a
+# (counts added on the host) gives them on the CPU.
+WAVE_W, WAVE_H = 48, 32
+WAVE_NUMBERS = dict(rounds=39, steps=232, path=21820, shadow=13078,
+                    rows=107325, sums=1213.539698491064, samples=3072)
 # name -> (textured, lights, leaf size (4: one trimat row a table row,
 # 8: two), smooth shading, UV mapping, firefly clamp)
 CASES = {
@@ -263,7 +282,8 @@ def test_plain_pass_matches_jax_service_block(name, sphere_obj):
                                   walk.TRAVERSE, walk.SHADOW))
     assert bool(modes[walk.TEXG]) == CASES[name][0]
     want = _jax_service(arrays, r, fr, s)
-    got, counts = persistent.service_plain(s, r.inline, fr)
+    totals = torch.zeros(len(service.TOTALS), dtype=torch.int64)
+    got = persistent.service_plain(s, r.inline, fr, totals, 0)
     for key, _, _ in service.FIELDS:
         if key not in got:
             continue
@@ -274,18 +294,79 @@ def test_plain_pass_matches_jax_service_block(name, sphere_obj):
                                        equal_nan=True, err_msg=key)
         else:
             np.testing.assert_array_equal(mine, theirs, err_msg=key)
-    cont, shadow, start = (int(c) for c in counts)
-    assert cont + start == int(want["n_traced"])
+    path, shadow, live, other = totals.tolist()
+    assert path == int(want["n_traced"])
     assert shadow == int(want["n_shadow"])
-    # Every kind of lane was there to serve.
+    assert live == int((got["mode"] != walk.DONE).sum()) and other == 0
+    # Every kind of lane was there to serve: paths continued, samples
+    # started and shadow rays fired.
     new = torch.bincount(got["mode"], minlength=walk.TEXG + 1).tolist()
+    served = (s["mode"] == walk.SHADEG) | (s["mode"] == walk.TEXG)
+    walking = (got["mode"] == walk.TRAVERSE) | (got["mode"] == walk.SHADOW)
+    started = (got["sample"] != s["sample"]) & (got["mode"] != walk.DONE)
     assert shadow > 0 or CASES[name][1] == 0
-    assert cont > 0 and start > 0
+    assert bool((served & walking).any()) and bool(started.any())
     assert new[walk.DONE] > modes[walk.DONE]
     if CASES[name][0]:
         # Textured hits were parked: TEXG lanes remain after the pass.
         assert new[walk.TEXG] > 0
     assert (got["mode"] != s["mode"]).any()
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_plain_pass_adds_the_round_totals_and_live_count(name, sphere_obj):
+    _, r, fr, s = _case(sphere_obj, name)
+    # The pass's counts as the eager block returns them.
+    idx, live_g, live_x = persistent._service_select(
+        s, torch.zeros_like(s["cur"]), r.inline)
+    want, cont, shadow, start = persistent._service_shade(
+        s, s, r.inline.table[idx], live_g, live_x, fr)
+    live = int((want["mode"] != walk.DONE).sum())
+    assert 0 < live < len(s["mode"])
+    for slot in (0, 1):
+        totals = torch.tensor([1000, 77, 0, 0], dtype=torch.int64)
+        totals[service.LIVE + 1 - slot] = 5
+        got = persistent.service_plain(s, r.inline, fr, totals, slot)
+        want_totals = [1000 + int(cont) + int(start), 77 + int(shadow), 0, 0]
+        want_totals[service.LIVE + slot] = live
+        assert totals.tolist() == want_totals
+        assert all(_same(got[key], want[key]) for key in want)
+
+
+@pytest.mark.parametrize("split", [None, 3])
+def test_wave_gives_the_rounds_rays_rows_and_sums_of_before(split,
+                                                             sphere_obj):
+    arrays = _arrays(sphere_obj, True, 1)
+    cfg = RenderConfig(width=WAVE_W, height=WAVE_H, spp=SPP_CAP)
+    r = Renderer(arrays, cfg=cfg, device="cpu")
+    cam = CameraController().get_params(WAVE_W, WAVE_H)
+    n = WAVE_W * WAVE_H
+    assert n > persistent.MIN_COMPACT_WIDTH
+    runs = [("rounds", persistent._round_quad, 1, split)]
+    if split is None:
+        runs.append(("steps", persistent._step_quad,
+                     persistent.LIVE_CHECK_EVERY, None))
+    for key, round_fn, every, per_call in runs:
+        w = persistent.Wave(r.scene, r.inline, cam, FRAME, WAVE_W, WAVE_H,
+                            cfg, torch.arange(n), SPP_CAP, SEED_SPP,
+                            round_fn, every, SAMPLE_OFFSET)
+        calls = 1
+        while not w.advance(per_call):
+            calls += 1
+        assert calls == (1 if per_call is None else
+                         -(-WAVE_NUMBERS["rounds"] // per_call))
+        assert w.state["mode"].shape[0] < n  # the wave compacted
+        sums, samples = w.read()
+        st = w.stats()
+        assert st["iterations"] == WAVE_NUMBERS[key]
+        assert (int(st["n_traced"]), int(st["n_shadow"]),
+                int(st["rows_fetched"])) == tuple(
+                    WAVE_NUMBERS[k] for k in ("path", "shadow", "rows"))
+        assert float(sums.double().sum()) == WAVE_NUMBERS["sums"]
+        assert int(samples.sum()) == WAVE_NUMBERS["samples"] == n * SPP_CAP
+        # The totals are the wave's, read without being consumed.
+        assert int(w.n_traced) == WAVE_NUMBERS["path"]
+        assert w.totals[service.LIVE:].tolist() == [0, 0]
 
 
 def test_round_loop_on_the_cpu_never_loads_a_kernel(monkeypatch,
@@ -296,19 +377,22 @@ def test_round_loop_on_the_cpu_never_loads_a_kernel(monkeypatch,
     monkeypatch.setattr(KernelLibrary, "load", refuse)
     _, r, fr, s = _case(sphere_obj, "base")
     before = service.service_pass_cuda.launches
-    got, tr, sh, rows = persistent._round_quad(s, r.inline,
-                                               r.scene.leaf_size, fr)
-    want, counts = persistent.service_plain(
-        walk.walk_plain(s, r.inline.walk, r.inline.sentinel,
-                        r.scene.leaf_size, fmt=r.scene.leaf_fmt)[0],
-        r.inline, fr)
+    totals = torch.zeros(len(service.TOTALS), dtype=torch.int64)
+    want_totals = totals.clone()
+    got, rows = persistent._round_quad(s, r.inline, r.scene.leaf_size, fr,
+                                       1, totals, 1)
+    walked, want_rows = walk.walk_plain(s, r.inline.walk, r.inline.sentinel,
+                                        r.scene.leaf_size,
+                                        fmt=r.scene.leaf_fmt)
+    want = persistent.service_plain(walked, r.inline, fr, want_totals, 1)
     assert all(_same(got[key], want[key]) for key in want)
-    assert int(tr) == int(counts[0]) + int(counts[2])
-    assert int(sh) == int(counts[1])
+    assert totals.tolist() == want_totals.tolist()
+    assert int(rows) == int(want_rows)
     assert fr.service is None
     assert service.service_pass_cuda.launches == before
     with pytest.raises(ValueError, match="CUDA"):
-        service.service_pass_cuda(s, r.inline, service.service_params(fr))
+        service.service_pass_cuda(s, r.inline, service.service_params(fr),
+                                  totals, 0)
 
 
 @pytest.mark.parametrize("name", ["base", "all", "no_lights_pack2"])
@@ -375,22 +459,55 @@ def _need_card():
         pytest.skip("the CUDA service kernel runs only on a CUDA device")
 
 
+def _kernel_against_plain(s, inline, fr, slot=0):
+    """The kernel and the plain pass on copies of ``s`` from the same
+    totals: every field equal (tolerance 0, -0.0 == 0.0) and the totals
+    equal.  Returns the plain pass's state and totals."""
+    start = torch.tensor([1000, 77, 0, 0], dtype=torch.int64,
+                         device=s["mode"].device)
+    start[service.LIVE + 1 - slot] = 5
+    want_totals, totals = start.clone(), start.clone()
+    want = persistent.service_plain(s, inline, fr, want_totals, slot)
+    before = service.service_pass_cuda.launches
+    got = service.service_pass_cuda(
+        {key: val.clone() for key, val in s.items()}, inline,
+        service.service_params(fr), totals, slot)
+    torch.cuda.synchronize()
+    assert service.service_pass_cuda.launches == before + 1
+    bad = [key for key, _, _ in service.FIELDS
+           if key in want and not _same(got[key], want[key])]
+    assert not bad
+    assert totals.tolist() == want_totals.tolist()
+    return want, want_totals
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(CASES))
 def test_cuda_kernel_matches_plain_version(name, sphere_obj):
     _need_card()
     _, r, fr, s = _case(sphere_obj, name, device="cuda")
-    want, want_counts = persistent.service_plain(s, r.inline, fr)
-    before = service.service_pass_cuda.launches
-    got, counts = service.service_pass_cuda(
-        {key: val.clone() for key, val in s.items()}, r.inline,
-        service.service_params(fr))
-    torch.cuda.synchronize()
-    assert service.service_pass_cuda.launches == before + 1
-    for key, _, _ in service.FIELDS:
-        if key in want:
-            assert _same(got[key], want[key]), key
-    assert counts.tolist() == want_counts.tolist()
+    for slot in (0, 1):
+        _kernel_against_plain(s, r.inline, fr, slot)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain_version_on_mixed_warps():
+    _need_card()
+    w, h = 32, 24
+    r = Renderer(chip_smoke.mixed_arrays(),
+                 cfg=RenderConfig(width=w, height=h, spp=1), device="cuda")
+    fr, s = chip_smoke.mixed_state(r, CameraController().get_params(w, h),
+                                   w, h, seed=3)
+    mode = s["mode"].view(-1, 32)
+    for m in (walk.SHADEG, walk.TEXG, walk.REFILL, walk.DONE, walk.TRAVERSE,
+              walk.SHADOW):
+        assert bool((mode == m).any(dim=1).all()), m  # in every warp
+    want, _ = _kernel_against_plain(s, r.inline, fr)
+    work = chip_smoke.service_work(s, fr)[2]
+    for key in ("spec_smooth", "spec_rough", "trans_smooth", "trans_rough",
+                "tir", "diff", "dead_retire", "dead_restart", "parked",
+                "camera"):
+        assert work["lanes"][key] > 0, key
 
 
 @pytest.mark.cuda
@@ -400,10 +517,14 @@ def test_cuda_round_takes_the_kernel(sphere_obj):
     k, fmt = r.scene.leaf_size, r.scene.leaf_fmt
     walked = walk.walk_plain(s, r.inline.walk, r.inline.sentinel, k,
                              fmt=fmt)[0]
-    want, counts = persistent.service_plain(walked, r.inline, fr)
+    want_totals = torch.zeros(len(service.TOTALS), dtype=torch.int64,
+                              device="cuda")
+    totals = want_totals.clone()
+    want = persistent.service_plain(walked, r.inline, fr, want_totals, 0)
     before = service.service_pass_cuda.launches
-    got, tr, sh, _ = persistent._round_quad(
-        {key: val.clone() for key, val in s.items()}, r.inline, k, fr)
+    got, _ = persistent._round_quad(
+        {key: val.clone() for key, val in s.items()}, r.inline, k, fr, 1,
+        totals, 0)
     torch.cuda.synchronize()
     assert service.service_pass_cuda.launches == before + 1
     assert fr.service is not None
@@ -412,8 +533,49 @@ def test_cuda_round_takes_the_kernel(sphere_obj):
     bad = [key for key, _, _ in service.FIELDS
            if key in want and not _same(got[key], want[key])]
     assert not bad
-    assert int(tr) == int(counts[0]) + int(counts[2])
-    assert int(sh) == int(counts[1])
+    assert totals.tolist() == want_totals.tolist()
+
+
+def _kernels(fn) -> list:
+    """The names of the CUDA kernels ``fn`` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted(e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith("Memcpy")
+                  and not e.name.startswith("Memset"))
+
+
+@pytest.mark.cuda
+def test_cuda_round_launches_nothing_for_its_counts(sphere_obj):
+    """A round that does not compact launches the walk wrapper's kernels,
+    the service kernel and the add of the walk's rows, and nothing for
+    the ray totals or the live count."""
+    _need_card()
+    arrays = _arrays(sphere_obj, True, 1)
+    cfg = RenderConfig(width=WAVE_W, height=WAVE_H, spp=SPP_CAP)
+    r = Renderer(arrays, cfg=cfg, device="cuda")
+    cam = CameraController().get_params(WAVE_W, WAVE_H)
+    n = WAVE_W * WAVE_H
+    wave = persistent.Wave(r.scene, r.inline, cam, FRAME, WAVE_W, WAVE_H,
+                           cfg, torch.arange(n, device="cuda"), SPP_CAP,
+                           SEED_SPP)
+    wave.advance(1)  # builds the service parameters and the walk's plan
+    state = {key: val.clone() for key, val in wave.state.items()}
+    in_round = _kernels(lambda: wave.advance(1))
+    assert wave.rounds == 2 and wave.state["mode"].shape[0] == n
+    in_walk = _kernels(lambda: walk.quad_walk(
+        state, r.inline.walk, r.inline.sentinel, r.scene.leaf_size, 1,
+        r.inline.walk_levels, fmt=r.scene.leaf_fmt))
+    extra = list(in_round)
+    for name in in_walk:
+        extra.remove(name)
+    assert len(extra) == 2, extra
+    assert sum("service_pass_kernel" in name for name in extra) == 1, extra
 
 
 @pytest.mark.cuda
@@ -421,20 +583,26 @@ def test_cuda_wrapper_refuses_what_the_kernel_cannot_take(sphere_obj):
     _need_card()
     _, r, fr, s = _case(sphere_obj, "base", device="cuda")
     params = service.service_params(fr)
+    totals = torch.zeros(len(service.TOTALS), dtype=torch.int64,
+                         device="cuda")
+    run = lambda st, inline=r.inline, t=totals, slot=0: \
+        service.service_pass_cuda(st, inline, params, t, slot)
     cpu = {key: val.cpu() for key, val in s.items()}
     with pytest.raises(ValueError, match="state field 'mode'"):
-        service.service_pass_cuda(cpu, r.inline, params)
+        run(cpu)
     with pytest.raises(ValueError, match="'mode'"):
-        service.service_pass_cuda({**s, "mode": s["mode"].to(torch.int32)},
-                                  r.inline, params)
+        run({**s, "mode": s["mode"].to(torch.int32)})
     with pytest.raises(ValueError, match="'o'"):
-        service.service_pass_cuda({**s, "o": s["o"][:-1]}, r.inline, params)
+        run({**s, "o": s["o"][:-1]})
     with pytest.raises(ValueError, match="'d'"):
-        service.service_pass_cuda({**s, "d": s["d"].t().contiguous().t()},
-                                  r.inline, params)
+        run({**s, "d": s["d"].t().contiguous().t()})
     with pytest.raises(ValueError, match="'tstash'"):
-        service.service_pass_cuda({**s, "tstash": s["tstash"][:, :9]},
-                                  r.inline, params)
+        run({**s, "tstash": s["tstash"][:, :9]})
     other = persistent.build_inline_table(r.scene, r.textures)
     with pytest.raises(ValueError, match="another table"):
-        service.service_pass_cuda(s, other, params)
+        run(s, inline=other)
+    for bad in (totals[:3], totals.to(torch.int32), totals.cpu()):
+        with pytest.raises(ValueError, match="totals"):
+            run(s, t=bad)
+    with pytest.raises(ValueError, match="slot"):
+        run(s, slot=2)

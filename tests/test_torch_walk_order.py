@@ -22,7 +22,7 @@ from tryraytrace_tpu_torch.camera.controller import CameraController
 from tryraytrace_tpu_torch.config import RenderConfig
 from tryraytrace_tpu_torch.engine import persistent
 from tryraytrace_tpu_torch.engine.renderer import Renderer
-from tryraytrace_tpu_torch.ops import walk
+from tryraytrace_tpu_torch.ops import service, walk
 from tryraytrace_tpu_torch.ops.traverse import MISS_T
 from tryraytrace_tpu_torch.scene.assets import checker_texture, icosphere_mesh
 from tryraytrace_tpu_torch.scene.cornell import create_cornell_box
@@ -205,12 +205,13 @@ def test_round_loop_walks_the_copy_and_the_unified_table_agrees(
 
     monkeypatch.setattr(persistent, "quad_walk", spy)
     shadow_rounds = 0
-    for _ in range(6):
+    totals = torch.zeros(len(service.TOTALS), dtype=torch.int64)
+    for rnd in range(6):
         want, want_rows = walk.walk_plain(s, inline.table, inline.sentinel,
                                           k, fmt="bw")
         got, rows = walk.walk_plain(s, inline.walk, inline.sentinel, k,
                                     fmt="bw")
         _assert_same_walk(got, rows, want, want_rows)
         shadow_rounds += bool((s["mode"] == walk.SHADOW).any())
-        s = persistent._round_quad(s, inline, k, fr)[0]
+        s = persistent._round_quad(s, inline, k, fr, 1, totals, rnd % 2)[0]
     assert seen == [(True, True, True)] * 6 and shadow_rounds >= 2

@@ -32,24 +32,61 @@
 //     next sample (seed schedule, camera ray) or retire the lane.
 // DONE, TRAVERSE and SHADOW lanes cost a thread one mode read.
 //
-// What bounds it on this card.  The pass does little arithmetic per byte:
-// a serviced lane reads and writes its state (about 200 bytes each way in
-// the engine's layout: int64 mode, cur, hit_id, depth, sample, seed,
-// pix; float [n, 3] vectors; the 10-float texture stash) plus one 148-
-// or 300-byte material row or a 300-byte tile row, which come from L2
-// (the unified table is ~10 MB on the main path, and lanes that hit one
-// triangle share its row).  So it is bound by bytes: the state of an
-// early round of 960,000 lanes, a few hundred MB, and each distinct row
-// once.
-// What the design does about it: one thread a lane, so a lane's state is
-// read once and written once, in the round that needs it, and a lane the
-// round does not service reads 8 bytes; nothing is staged, because no
-// row is shared by the lanes of a warp.  The per-round constants
-// (camera, configuration, light rows, texture layout) arrive by value
-// in the launch's parameters or in two small arrays built once a frame.
-// Counters: each block counts its lanes with __syncthreads_count and adds
-// its counts with one 64-bit atomic each, which is free of order; each
-// pixel's sum is added by that pixel's own thread, with no float atomics.
+// What bounds it on this card.  A serviced lane reads and writes its
+// state (about 200 bytes each way in the engine's layout: int64 mode,
+// cur, hit_id, depth, sample, seed, pix; float [n, 3] vectors; the
+// 10-float texture stash) plus one 148- or 300-byte material row or a
+// 300-byte tile row from L2 (the unified table is ~10 MB on the main
+// path, and lanes that hit one triangle share its row).  Its arithmetic,
+// a few double sqrt, cos, sin and pow calls a lane (11, 13, 13 and 83
+// FP64 instructions on sm_90a), takes a seventh of the byte time at the
+// card's FP64 rate, so the bytes bound it; but issuing that arithmetic
+// and the integer work around it, with ~24 warps an SM, is what keeps it
+// above the bound.
+//
+// What the design does about it.
+//   - Only the branch a lane takes is computed.  The eager block computes
+//     the specular, refracted and diffuse directions and the light sample
+//     for every lane and keeps one (the TPU's lockstep select); here a
+//     lane computes the one its draw picks, the refraction's second
+//     perturbation only when roughness > 0, the reflection only on total
+//     internal reflection, the light sample only on the diffuse branch,
+//     the Fresnel weights only for a lane still alive, and a barycentric
+//     only for the smooth normal or a textured hit's UVs.  A lane whose
+//     path ends before a branch keeps the diffuse direction the select
+//     leaves it (a retired lane's state keeps it), and skips it when its
+//     refill overwrites it with a camera ray.  Every value kept is the
+//     same sequence of rounded operations as before, so the same float.
+//     Against the kernel that computed every branch this took 14-33% off
+//     every state the engine makes (the main path's fresh state 0.1205
+//     -> 0.0868 ms; NVIDIA H100 80GB HBM3, 700 W;
+//     scripts/time_torch_service.py).
+//   - Lanes are served in lane order, one a thread.  Listing a block's
+//     lanes by mode in shared memory, so that a warp runs one mode's
+//     code, and gathering the lanes that need service from several
+//     chunks into persistent blocks were both built and measured: the
+//     first cost 4-13% on every state the engine makes (its barriers and
+//     the second list for the refill cost more than the divergence
+//     saved: a SHADEG and a TEXG lane differ only in their cheap first
+//     half) and won only on a seed-made state that mixes every mode in
+//     every warp; the second cost a quarter on full states and gained a
+//     tenth on a state with 10% of its lanes live, whose time is set by
+//     the scattered 32-byte sectors its live lanes touch in each field,
+//     which no order of the threads changes (the round loop compacts
+//     such a wave on the host).
+//   - Occupancy: 256 threads, no minimum of blocks.  At the 72
+//     registers ptxas picks (no spills; a 40-byte stack for the double
+//     trig reduction) three blocks fit an SM; forcing four (64
+//     registers) spills and was slower on most states.
+//   - The round's counts.  The kernel adds the paths it starts (continued
+//     + camera) and the shadow rays it fires straight into the wave's
+//     running int64 totals, and leaves the count of lanes not DONE in
+//     one of two slots that the rounds take in turn; block 0 zeroes the
+//     other slot, for the next round.  So the host launches nothing for
+//     the counts and reads one number a round.  Each block counts with
+//     __syncthreads_count and adds with one 64-bit atomic a total, which
+//     is free of order; each pixel's sum is added by that pixel's own
+//     thread, with no float atomics.
 // Launched on the caller's stream; allocates nothing.
 
 #include <cuda_runtime.h>
@@ -99,8 +136,11 @@ enum IntParam {
 enum PtrParam {
   kTable = 0, kLights, kMetas, kMode, kCur, kHitId, kDepth, kSample, kSeed,
   kPix, kDMin, kO, kD, kTp, kRad, kSo, kSd, kSmax, kPend, kOut, kTstash,
-  kPrevSpec, kContAfterShadow, kCounters, kNumPtrs
+  kPrevSpec, kContAfterShadow, kTotals, kNumPtrs
 };
+// The wave's int64 totals (ops/service.py TOTALS): path rays started,
+// shadow rays fired, and the two live-lane slots.
+enum Total { kPathRays = 0, kShadowRays = 1, kLive = 2, kNumTotals = 4 };
 
 struct Params {
   float f[kNumFloats];
@@ -128,8 +168,9 @@ struct Params {
   float* tstash;              // [n, 10], null without textures
   unsigned char* prev_spec;
   unsigned char* cont_after_shadow;
-  unsigned long long* counters;  // paths continued, shadow rays, camera rays
+  unsigned long long* totals;  // Total
   long long n;
+  int slot;                    // this round's live-lane slot, 0 or 1
 };
 
 struct V3 {
@@ -156,7 +197,6 @@ __device__ __forceinline__ V3 scale(V3 a, float s) {
   return v3(a.x * s, a.y * s, a.z * s);
 }
 __device__ __forceinline__ V3 neg(V3 a) { return v3(-a.x, -a.y, -a.z); }
-__device__ __forceinline__ V3 sel(bool c, V3 a, V3 b) { return c ? a : b; }
 // core/vec.py dot: (x0 + x1) + x2 of the products.
 __device__ __forceinline__ float dot(V3 a, V3 b) {
   const V3 p = mul(a, b);
@@ -270,22 +310,27 @@ __device__ __forceinline__ V3 reflect(V3 d, V3 n) {
   return sub(d, scale(n, 2.0f * dot(n, d)));
 }
 
-// ops/shade.py refract_branch (the direction only).
+// ops/shade.py refract_branch (the direction only), for a lane on the
+// transmission branch: on total internal reflection the specular
+// direction (scatter's d_spec), else the refracted one, perturbed only
+// when roughness > 0.
 __device__ __forceinline__ V3 refract_dir(V3 r_d, V3 n, V3 nl, float ior,
                                           float roughness, float u1,
-                                          float u2, V3 dir_tir,
-                                          float two_pi) {
+                                          float u2, float two_pi) {
   const bool into = dot(n, nl) > 0.0f;
   const float nnt = into ? 1.0f / ior : ior;
   const float ddn = dot(r_d, nl);
   const float cos2t = 1.0f - nnt * nnt * (1.0f - ddn * ddn);
-  const bool tir = cos2t < 0.0f;
+  if (cos2t < 0.0f) {
+    return rough_perturb(reflect(r_d, n), roughness, u1, u2, two_pi);
+  }
   const float sign = into ? 1.0f : -1.0f;
   const float coeff = sign * (ddn * nnt + sqrt64(clamp_min(cos2t, 0.0f)));
-  V3 tdir = norm(sub(scale(r_d, nnt), scale(n, coeff)));
-  const V3 tdir_rough = rough_perturb(tdir, roughness, u1, u2, two_pi);
-  tdir = roughness > 0.0f ? tdir_rough : tdir;
-  return tir ? dir_tir : tdir;
+  const V3 tdir = norm(sub(scale(r_d, nnt), scale(n, coeff)));
+  if (roughness > 0.0f) {
+    return rough_perturb(tdir, roughness, u1, u2, two_pi);
+  }
+  return tdir;
 }
 
 // ops/shade.py cosine_hemisphere.
@@ -365,48 +410,29 @@ __device__ __forceinline__ bool prepare(const Params& p, long long i,
   const V3 v0 = row3(row, 0);
   const V3 v1 = row3(row, 3);
   const V3 v2 = row3(row, 6);
-  V3 nrm = norm(cross(sub(v1, v0), sub(v2, v0)));
+  const V3 nrm_geo = norm(cross(sub(v1, v0), sub(v2, v0)));
+  V3 nrm = nrm_geo;
   V3 nl = dot(nrm, d) < 0.0f ? nrm : neg(nrm);
-  float t_u = 0.0f, t_v = 0.0f;
-  if (textured) {
-    // ops/texture.py planar_uv.
-    const float nx = fabsf(nrm.x);
-    const float ny = fabsf(nrm.y);
-    const bool y_dom = ny > 0.9f;
-    const bool x_dom = !y_dom && nx > 0.9f;
-    const V3 xh = q->x_hit;
-    t_u = y_dom ? xh.x : (x_dom ? xh.z : xh.x);
-    t_v = y_dom ? xh.z : (x_dom ? xh.y : xh.y);
-    t_u = t_u * p.f[kTexPlanarScale];
-    t_v = 1.0f - t_v * p.f[kTexPlanarScale];
-    if (p.i[kUv]) {
-      // ops/texture.py interp_uv where the triangle has UVs.
-      float b1, b2;
-      bool okb;
-      barycentric(v0, v1, v2, xh, &b1, &b2, &okb);
-      const float b0 = 1.0f - b1 - b2;
-      const float iu = row[30] * b0 + row[32] * b1 + row[34] * b2;
-      const float iv = 1.0f - (row[31] * b0 + row[33] * b1 + row[35] * b2);
-      const bool use_uv = row[36] > 0.0f && okb;
-      t_u = use_uv ? iu : t_u;
-      t_v = use_uv ? iv : t_v;
-    }
-  }
+  const bool smooth = p.i[kSmooth] != 0;
+  // One barycentric serves the smooth normal and the UVs; the UVs are
+  // needed only by a hit parked for its texture, on a triangle with UVs.
+  const bool uv = deferred && p.i[kUv] && row[36] > 0.0f;
+  float b1 = 0.0f, b2 = 0.0f;
+  bool okb = false;
+  if (smooth || uv) barycentric(v0, v1, v2, q->x_hit, &b1, &b2, &okb);
   const V3 nl_off = nl;
-  if (p.i[kSmooth]) {
+  if (smooth) {
     // ops/shade.py smooth_normal.
-    float b1, b2;
-    bool ok_den;
-    barycentric(v0, v1, v2, q->x_hit, &b1, &b2, &ok_den);
     const float b0 = 1.0f - b1 - b2;
     V3 ns = add(add(scale(row3(row, 21), b0), scale(row3(row, 24), b1)),
                 scale(row3(row, 27), b2));
     ns = dot(ns, nrm) < 0.0f ? neg(ns) : ns;
     const float len2 = dot(ns, ns);
-    const bool ok = ok_den && len2 > 1e-12f;
-    const float len = sqrt64(ok ? len2 : 1.0f);
-    ns = v3(ns.x / len, ns.y / len, ns.z / len);
-    nrm = ok ? ns : nrm;
+    const bool ok = okb && len2 > 1e-12f;
+    if (ok) {
+      const float len = sqrt64(len2);
+      nrm = v3(ns.x / len, ns.y / len, ns.z / len);
+    }
     nl = dot(nrm, d) < 0.0f ? nrm : neg(nrm);
   }
   q->nrm = nrm;
@@ -419,6 +445,23 @@ __device__ __forceinline__ bool prepare(const Params& p, long long i,
   q->ior = row[17];
   q->transmission = row[18];
   if (!deferred) return true;
+
+  // ops/texture.py planar_uv (on the face normal), or interp_uv where
+  // the triangle has UVs.
+  const float nx = fabsf(nrm_geo.x);
+  const float ny = fabsf(nrm_geo.y);
+  const bool y_dom = ny > 0.9f;
+  const bool x_dom = !y_dom && nx > 0.9f;
+  const V3 xh = q->x_hit;
+  float t_u = y_dom ? xh.x : (x_dom ? xh.z : xh.x);
+  float t_v = y_dom ? xh.z : (x_dom ? xh.y : xh.y);
+  t_u = t_u * p.f[kTexPlanarScale];
+  t_v = 1.0f - t_v * p.f[kTexPlanarScale];
+  if (uv && okb) {
+    const float b0 = 1.0f - b1 - b2;
+    t_u = row[30] * b0 + row[32] * b1 + row[34] * b2;
+    t_v = 1.0f - (row[31] * b0 + row[33] * b1 + row[35] * b2);
+  }
 
   // TEXG: ops/texture.py tile_coords for this lane's texture, then the
   // stash (_shade_prepare); nrm is rebuilt from nl and the front bit.
@@ -493,8 +536,9 @@ __device__ __forceinline__ void texture_lane(const Params& p, long long i,
 }
 
 // _shade_finish with ops/shade.py scatter and pbr_weights for a ready
-// lane.  Sets *cont and *fire (path continues, shadow ray fired).
-__device__ __forceinline__ void finish(const Params& p, long long i,
+// lane.  Sets *cont and *fire (path continues, shadow ray fired);
+// returns whether the lane is left in REFILL.
+__device__ __forceinline__ bool finish(const Params& p, long long i,
                                        const Surface& q, int* cont,
                                        int* fire) {
   const float two_pi = p.f[kTwoPi];
@@ -521,31 +565,13 @@ __device__ __forceinline__ void finish(const Params& p, long long i,
   const bool is_emitter = em.x > thr || em.y > thr || em.z > thr;
   alive = alive && !is_emitter;
 
-  // pbr_weights.
   const V3 albedo = q.albedo;
   const float metallic = q.metallic, roughness = q.roughness;
   const float transmission = q.transmission;
-  const float diffuse_suppression = square64(1.0f - metallic);
-  const float spec_attenuation =
-      clamp_min(1.0f - roughness * roughness, 0.0f);
-  const float m1 = 1.0f - metallic;
-  const V3 f0 = v3(0.04f * m1 + albedo.x * metallic,
-                   0.04f * m1 + albedo.y * metallic,
-                   0.04f * m1 + albedo.z * metallic);
-  const float cos_theta_v = clamp_min(dot(q.nl, neg(d)), 0.0f);
-  const float p5 = pow5_64(1.0f - cos_theta_v);
-  const V3 fres = v3(f0.x + (1.0f - f0.x) * p5, f0.y + (1.0f - f0.y) * p5,
-                     f0.z + (1.0f - f0.z) * p5);
-  const float f_avg = (fres.x + fres.y + fres.z) / 3.0f;
   const float albedo_lum = max3(albedo);
-  const float w_spec = f_avg * spec_attenuation;
-  const float w_trans = (1.0f - f_avg) * transmission;
-  const float w_diff = (1.0f - f_avg) * (1.0f - transmission) *
-                       diffuse_suppression * albedo_lum;
-  float total = w_spec + w_trans + w_diff;
-  total = total < 1e-5f ? 1.0f : total;
-  const float p_spec = w_spec / total;
-  const float p_trans = w_trans / total;
+  const float u_d1 = u[2], u_d2 = u[3];
+  const V3 o_off = add(q.x_hit, scale(q.nl_off, p.f[kShadowEps]));
+  const long long lcount = p.i[kNumLights];
 
   // Russian roulette.
   const bool rr_on = depth > p.i[kRrThreshold];
@@ -554,80 +580,102 @@ __device__ __forceinline__ void finish(const Params& p, long long i,
   if (rr_on && alive && survive) tp = scale(tp, 1.0f / p_live);
   alive = alive && (!rr_on || survive);
 
-  // The exclusive branch.
-  const float u_b = u[1];
-  const bool m_spec = alive && u_b < p_spec;
-  const bool m_trans = alive && !m_spec && u_b < p_spec + p_trans;
-  const bool m_diff = alive && !m_spec && !m_trans;
-  const float u_d1 = u[2], u_d2 = u[3];
-  const V3 o_off = add(q.x_hit, scale(q.nl_off, p.f[kShadowEps]));
-
-  const V3 d_spec =
-      rough_perturb(reflect(d, q.nrm), roughness, u_d1, u_d2, two_pi);
-  const bool kill_spec = dot(d_spec, q.nl) <= 0.0f;
-  const V3 tp_spec = scale(mul(tp, fres), 1.0f / p_spec);
-
-  const V3 d_trans = refract_dir(d, q.nrm, q.nl, q.ior, roughness, u_d1,
-                                 u_d2, d_spec, two_pi);
-  const float p_branch = (1.0f - p_spec) * transmission;
-  const bool pb_ok = p_branch > 1e-4f;
-  const float pb = pb_ok ? p_branch : 1.0f;
-  const V3 ta = mul(tp, albedo);
-  const V3 tp_trans = pb_ok ? v3(ta.x / pb, ta.y / pb, ta.z / pb) : tp;
-  const V3 o_trans = add(q.x_hit, scale(d_trans, p.f[kRefrOffset]));
-
-  bool has_shadow = false;
+  // What a lane in no branch keeps: its throughput and flag, the offset
+  // origin, and (only if it retires in this pass) the diffuse direction.
+  V3 new_o = o_off, new_d = d, new_tp = tp;
+  bool new_prev = prev_spec, b_alive = alive, has_shadow = false;
   V3 nee_d = v3(0.0f, 0.0f, 0.0f), nee_tp = v3(0.0f, 0.0f, 0.0f);
   float nee_max = 0.0f;
-  const long long lcount = p.i[kNumLights];
-  if (lcount > 0) {
-    long long pick = 0;
-    if (lcount > 1) {
-      pick = static_cast<long long>(u[4] * p.f[kLightPickScale]);
-      pick = pick < 0 ? 0 : (pick > lcount - 1 ? lcount - 1 : pick);
-    }
-    const float* lrow = p.lights + pick * kTrimatRow;
-    const V3 lv0 = row3(lrow, 0);
-    const V3 lv1 = row3(lrow, 3);
-    const V3 lv2 = row3(lrow, 6);
-    // sample_triangle.
-    const float sqr1 = sqrt64(u[5]);
-    const float a = 1.0f - sqr1;
-    const float b = sqr1 * (1.0f - u[6]);
-    const float c = 1.0f - a - b;
-    const V3 light_pos = add(add(scale(lv0, a), scale(lv1, b)),
-                             scale(lv2, c));
-    const V3 to_light = sub(light_pos, q.x_hit);
-    float dist_sq = dot(to_light, to_light);
-    if (p.i[kNeeFloorOn]) dist_sq = clamp_min(dist_sq, p.f[kNeeDistSqFloor]);
-    const float dist = sqrt64(dist_sq);
-    const V3 l_dir = scale(to_light, 1.0f / dist);
-    const float cos_theta = dot(q.nl, l_dir);
-    const V3 light_n = norm(cross(sub(lv1, lv0), sub(lv2, lv0)));
-    const float cos_light = -dot(light_n, l_dir);
-    has_shadow = m_diff && cos_theta > 0.0f && cos_light > 0.0f;
-    const float area = lrow[20];
-    const float pdf = 1.0f / (area * p.f[kLightCountF]);
-    const float g_term = (cos_theta * cos_light) / dist_sq;
-    const float gp = g_term / pdf;
-    const V3 brdf = scale(albedo, p.f[kInvPi]);
-    const V3 contrib = scale(mul(row3(lrow, 12), brdf), gp);
-    nee_d = l_dir;
-    nee_max = dist - p.f[kShadowMaxDistEps];
-    nee_tp = mul(tp, contrib);
-  }
-  const V3 d_diff = cosine_hemisphere(q.nl, u_d1, u_d2, two_pi);
-  const float p_diff = 1.0f - p_spec - (1.0f - p_spec) * transmission;
-  const V3 tp_diff =
-      scale(mul(tp, scale(albedo, 1.0f - metallic)), 1.0f / p_diff);
+  if (alive) {
+    // pbr_weights.
+    const float diffuse_suppression = square64(1.0f - metallic);
+    const float spec_attenuation =
+        clamp_min(1.0f - roughness * roughness, 0.0f);
+    const float m1 = 1.0f - metallic;
+    const V3 f0 = v3(0.04f * m1 + albedo.x * metallic,
+                     0.04f * m1 + albedo.y * metallic,
+                     0.04f * m1 + albedo.z * metallic);
+    const float cos_theta_v = clamp_min(dot(q.nl, neg(d)), 0.0f);
+    const float p5 = pow5_64(1.0f - cos_theta_v);
+    const V3 fres = v3(f0.x + (1.0f - f0.x) * p5,
+                       f0.y + (1.0f - f0.y) * p5,
+                       f0.z + (1.0f - f0.z) * p5);
+    const float f_avg = (fres.x + fres.y + fres.z) / 3.0f;
+    const float w_spec = f_avg * spec_attenuation;
+    const float w_trans = (1.0f - f_avg) * transmission;
+    const float w_diff = (1.0f - f_avg) * (1.0f - transmission) *
+                         diffuse_suppression * albedo_lum;
+    float total = w_spec + w_trans + w_diff;
+    total = total < 1e-5f ? 1.0f : total;
+    const float p_spec = w_spec / total;
+    const float p_trans = w_trans / total;
 
-  const bool b_alive = alive && !(m_spec && kill_spec);
-  const V3 new_o = m_spec ? o_off : (m_trans ? o_trans : o_off);
-  const V3 new_d = m_spec ? d_spec : (m_trans ? d_trans : d_diff);
-  const V3 new_tp = m_spec ? tp_spec
-                           : (m_trans ? tp_trans : (m_diff ? tp_diff : tp));
-  const bool new_prev = (m_spec || m_trans) ? true
-                                            : (m_diff ? false : prev_spec);
+    // The exclusive branch.
+    const float u_b = u[1];
+    if (u_b < p_spec) {
+      new_d = rough_perturb(reflect(d, q.nrm), roughness, u_d1, u_d2,
+                            two_pi);
+      b_alive = !(dot(new_d, q.nl) <= 0.0f);
+      new_tp = scale(mul(tp, fres), 1.0f / p_spec);
+      new_prev = true;
+    } else if (u_b < p_spec + p_trans) {
+      new_d = refract_dir(d, q.nrm, q.nl, q.ior, roughness, u_d1, u_d2,
+                          two_pi);
+      const float p_branch = (1.0f - p_spec) * transmission;
+      const bool pb_ok = p_branch > 1e-4f;
+      const float pb = pb_ok ? p_branch : 1.0f;
+      const V3 ta = mul(tp, albedo);
+      new_tp = pb_ok ? v3(ta.x / pb, ta.y / pb, ta.z / pb) : tp;
+      new_o = add(q.x_hit, scale(new_d, p.f[kRefrOffset]));
+      new_prev = true;
+    } else {
+      if (lcount > 0) {
+        long long pick = 0;
+        if (lcount > 1) {
+          pick = static_cast<long long>(u[4] * p.f[kLightPickScale]);
+          pick = pick < 0 ? 0 : (pick > lcount - 1 ? lcount - 1 : pick);
+        }
+        const float* lrow = p.lights + pick * kTrimatRow;
+        const V3 lv0 = row3(lrow, 0);
+        const V3 lv1 = row3(lrow, 3);
+        const V3 lv2 = row3(lrow, 6);
+        // sample_triangle.
+        const float sqr1 = sqrt64(u[5]);
+        const float a = 1.0f - sqr1;
+        const float b = sqr1 * (1.0f - u[6]);
+        const float c = 1.0f - a - b;
+        const V3 light_pos = add(add(scale(lv0, a), scale(lv1, b)),
+                                 scale(lv2, c));
+        const V3 to_light = sub(light_pos, q.x_hit);
+        float dist_sq = dot(to_light, to_light);
+        if (p.i[kNeeFloorOn]) {
+          dist_sq = clamp_min(dist_sq, p.f[kNeeDistSqFloor]);
+        }
+        const float dist = sqrt64(dist_sq);
+        const V3 l_dir = scale(to_light, 1.0f / dist);
+        const float cos_theta = dot(q.nl, l_dir);
+        const V3 light_n = norm(cross(sub(lv1, lv0), sub(lv2, lv0)));
+        const float cos_light = -dot(light_n, l_dir);
+        has_shadow = cos_theta > 0.0f && cos_light > 0.0f;
+        const float area = lrow[20];
+        const float pdf = 1.0f / (area * p.f[kLightCountF]);
+        const float g_term = (cos_theta * cos_light) / dist_sq;
+        const float gp = g_term / pdf;
+        const V3 brdf = scale(albedo, p.f[kInvPi]);
+        const V3 contrib = scale(mul(row3(lrow, 12), brdf), gp);
+        nee_d = l_dir;
+        nee_max = dist - p.f[kShadowMaxDistEps];
+        nee_tp = mul(tp, contrib);
+      }
+      new_d = cosine_hemisphere(q.nl, u_d1, u_d2, two_pi);
+      const float p_diff = 1.0f - p_spec - (1.0f - p_spec) * transmission;
+      new_tp = scale(mul(tp, scale(albedo, 1.0f - metallic)),
+                     1.0f / p_diff);
+      new_prev = false;
+    }
+  } else if (p.sample[i] + 1 >= p.i[kSppCap]) {
+    new_d = cosine_hemisphere(q.nl, u_d1, u_d2, two_pi);
+  }
 
   // Mode transitions; the depth cap still lets NEE fire.
   const long long next_depth = depth + 1;
@@ -654,11 +702,12 @@ __device__ __forceinline__ void finish(const Params& p, long long i,
   store3(p.pend, i, has_shadow ? nee_tp : v3(0.0f, 0.0f, 0.0f));
   *cont = alive2 ? 1 : 0;
   *fire = has_shadow ? 1 : 0;
+  return mode == kRefill;
 }
 
 // _refill (owner schedule) for a REFILL lane.  Returns whether the lane
-// started a sample.
-__device__ __forceinline__ int refill(const Params& p, long long i) {
+// started a sample (else it retired: DONE).
+__device__ __forceinline__ bool refill(const Params& p, long long i) {
   // engine/wavefront.py _sanitize.
   V3 rad = load3(p.rad, i);
   const bool bad = isnan(rad.x) || isnan(rad.y) || isnan(rad.z) ||
@@ -684,7 +733,7 @@ __device__ __forceinline__ int refill(const Params& p, long long i) {
   p.seed[i] = static_cast<long long>(seed);
   if (exhausted) {
     p.mode[i] = kDone;
-    return 0;
+    return false;
   }
   V3 r_o, r_d;
   camera_ray(p, p.pix[i], seed, &r_o, &r_d);
@@ -697,48 +746,66 @@ __device__ __forceinline__ int refill(const Params& p, long long i) {
   store3(p.tp, i, v3(1.0f, 1.0f, 1.0f));
   p.depth[i] = 0;
   p.prev_spec[i] = 1;
-  return 1;
+  return true;
 }
 
 __global__ void __launch_bounds__(kThreads)
     service_pass_kernel(const Params p) {
   const long long i =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  int cont = 0, fire = 0, start = 0;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    p.totals[kLive + 1 - p.slot] = 0;
+  }
+  int cont = 0, fire = 0;
+  bool started = false, live = false;
   if (i < p.n) {
-    long long mode = p.mode[i];
-    bool ready = false;
-    Surface q;
-    if (mode == kShadeG) {
-      ready = prepare(p, i, &q);
-    } else if (mode == kTexG && p.i[kTex0] >= 0) {
-      texture_lane(p, i, &q);
-      ready = true;
+    const long long mode = p.mode[i];
+    live = mode != kDone;
+    bool to_refill = mode == kRefill;
+    if (mode == kShadeG || (mode == kTexG && p.i[kTex0] >= 0)) {
+      Surface q;
+      bool ready = true;
+      if (mode == kShadeG) {
+        ready = prepare(p, i, &q);
+      } else {
+        texture_lane(p, i, &q);
+      }
+      if (ready) to_refill = finish(p, i, q, &cont, &fire);
     }
-    if (ready) {
-      finish(p, i, q, &cont, &fire);
-      mode = p.mode[i];
+    if (to_refill) {
+      started = refill(p, i);
+      live = started;
     }
-    if (mode == kRefill) start = refill(p, i);
   }
   const int n_cont = __syncthreads_count(cont);
   const int n_fire = __syncthreads_count(fire);
-  const int n_start = __syncthreads_count(start);
+  const int n_start = __syncthreads_count(started);
+  const int n_live = __syncthreads_count(live);
   if (threadIdx.x == 0) {
-    if (n_cont) atomicAdd(p.counters, static_cast<unsigned long long>(n_cont));
-    if (n_fire) atomicAdd(p.counters + 1, static_cast<unsigned long long>(n_fire));
-    if (n_start) atomicAdd(p.counters + 2, static_cast<unsigned long long>(n_start));
+    if (n_cont + n_start) {
+      atomicAdd(p.totals + kPathRays,
+                static_cast<unsigned long long>(n_cont + n_start));
+    }
+    if (n_fire) {
+      atomicAdd(p.totals + kShadowRays,
+                static_cast<unsigned long long>(n_fire));
+    }
+    if (n_live) {
+      atomicAdd(p.totals + kLive + p.slot,
+                static_cast<unsigned long long>(n_live));
+    }
   }
 }
 
 }  // namespace trt_service
 
-// The sizes of the three parameter arrays trt_service_launch reads, for
-// the caller to check against its own: floats, ints, pointers.
+// The sizes of the parameter arrays trt_service_launch reads, for the
+// caller to check against its own: floats, ints, pointers, totals.
 extern "C" int trt_service_layout(int* out) {
   out[0] = trt_service::kNumFloats;
   out[1] = trt_service::kNumInts;
   out[2] = trt_service::kNumPtrs;
+  out[3] = trt_service::kNumTotals;
   return 0;
 }
 
@@ -748,13 +815,14 @@ extern "C" int trt_service_layout(int* out) {
 // light rows, the texture metas, then the state fields (int64 mode, cur,
 // hit_id, depth, sample, seed, pix; float32 d_min, o, d, tp, rad, so,
 // sd, smax, pend, out, tstash (null without textures); bool prev_spec,
-// cont_after_shadow), then three int64 counters, zero at launch, to which
-// it adds the paths continued, the shadow rays fired and the camera rays
-// started (path rays started = continued + camera).  Returns the
-// CUDA error of the launch (0 = launched), 1 (cudaErrorInvalidValue) for
-// arguments it does not take.
+// cont_after_shadow), then the wave's four int64 totals: the pass adds
+// the path rays it starts (continued + camera) to the first and the
+// shadow rays it fires to the second, adds the count of lanes not DONE
+// after it to slot 2 + `slot` (zero at launch) and zeroes slot 3 - `slot`.
+// Returns the CUDA error of the launch (0 = launched), 1
+// (cudaErrorInvalidValue) for arguments it does not take.
 extern "C" int trt_service_launch(const float* floats, const long long* ints,
-                                  void* const* ptrs, long long n,
+                                  void* const* ptrs, long long n, int slot,
                                   void* stream) {
   using namespace trt_service;
   if (n <= 0) return 0;
@@ -767,7 +835,8 @@ extern "C" int trt_service_launch(const float* floats, const long long* ints,
       p.i[kSentinel] < 0 || p.i[kSentinel] > p.i[kTableRows] ||
       (p.i[kTex0] >= 0 && (ptrs[kTstash] == nullptr || p.i[kNumTex] < 1 ||
                            p.i[kTableWidth] < kTexApron * kTexApron * 3)) ||
-      p.i[kNumLights] < 0 || n > 0x7fffffffLL * kThreads) {
+      p.i[kNumLights] < 0 || n > 0x7fffffffLL * kThreads ||
+      (slot != 0 && slot != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   p.table = static_cast<const float*>(ptrs[kTable]);
@@ -793,8 +862,9 @@ extern "C" int trt_service_launch(const float* floats, const long long* ints,
   p.tstash = static_cast<float*>(ptrs[kTstash]);
   p.prev_spec = static_cast<unsigned char*>(ptrs[kPrevSpec]);
   p.cont_after_shadow = static_cast<unsigned char*>(ptrs[kContAfterShadow]);
-  p.counters = static_cast<unsigned long long*>(ptrs[kCounters]);
+  p.totals = static_cast<unsigned long long*>(ptrs[kTotals]);
   p.n = n;
+  p.slot = slot;
   const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   service_pass_kernel<<<grid, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(p);

@@ -45,7 +45,11 @@ nothing), and once at most half the lanes are live both loops keep only
 the live ones (a lane permutation, the eager counterpart of the JAX
 spill ladder).
 
-The ray counters are int64.
+The ray counters are int64.  A wave keeps them, with the live-lane
+count of its last round, in one device tensor (ops/service.py
+``TOTALS``) that every round adds to where it runs: on a card the
+service kernel does, so a round launches nothing for its counts and the
+host reads one number a round.
 """
 
 from __future__ import annotations
@@ -60,7 +64,7 @@ from tryraytrace_tpu_torch.core import rng, vec
 from tryraytrace_tpu_torch.engine.camera_rays import generate_rays
 from tryraytrace_tpu_torch.engine.wavefront import _sanitize
 from tryraytrace_tpu_torch.ops import shade
-from tryraytrace_tpu_torch.ops.service import (service_params,
+from tryraytrace_tpu_torch.ops.service import (LIVE, TOTALS, service_params,
                                                service_pass_cuda)
 from tryraytrace_tpu_torch.ops.texture import (TEX_ROW, TEX_TILE,
                                                build_texture_tiles,
@@ -253,9 +257,12 @@ class Wave:
     live lane every ``check_every`` of them; once at most half the lanes
     are live and the wave is wider than ``MIN_COMPACT_WIDTH`` it keeps
     only the live ones and holds the retired lanes' sums and counts
-    itself.  ``read`` gives the per-pixel sums and completed-sample
-    counts and leaves the wave as it was, so a wave advanced in several
-    calls ends where one call takes it."""
+    itself.  A round adds its rays to ``totals`` (ops/service.py
+    ``TOTALS``) and leaves its live-lane count in the slot of its
+    parity, which is all the host reads of it.  ``read`` gives the
+    per-pixel sums and completed-sample counts and leaves the wave as it
+    was, so a wave advanced in several calls ends where one call takes
+    it."""
 
     def __init__(self, scene, inline: InlineTable, cam, frame_seed: int,
                  width: int, height: int, cfg: RenderConfig, pixels,
@@ -270,10 +277,9 @@ class Wave:
         self._fr = _Frame(scene, inline, cfg, cam, frame_seed, width, height,
                           int(spp_cap), int(seed_spp), int(sample_offset))
         n = int(pixels.shape[0])
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
-        self.n_traced = zero + n  # camera rays
-        self.n_shadow = zero
-        self.rows_fetched = zero
+        self.totals = torch.tensor([n] + [0] * (len(TOTALS) - 1),
+                                   dtype=torch.int64, device=dev)
+        self.rows_fetched = torch.zeros((), dtype=torch.int64, device=dev)
         self.rounds = 0
         self.done = n == 0
         self.state = init_lane_ctx(frame_seed, seed_spp, pixels, cam, width,
@@ -292,23 +298,22 @@ class Wave:
         passes = max(1, fr.cfg.quad_redirect_passes)
         ran = 0
         while not self.done and (max_rounds is None or ran < max_rounds):
-            s, tr, sh, rows = self._round(self.state, fr.inline,
-                                          fr.scene.leaf_size, fr, passes)
+            slot = self.rounds % 2
+            s, rows = self._round(self.state, fr.inline, fr.scene.leaf_size,
+                                  fr, passes, self.totals, slot)
             self.state = s
-            self.n_traced = self.n_traced + tr
-            self.n_shadow = self.n_shadow + sh
             self.rows_fetched = self.rows_fetched + rows
             self.rounds += 1
             ran += 1
             if self.rounds % self._check_every:
                 continue
-            live = s["mode"] != DONE
-            n_live = int(live.sum())
-            w = int(live.shape[0])
+            n_live = int(self.totals[LIVE + slot])
+            w = int(s["mode"].shape[0])
             if n_live == 0:
                 self.done = True
             elif n_live <= w // 2 and w > MIN_COMPACT_WIDTH:
                 # Retire the DONE lanes: their sums are final.
+                live = s["mode"] != DONE
                 gone = ~live
                 self._out[self._pos[gone]] = s["out"][gone]
                 self._count[self._pos[gone]] = s["sample"][gone]
@@ -327,6 +332,16 @@ class Wave:
         count[self._pos] = self.state["sample"]
         return out, count
 
+    @property
+    def n_traced(self) -> torch.Tensor:
+        """Path rays started so far, camera rays included (int64)."""
+        return self.totals[0].clone()
+
+    @property
+    def n_shadow(self) -> torch.Tensor:
+        """Shadow rays fired so far (int64)."""
+        return self.totals[1].clone()
+
     def stats(self) -> dict:
         """Rays and rows so far (int64 tensors) and rounds run."""
         return dict(n_traced=self.n_traced, n_shadow=self.n_shadow,
@@ -334,51 +349,61 @@ class Wave:
 
 
 def _step_quad(s, inline: InlineTable, k: int, fr: _Frame,
-               redirect_passes: int = 1):
+               redirect_passes: int, totals, slot: int):
     """One step of the interleaved loop: one quad-row step for TRAVERSE
     and SHADOW lanes plus the service block for SHADEG, TEXG and REFILL
-    lanes, sharing one row fetch.  Returns (state', path rays started,
-    shadow rays started, quad rows fetched)."""
+    lanes, sharing one row fetch; its rays and live lanes go to
+    ``totals`` as a round's do.  Returns (state', quad rows fetched)."""
     idx, stepping = walk_index(s, inline.sentinel)
     idx, live_g, live_x = _service_select(s, idx, inline)
     row = inline.table[idx]
     out = walk_step(s, row, inline.sentinel, k, redirect_passes,
                     fmt=fr.scene.leaf_fmt)
     out, cont, sh, start = _service_shade(out, s, row, live_g, live_x, fr)
-    return out, cont + start, sh, stepping.sum()
+    _add_totals(totals, slot, cont + start, sh, out["mode"])
+    return out, stepping.sum()
 
 
 def _round_quad(s, inline: InlineTable, k: int, fr: _Frame,
-                redirect_passes: int = 1):
+                redirect_passes: int, totals, slot: int):
     """One round of the round loop: every TRAVERSE and SHADOW lane's walk
     run to its end over the walk-order rows, then one service pass (on a
-    card each is one kernel launch).  A lane the pass sends to TEXG is
-    shaded by the next round's pass.  Returns (state', path rays
-    started, shadow rays started, quad rows fetched)."""
+    card each is one kernel launch), which adds the round's rays and
+    live lanes to ``totals`` (ops/service.py ``TOTALS``; ``slot`` the
+    round's live-lane slot).  A lane the pass sends to TEXG is shaded by
+    the next round's pass.  Returns (state', quad rows fetched)."""
     s, rows = quad_walk(s, inline.walk, inline.sentinel, k, redirect_passes,
                         inline.walk_levels, fmt=fr.scene.leaf_fmt)
     if inline.table.device.type == "cpu":
-        s, counts = service_plain(s, inline, fr)
+        s = service_plain(s, inline, fr, totals, slot)
     else:
         if fr.service is None:
             fr.service = service_params(fr)
-        s, counts = service_pass_cuda(s, inline, fr.service)
-    cont, shadow, start = counts
-    return s, cont + start, shadow, rows
+        s = service_pass_cuda(s, inline, fr.service, totals, slot)
+    return s, rows
 
 
-def service_plain(s, inline: InlineTable, fr: _Frame):
+def service_plain(s, inline: InlineTable, fr: _Frame, totals, slot: int):
     """The plain version of the service kernel (ops/service.py): the
     material or tile row fetch of the SHADEG and TEXG lanes, then the
-    eager service block, over a state whose walks have ended.  Returns
-    (state', counts): ``counts`` an int64 tensor of the kernel's
-    ``COUNTERS`` (paths continued, shadow rays fired, camera rays
-    started)."""
+    eager service block, over a state whose walks have ended; the pass's
+    rays and live lanes go to ``totals`` as the kernel's do.  Returns
+    the new state."""
     idx, live_g, live_x = _service_select(s, torch.zeros_like(s["cur"]),
                                           inline)
     out, cont, sh, start = _service_shade(s, s, inline.table[idx], live_g,
                                           live_x, fr)
-    return out, torch.stack([cont, sh, start])
+    _add_totals(totals, slot, cont + start, sh, out["mode"])
+    return out
+
+
+def _add_totals(totals, slot: int, path, shadow, mode) -> None:
+    """The plain version of the kernel's totals (ops/service.py
+    ``TOTALS``): add the path and shadow rays, add the lanes not DONE to
+    the slot ``slot`` and zero the other."""
+    totals[:LIVE] += torch.stack([path, shadow])
+    totals[LIVE + slot] += (mode != DONE).sum()
+    totals[LIVE + 1 - slot] = 0
 
 
 def _service_select(s, idx, inline: InlineTable):

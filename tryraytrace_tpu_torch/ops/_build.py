@@ -61,7 +61,7 @@ class KernelLibrary:
         self.handle = None
         self.path = None
         self.build_seconds = None
-        self.compiler_log = ""  # ptxas -v lines of this process's build
+        self.compiler_log = ""  # ptxas -v lines of the library's build
         self._proc = None
         self._tmp = None
         self._t0 = None
@@ -107,8 +107,12 @@ class KernelLibrary:
                 raise RuntimeError(
                     f"nvcc failed ({proc.returncode}) on {self.source}:\n"
                     f"{out}\n{err}")
-            self.compiler_log = err
+            with open(f"{self.path}.log", "w") as f:
+                f.write(err)
             os.replace(self._tmp, self.path)
+        if os.path.exists(f"{self.path}.log"):
+            with open(f"{self.path}.log") as f:
+                self.compiler_log = f.read()
         lib = ctypes.CDLL(self.path)
         for fname, argtypes in self.functions.items():
             fn = getattr(lib, fname)

@@ -11,7 +11,7 @@ loop body of ``_step_quad`` (tryraytrace_tpu/engine/persistent.py
 :776, :793, :1166, :1265, :1450); the port's plain version is the
 eager block in engine/persistent.py (``service_plain``), and
 ``service_pass_cuda`` (csrc/service_pass.cu) is held to it field for
-field and counter for counter.
+field and total for total.
 
 The engine's round (engine/persistent.py ``_round_quad``) runs the plain
 version for CPU tensors and the kernel for CUDA tensors; there is no
@@ -67,9 +67,13 @@ FIELDS = (("mode", torch.int64, 1), ("cur", torch.int64, 1),
           ("out", torch.float32, 3), ("tstash", torch.float32, 10),
           ("prev_spec", torch.bool, 1),
           ("cont_after_shadow", torch.bool, 1))
-# Counters the kernel adds to: paths continued, shadow rays fired, camera
-# rays started (path rays started = continued + camera).
-COUNTERS = ("cont", "shadow", "start")
+# A wave's running int64 totals, which every pass adds to on the device:
+# path rays started (camera rays included), shadow rays fired, and two
+# slots for the count of lanes not DONE after a pass, which the rounds of
+# a wave take in turn (a pass adds to its slot, zero when it starts, and
+# zeroes the other for the next round).
+TOTALS = ("path", "shadow", "live0", "live1")
+LIVE = TOTALS.index("live0")
 
 
 @dataclasses.dataclass
@@ -130,23 +134,23 @@ def service_params(fr) -> ServiceParams:
 LIBRARY = KernelLibrary("service_pass", {
     "trt_service_layout": (ctypes.c_void_p,),
     "trt_service_launch": (
-        # floats, ints, pointers (host arrays), lanes, stream
+        # floats, ints, pointers (host arrays), lanes, live slot, stream
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_void_p)})
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p)})
 
 
 def _check_layout(lib) -> None:
-    layout = (ctypes.c_int * 3)()
+    layout = (ctypes.c_int * 4)()
     lib.trt_service_layout(ctypes.addressof(layout))
-    # The kernel's pointers: table, lights, metas, the fields, counters.
-    want = (len(FLOATS), len(INTS), 3 + len(FIELDS) + 1)
+    # The kernel's pointers: table, lights, metas, the fields, totals.
+    want = (len(FLOATS), len(INTS), 3 + len(FIELDS) + 1, len(TOTALS))
     if tuple(layout) != want:
         raise RuntimeError(f"service_pass kernel takes {tuple(layout)} "
-                           f"(floats, ints, pointers), the wrapper packs "
-                           f"{want}")
+                           f"(floats, ints, pointers, totals), the wrapper "
+                           f"packs {want}")
 
 
-def service_pass_cuda(s, inline, params: ServiceParams):
+def service_pass_cuda(s, inline, params: ServiceParams, totals, slot: int):
     """Launch the service kernel on the current stream.
 
     ``s`` holds the engine's lane state (engine/persistent.py
@@ -155,10 +159,13 @@ def service_pass_cuda(s, inline, params: ServiceParams):
     (``tstash`` only with textures); a field that is not raises, and
     none is copied.  After a compaction ``Wave.advance`` indexes the
     state, which gives contiguous fields.  ``params`` is the wave's
-    ``service_params``.  The pass writes the state in place: the
-    returned state is ``s`` itself, and the caller keeps no copy of the
-    state before the pass.  Returns (state, counts): ``counts`` is an
-    int64 tensor on the device of the pass's ``COUNTERS``."""
+    ``service_params``.  ``totals`` is the wave's int64 tensor of
+    ``TOTALS`` on the same device: the pass adds the path rays it starts
+    and the shadow rays it fires to the first two, adds the count of
+    lanes not DONE after it to ``totals[LIVE + slot]`` (which must be 0)
+    and zeroes ``totals[LIVE + 1 - slot]``; nothing else is launched.
+    The pass writes the state in place: the returned state is ``s``
+    itself, and the caller keeps no copy of the state before the pass."""
     table = inline.table
     dev = table.device
     if dev.type != "cuda":
@@ -189,13 +196,19 @@ def service_pass_cuda(s, inline, params: ServiceParams):
                 f"of shape {shape} on {dev}; got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
         ptrs.append(t.data_ptr())
+    if (totals.device != dev or totals.dtype != torch.int64
+            or tuple(totals.shape) != (len(TOTALS),)
+            or not totals.is_contiguous()):
+        raise ValueError(f"totals must be a contiguous int64 tensor of shape "
+                         f"({len(TOTALS)},) on {dev}")
+    if slot not in (0, 1):
+        raise ValueError(f"live slot {slot} is not 0 or 1")
     library = LIBRARY
     lib = library.load()
     if library not in _checked:
         _check_layout(lib)
         _checked.add(library)
-    counters = torch.zeros(len(COUNTERS), dtype=torch.int64, device=dev)
-    ptrs.append(counters.data_ptr())
+    ptrs.append(totals.data_ptr())
     host_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     floats = np.ascontiguousarray(params.floats, np.float32)
     ints = np.ascontiguousarray(params.ints, np.int64)
@@ -204,12 +217,12 @@ def service_pass_cuda(s, inline, params: ServiceParams):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.trt_service_launch(floats.ctypes.data, ints.ctypes.data,
                                          ctypes.addressof(host_ptrs), w,
-                                         stream)
+                                         slot, stream)
         if err != 0:
             raise RuntimeError(f"service_pass kernel launch failed: CUDA "
                                f"error {err}")
         service_pass_cuda.launches += 1
-    return s, counters
+    return s
 
 
 service_pass_cuda.launches = 0
