@@ -59,7 +59,10 @@ after:
     process, byte for byte (NCCL across cards needs more than one card
     and is not run);
   - the row-fetch microbenchmark (scripts/microbench_torch_fetch.py):
-    65,536 lanes, 64 steps, six table variants, both placements.
+    65,536 lanes, 64 steps, six table variants, both placements; then
+    one warp of lanes on tables of 16-byte rows, whose device time over
+    its 64 steps is one dependent fetch step's latency (L2, shared
+    memory).
 
 The walk kernel is held to its plain version on three states of a
 path's rounds (fresh, many shadow walks, mostly done): the main path's
@@ -67,7 +70,9 @@ tree with its Baldwin-Weber leaf slots, and the [features] path's SBVH
 with its Moller-Trumbore ("mt") slots at the auto leaf size; the
 threaded-walk kernel is held to its plain version on three states of a
 full-width bounce frame (camera rays, the first bounce's shadow rays,
-a late bounce) over both trees.  ``[service]`` holds the service kernel
+a late bounce) over the walk-order copies of both trees, with each
+state's longest walk (the plain loop's count) and its latency bound.
+``[service]`` holds the service kernel
 to its plain version (persistent.service_plain, the eager service
 block) on each of the walk kernel's six states just after its walk
 (the main path's: textured, TEXG lanes in flight; the [features]
@@ -109,7 +114,12 @@ its Python wrapper with everything the wrapper does around the launch
 the card could take: the larger of the bytes its outputs depend on
 plus the bytes it writes (each counted once) over the device-memory
 rate and the float32 operations those outputs need over the float32
-rate, both NVIDIA's published figures for the H100 SXM.  The service
+rate, both NVIDIA's published figures for the H100 SXM.  The threaded
+walk's and the fetch chain's entries also give ``latency_bound_ms``:
+the chain of dependent fetches no design of them avoids (the longest
+walk's rows, or the chain's 64 steps, times one dependent fetch step's
+latency from the one-warp run); the larger of the two is their bound
+(PERF.md).  The service
 kernel's operations are its double-precision calls on the branches its
 lanes take (service_work), at the FP64 instructions a call of each kind
 takes in the machine code nvcc builds (fp64_per_call), over the FP64
@@ -523,13 +533,28 @@ def phase_fetch(seed: int) -> dict:
     ms = _kernel_ms(lambda: fetch.fetch_chain_cuda(table, idx, fetch.STEPS,
                                                    "global"),
                     "fetch_chain_kernel")
+    # One dependent fetch's latency: a warp of lanes walks the latency
+    # variants (16-byte rows), from L2 after a warm-up and from shared
+    # memory; each call timed by its own device time.
+    lat = script.latency_ns(seed)
+    out = dict(max_abs_err=worst, ms=ms, wrapper_ms=first["ms"]["global"],
+               plain_ms=first["plain_ms"], library_ms=None,
+               launches=launches, variants=results,
+               latency={k: v for k, v in lat.items() if k != "variants"},
+               **bound(first["table_bytes"] + 12 * lanes,
+                       lanes * (2 * steps + first["w"])))
+    # No chain can be shorter than its steps' dependent fetches: the
+    # lanes' chains run side by side, so one chain bounds the call.
+    out["latency_bound_ms"] = steps * lat["global_ns"] * 1e-6
+    log(f"[fetch] one dependent fetch step, one warp: device memory (L2) "
+        f"{lat['global_ns']:.1f} ns, shared memory {lat['shared_ns']:.1f} "
+        f"ns, a 16 KB table from device memory {lat['global_l1_table_ns']:.1f}"
+        f" ns")
     log(f"[fetch] {first['name']}, device memory: kernel's own time "
-        f"{ms:.4f} ms, wrapper {first['ms']['global']:.4f} ms")
-    return dict(max_abs_err=worst, ms=ms, wrapper_ms=first["ms"]["global"],
-                plain_ms=first["plain_ms"], library_ms=None,
-                launches=launches, variants=results,
-                **bound(first["table_bytes"] + 12 * lanes,
-                        lanes * (2 * steps + first["w"])))
+        f"{ms:.4f} ms, wrapper {first['ms']['global']:.4f} ms; bounds "
+        f"{out['bound_ms']:.5f} ms by {out['bound_by']}, "
+        f"{out['latency_bound_ms']:.5f} ms by latency ({steps} steps)")
+    return out
 
 
 def phase_cuda_vs_cpu() -> None:
@@ -2027,8 +2052,9 @@ def _tie_trace(rb: Renderer, scene_quad, params):
         return t, hid, rows
 
     with _walks(closest=closest):
-        acc, _ = wavefront.render_frame(rb.scene, None, rb.device_textures,
-                                        params, 1, WIDTH, HEIGHT, rb.cfg, 1)
+        acc, _ = wavefront.render_frame(rb.scene, rb.inline,
+                                        rb.device_textures, params, 1, WIDTH,
+                                        HEIGHT, rb.cfg, 1)
     return acc, tie, fault
 
 
@@ -2172,9 +2198,10 @@ def phase_bounce(arrays, r: Renderer, params, tmp: str) -> tuple:
                 cli_ms_per_frame=1e3 * dt / BOUNCE_CLI_FRAMES), rb
 
 
-def _bounce_states(scene, textures, cfg, params) -> dict:
+def _bounce_states(scene, walk_table, textures, cfg, params) -> dict:
     """The threaded walks' inputs at three points of one full-width
-    bounce frame: the camera rays (closest hit), the first bounce's
+    bounce frame over ``walk_table`` (the engine's walk-order copy of the
+    threaded rows): the camera rays (closest hit), the first bounce's
     shadow rays (any hit), and the first closest-hit walk with at most
     LATE_ACTIVE_SHARE of the lanes alive."""
     states = {}
@@ -2196,19 +2223,55 @@ def _bounce_states(scene, textures, cfg, params) -> dict:
         return real_a(table, k, o, d, max_dist, active, fmt=fmt)
 
     with _walks(closest, anyhit):
-        wavefront.render_frame(scene, None, textures, params, 1, WIDTH,
+        wavefront.render_frame(scene, walk_table, textures, params, 1, WIDTH,
                                HEIGHT, cfg, 1)
     if sorted(states) != ["fresh", "late", "shadow"]:
         raise AssertionError(f"the frame gave the states {sorted(states)}")
     return states
 
 
-def _check_threaded(label: str, scene, state) -> dict:
-    """One state through the kernel and through its plain version: every
-    output and the rows fetched must be equal.  Then the kernel's own
-    time and the wrapper's."""
+def longest_walk(fn):
+    """(fn(), the loop count of the plain threaded walk ``fn`` runs): one
+    fetch of the live lanes' rows an iteration, so the count is the
+    state's longest walk in rows.  Counted around
+    ``traverse._threaded_rows``; the walk's results are its own."""
+    real = traverse._threaded_rows
+    count = [0]
+
+    def counted(*args, **kwargs):
+        count[0] += 1
+        return real(*args, **kwargs)
+
+    traverse._threaded_rows = counted
+    try:
+        out = fn()
+    finally:
+        traverse._threaded_rows = real
+    return out, count[0]
+
+
+def threaded_builds(log_text: str) -> dict:
+    """Registers, stack and spills of each threaded-walk kernel instance
+    (leaf format, closest or any hit) from a build's ptxas -v lines."""
+    out = {}
+    for name in sorted(set(re.findall(
+            r"_Z\w*threaded_walk_kernel\w*", log_text))):
+        m = re.search(r"ILi(\d)ELb(\d)E", name)
+        label = (f"{'mt' if m.group(1) == '1' else 'bw'} "
+                 f"{'any' if m.group(2) == '1' else 'closest'}")
+        out[label] = ptxas_numbers(log_text, name)
+    return out
+
+
+def _check_threaded(label: str, scene, walk_table, state,
+                    latency_ns: float) -> dict:
+    """One state through the kernel and through its plain version over the
+    same walk-order rows: every output and the rows fetched must be
+    equal.  Then the kernel's own time and the wrapper's, the state's
+    longest walk (the plain loop count) and the two bounds."""
     o, d, active, max_dist = state
-    table, k, fmt = scene.node_table, scene.leaf_size, scene.leaf_fmt
+    k, fmt = scene.leaf_size, scene.leaf_fmt
+    table = walk_table
     shadow = max_dist is not None
     launch = lambda: threaded.threaded_walk_cuda(table, k, o, d, active,
                                                  max_dist, fmt=fmt)
@@ -2217,10 +2280,11 @@ def _check_threaded(label: str, scene, state) -> dict:
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     if shadow:
-        want = traverse.any_hit_packed(table, k, o, d, max_dist, active,
-                                       fmt=fmt)
+        want, longest = longest_walk(lambda: traverse.any_hit_packed(
+            table, k, o, d, max_dist, active, fmt=fmt))
     else:
-        want = traverse.closest_hit_packed(table, k, o, d, active, fmt=fmt)
+        want, longest = longest_walk(lambda: traverse.closest_hit_packed(
+            table, k, o, d, active, fmt=fmt))
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t1)
     names = ("occluded", "rows") if shadow else ("t", "hit_id", "rows")
@@ -2228,44 +2292,62 @@ def _check_threaded(label: str, scene, state) -> dict:
     err = 0.0 if shadow else float((got[0].double() - want[0].double())
                                    .abs().max())
     n, n_act, rows = o.shape[0], int(active.sum()), int(got[-1])
-    log(f"[bounce] {label} walk ({fmt} leaves x{k}, table "
+    log(f"[bounce] {label} walk ({fmt} leaves x{k}, walk-order table "
         f"{tuple(table.shape)}): {n_act} of {n} lanes active; rows fetched "
-        f"kernel {rows} plain {int(want[-1])}; outputs differing {bad}, "
-        f"max abs err {err!r}")
+        f"kernel {rows} plain {int(want[-1])}; longest walk {longest} rows; "
+        f"outputs differing {bad}, max abs err {err!r}; launch: "
+        f"{-(-n // 64)} blocks of 64 threads, one a ray, 0 staged rows, 0 B "
+        f"of shared memory (no plan: staging and persistent blocks were "
+        f"measured and dropped)")
     if bad:
         raise AssertionError(f"threaded_walk kernel disagrees with its plain "
                              f"version on the {label} state: {bad}")
     wrapper_ms = _time_ms(launch, reps=5)
     ms = _kernel_ms(launch, "threaded_walk_kernel", reps=10)
-    # The table once, each lane's active flag, an active lane's ray (and
-    # segment length), each lane's outputs; a fetched row's slab test at
-    # 30 operations (leaf slots left out: a lower count).
-    n_bytes = (table.numel() * 4 + n + n_act * (28 if shadow else 24)
-               + n * (1 if shadow else 12))
+    # The threaded table once (its rows as pack_traversal_table packs
+    # them), each lane's active flag, an active lane's ray (and segment
+    # length), each lane's outputs; a fetched row's slab test at 30
+    # operations (leaf slots left out: a lower count).
+    n_bytes = (scene.node_table.numel() * 4 + n
+               + n_act * (28 if shadow else 24) + n * (1 if shadow else 12))
+    # The longest walk's chain of dependent fetches, one L2 latency each.
+    latency_ms = longest * latency_ns * 1e-6
     out = dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
                plain_ms=plain_ms, library_ms=None, rows_fetched=rows,
-               active_lanes=n_act, **bound(n_bytes, 30 * rows))
+               active_lanes=n_act, longest_walk=longest,
+               latency_bound_ms=latency_ms,
+               **bound(n_bytes, 30 * rows))
+    larger = max(out["bound_ms"], latency_ms)
     log(f"[bounce] {label} walk: kernel's own time {ms:.4f} ms, wrapper "
         f"{wrapper_ms:.4f} ms, plain {plain_ms:.1f} ms; "
-        f"{rows / ms / 1e6:.3f} G rows/s; bound {out['bound_ms']:.5f} ms by "
-        f"{out['bound_by']}")
+        f"{rows / ms / 1e6:.3f} G rows/s; bounds: {out['bound_ms']:.5f} ms "
+        f"by {out['bound_by']}, {latency_ms:.5f} ms by latency ({longest} "
+        f"rows x {latency_ns:.1f} ns); own time {ms / larger:.2f}x the "
+        f"larger")
     return out
 
 
-def phase_threaded_walk(rb: Renderer, features_r: Renderer, params) -> dict:
+def phase_threaded_walk(rb: Renderer, features_r: Renderer, params,
+                        latency_ns: float) -> dict:
     """The threaded-walk kernel against its plain version on three states
-    of the 960,000-lane bounce wave, on the main path's tree ("bw" slots)
-    and on the [features] Renderer's SBVH ("mt" slots, auto leaf 6, rows
-    of 78 floats).  Returns the "bw" states' numbers, fresh first, and
-    the "mt" ones under "mt"."""
-    out = {}
-    runs = (("bw", rb.scene, rb.device_textures, rb.cfg),
-            ("mt", features_r.scene,
+    of the 960,000-lane bounce wave, over the engine's walk-order copy of
+    the main path's tree ("bw" slots) and of the [features] Renderer's
+    SBVH ("mt" slots, auto leaf 6, rows of 78 floats padded to 80).
+    ``latency_ns`` is one dependent L2 fetch's latency ([fetch]).
+    Returns the "bw" states' numbers, fresh first, the "mt" ones under
+    "mt", and the kernel instances' registers under "build"."""
+    out = {"build": threaded_builds(threaded.LIBRARY.compiler_log)}
+    log(f"[bounce] threaded_walk kernel builds: {out['build']}")
+    fs = features_r.scene
+    runs = (("bw", rb.scene, rb.inline, rb.device_textures, rb.cfg),
+            ("mt", fs, threaded.walk_table(fs.node_table, fs.leaf_size,
+                                           fs.leaf_fmt),
              device_textures(features_r.textures, features_r.device),
              features_r.cfg.replace(engine="bounce")))
-    for fmt, scene, textures, cfg in runs:
-        states = _bounce_states(scene, textures, cfg, params)
-        res = {label: _check_threaded(label, scene, states[label])
+    for fmt, scene, walk_table, textures, cfg in runs:
+        states = _bounce_states(scene, walk_table, textures, cfg, params)
+        res = {label: _check_threaded(label, scene, walk_table,
+                                      states[label], latency_ns)
                for label in ("fresh", "shadow", "late")}
         del states
         out[fmt] = res
@@ -2448,7 +2530,8 @@ def main() -> int:
     if not any(x["modes"][walk.TEXG] for x in serviced.values()):
         raise AssertionError("no [service] state of the main path had TEXG "
                              "lanes in flight")
-    threaded_states = phase_threaded_walk(rb, features_r, params)
+    threaded_states = phase_threaded_walk(rb, features_r, params,
+                                          chain["latency"]["global_ns"])
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     keys = ("max_abs_err", "ms", "wrapper_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
@@ -2466,7 +2549,8 @@ def main() -> int:
         f"{m['engine']} {m['tile']}x{m['sample']}": m["launches"][name]
         for m in parallel_run["meshes"]}
     bw_walk = threaded_states["bw"]
-    state_keys = (*keys, "rows_fetched", "active_lanes")
+    state_keys = (*keys, "rows_fetched", "active_lanes", "longest_walk",
+                  "latency_bound_ms")
     log(json.dumps({"kernels": [
         dict(name="tonemap", route="cuda",
              source="tryraytrace_tpu_torch/csrc/tonemap.cu",
@@ -2478,7 +2562,8 @@ def main() -> int:
              replaces="scripts/microbench_pallas_fetch.py:34",
              launches=chain["launches"], **path_counts("fetch_chain"),
              **{k: chain[k] for k in keys},
-             variants=chain["variants"]),
+             latency_bound_ms=chain["latency_bound_ms"],
+             latency_ns=chain["latency"], variants=chain["variants"]),
         dict(name="quad_walk", route="cuda",
              source="tryraytrace_tpu_torch/csrc/quad_walk.cu",
              replaces="tryraytrace_tpu/engine/persistent.py:948",
@@ -2496,6 +2581,9 @@ def main() -> int:
              launches=bounce_run["threaded_walk"],
              **path_counts("threaded_walk"),
              **{k: bw_walk["fresh"][k] for k in keys},
+             longest_walk=bw_walk["fresh"]["longest_walk"],
+             latency_bound_ms=bw_walk["fresh"]["latency_bound_ms"],
+             build=threaded_states["build"],
              states={label: {k: res[k] for k in state_keys}
                      for label, res in bw_walk.items()},
              mt={label: {k: res[k] for k in state_keys}

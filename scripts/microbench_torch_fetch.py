@@ -1,7 +1,7 @@
 """Dependent row-fetch chain on a CUDA card: is a dependent table-row
 fetch cheaper from shared memory than from L2?
 
-    python3 scripts/microbench_torch_fetch.py [--seed 0] [--cpu]
+    python3 scripts/microbench_torch_fetch.py [--seed 0] [--lanes N] [--cpu]
 
 The PyTorch/CUDA counterpart of scripts/microbench_pallas_fetch.py, with
 the same variant list (table height M, row width W, table dtype) plus
@@ -14,6 +14,13 @@ table read from device memory (L2-resident at these sizes), of the same
 kernel with the table staged in shared memory (or that the table does
 not fit), and of the plain PyTorch gather chain; then it checks that
 both placements return the plain chain's outputs exactly.
+
+``--lanes N`` runs every variant with N lanes instead of 65,536, and
+then the latency variants: with one warp of lanes (``--lanes 32``) no
+other warp hides a fetch, so a call's time over its 64 steps is the
+latency of one dependent fetch step on the card, from device memory
+after a warm-up (a 2 MB table of 16-byte rows: one load and four adds a
+step, the table in L2) and from shared memory (a 16 KB table).
 
 Needs a CUDA device and exits non-zero without one; ``--cpu`` runs only
 the plain version, at 512 lanes and 4 steps, as a dry run of the script.
@@ -35,6 +42,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from tryraytrace_tpu_torch.ops import fetch  # noqa: E402
 
 CPU_LANES, CPU_STEPS = 512, 4
+# (M, W, dtype, data-dependent) of the latency variants: 16-byte rows
+# whose column 1 picks the next row, a table past any SM's L1 for device
+# memory and one that shared memory holds.
+LATENCY_VARIANTS = ((131072, 4, torch.float32, True),
+                    (1024, 4, torch.float32, True))
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -51,20 +63,32 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _own_ms(fn, reps: int) -> float:
+    """The fetch-chain kernel's own device time per call of ``fn``
+    (torch.profiler, chip_smoke._kernel_ms): a one-warp call is shorter
+    than the host's time to make it, which CUDA events around a run of
+    calls would measure instead."""
+    from chip_smoke import _kernel_ms
+
+    return _kernel_ms(fn, "fetch_chain_kernel", reps)
+
+
 def variant_name(m, w, dtype, dependent) -> str:
     kind = "dependent" if dependent else "uniform"
     return f"M={m} W={w} {str(dtype).replace('torch.', '')} {kind}"
 
 
-def run_benchmark(seed: int, reps: int = 20) -> list:
-    """Time and check every variant on the current CUDA device.  Returns
-    one dict per variant: ``ms`` by placement (None where the table does
-    not fit shared memory), ``plain_ms``, ``exact`` (both outputs of
-    every placement equal the plain chain's) and ``table_bytes``."""
+def run_benchmark(seed: int, reps: int = 20, lanes: int = fetch.LANES,
+                  variants=fetch.VARIANTS, timer=_time_ms) -> list:
+    """Time and check ``variants`` with ``lanes`` lanes on the current
+    CUDA device (``timer(fn, reps)``: ms a call).  Returns one dict per
+    variant: ``ms`` by placement (None where the table does not fit
+    shared memory), ``plain_ms``, ``exact`` (both outputs of every
+    placement equal the plain chain's) and ``table_bytes``."""
     rs = np.random.RandomState(seed)
-    lanes, steps = fetch.LANES, fetch.STEPS
+    steps = fetch.STEPS
     results = []
-    for m, w, dtype, dependent in fetch.VARIANTS:
+    for m, w, dtype, dependent in variants:
         table, idx = fetch.make_inputs(rs, m, w, dtype, dependent, lanes)
         table, idx = table.cuda(), idx.cuda()
         want = fetch.fetch_chain_plain(table, idx, steps)
@@ -80,12 +104,27 @@ def run_benchmark(seed: int, reps: int = 20) -> list:
             got = fetch.fetch_chain(table, idx, steps, placement)
             torch.cuda.synchronize()
             res["exact"] &= all(torch.equal(g, x) for g, x in zip(got, want))
-            res["ms"][placement] = _time_ms(
+            res["ms"][placement] = timer(
                 lambda: fetch.fetch_chain(table, idx, steps, placement), reps)
         res["plain_ms"] = _time_ms(
             lambda: fetch.fetch_chain_plain(table, idx, steps), 3)
         results.append(res)
     return results
+
+
+def latency_ns(seed: int, lanes: int = 32) -> dict:
+    """One dependent fetch step's latency in ns by placement ("global":
+    device memory after a warm-up, "shared"), from a warp of ``lanes``
+    walking the latency variants: a call's time over its steps."""
+    res = run_benchmark(seed, lanes=lanes, variants=LATENCY_VARIANTS,
+                        timer=_own_ms)
+    if not all(r["exact"] for r in res):
+        raise AssertionError("a latency variant differs from the plain "
+                             "chain")
+    return dict(global_ns=res[0]["ms"]["global"] * 1e6 / res[0]["steps"],
+                shared_ns=res[1]["ms"]["shared"] * 1e6 / res[1]["steps"],
+                global_l1_table_ns=res[1]["ms"]["global"] * 1e6
+                / res[1]["steps"], variants=res)
 
 
 def _per(ms, res) -> str:
@@ -111,6 +150,9 @@ def run_cpu(seed: int) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lanes", type=int, default=None,
+                    help="lanes a call (default 65,536); also times the "
+                         "latency variants")
     ap.add_argument("--cpu", action="store_true",
                     help="dry run: the plain version on the CPU, no timing "
                          "of the device")
@@ -127,8 +169,15 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
-    print(f"{fetch.LANES} lanes x {fetch.STEPS} steps, seed {args.seed}")
-    results = run_benchmark(args.seed)
+    lanes = args.lanes or fetch.LANES
+    print(f"{lanes} lanes x {fetch.STEPS} steps, seed {args.seed}"
+          + ("; kernel times are its own device time (torch.profiler)"
+             if args.lanes else ""))
+    timer = _own_ms if args.lanes else _time_ms
+    results = run_benchmark(args.seed, lanes=lanes, timer=timer)
+    if args.lanes:
+        results += run_benchmark(args.seed, lanes=lanes,
+                                 variants=LATENCY_VARIANTS, timer=timer)
     for res in results:
         print(f"  {res['name']} ({res['table_bytes']} B)")
         print(f"    kernel, table in device memory: "
@@ -140,6 +189,11 @@ def main() -> int:
         print(f"    kernel vs plain chain: "
               f"{'EXACT' if res['exact'] else 'DIFFERENT'} "
               f"(checksum {res['checksum']:.1f})")
+        if args.lanes:
+            per_step = {k: None if v is None
+                        else f"{v * 1e6 / res['steps']:.1f}"
+                        for k, v in res["ms"].items()}
+            print(f"    ns a step of a lane's chain by placement: {per_step}")
     return 0 if all(res["exact"] for res in results) else 1
 
 

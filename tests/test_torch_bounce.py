@@ -308,9 +308,11 @@ def test_bounce_renderer_matches_jax_and_its_ray_counts():
     assert st["n_traced"].dtype == torch.int64
     assert (int(st["n_traced"]), int(st["n_shadow"])) == (int(tr), int(sh))
     assert int(tr) > W * H * 2 and int(sh) > 0
-    assert r.inline is None and len(r.device_textures) == 1
+    assert torch.equal(r.inline, threaded.walk_table(
+        r.scene.node_table, r.scene.leaf_size, r.scene.leaf_fmt))
+    assert len(r.device_textures) == 1
     assert wavefront.frame_ray_stats(
-        r.scene, None, r.device_textures,
+        r.scene, r.inline, r.device_textures,
         CameraController().get_params(W, H).to("cpu"), 1, W, H, r.cfg,
         2) == (int(tr), int(sh))
 
@@ -448,37 +450,44 @@ def test_sample_offset_renders_a_slice_of_the_sample_set():
 
 # -- the kernel on a card ----------------------------------------------------
 
-def _card_inputs(leaf_fmt, shadow):
+def _card_inputs(leaf_fmt, shadow, active_share):
+    """The kernel's inputs over the walk-order copy (rows of 72 floats
+    for "bw", 78 padded to 80 for "mt"), and the original table."""
     table, _, o, d = _walk_scene(12, 2000, leaf_fmt, leaf_size=6)
+    copy, _ = tbvh.threaded_walk_order_table(table, 6, leaf_fmt)
     active = np.ones(N, bool)
     active[::31] = False
+    active &= np.random.RandomState(14).rand(N) < active_share
     smax = np.random.RandomState(13).uniform(0.5, 12, N).astype(np.float32)
-    args = [_t(table), 6, _t(o), _t(d), _t(active)]
+    args = [_t(copy), 6, _t(o), _t(d), _t(active)]
     if shadow:
         args.append(_t(smax))
-    return args
+    return args, _t(table)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("active_share", [1.0, 0.1])
 @pytest.mark.parametrize("shadow", [False, True])
 @pytest.mark.parametrize("leaf_fmt", ["bw", "mt"])
-def test_cuda_threaded_walk_matches_plain_version(leaf_fmt, shadow):
+def test_cuda_threaded_walk_matches_plain_version(leaf_fmt, shadow,
+                                                  active_share):
     if not torch.cuda.is_available():
         pytest.skip("the CUDA threaded walk runs only on a CUDA device")
-    args = _card_inputs(leaf_fmt, shadow)
+    args, table = _card_inputs(leaf_fmt, shadow, active_share)
     card = [a.cuda() if isinstance(a, torch.Tensor) else a for a in args]
     before = threaded.threaded_walk_cuda.launches
     got = threaded.threaded_walk_cuda(*card, fmt=leaf_fmt)
     torch.cuda.synchronize()
     assert threaded.threaded_walk_cuda.launches == before + 1
-    if shadow:
-        table, k, o, d, active, smax = card
-        want = ttrav.any_hit_packed(table, k, o, d, smax, active,
-                                    fmt=leaf_fmt)
-    else:
-        want = ttrav.closest_hit_packed(*card, fmt=leaf_fmt)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    for rows in (card[0], table.cuda()):
+        if shadow:
+            _, k, o, d, active, smax = card
+            want = ttrav.any_hit_packed(rows, k, o, d, smax, active,
+                                        fmt=leaf_fmt)
+        else:
+            want = ttrav.closest_hit_packed(rows, *card[1:], fmt=leaf_fmt)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -833,6 +833,80 @@ def pack_traversal_table(bvh: LinearBVH, v0: np.ndarray, v1: np.ndarray,
     return table
 
 
+# Node ids are stored as float32, which holds every integer below 2^24.
+MAX_FLOAT_ID = 2 ** 24
+
+
+def threaded_walk_order_table(table, leaf_size: int, leaf_fmt: str = "bw"):
+    """The walk's copy of a threaded table (pack_traversal_table): the
+    same rows in breadth-first order, root first and each internal row's
+    children in id order (left, then right), padded at the right end to
+    a multiple of 4 floats (16-byte rows: 72 stays 72 at leaf size 4
+    with "bw" slots, 78 -> 80 at leaf size 6 with "mt" slots).  Every
+    node id in the 16 link columns is renamed with its row; ids at or
+    past the row count (the walk's done sentinel) are kept.  The columns
+    stay where they are.
+
+    The walks reach the same rows in the same order on either table:
+    the renaming fixes row 0, and the walk tests ids only against the
+    sentinel; its outputs carry ``prim_start``, not row ids.  So the
+    plain walks (ops/traverse.py) read the copy unchanged.  An internal
+    row's children are its octant-0 ``next_hit`` (the left child) and
+    the other id among its eight.
+
+    Raises when an id reaches 2^24 (float32 would not hold it exactly)
+    or the links do not make a binary tree under row 0.
+
+    Returns (table [rows, width] float32 NumPy, rows per tree level)."""
+    src = np.asarray(table, np.float32)
+    n, w = src.shape
+    if w != traversal_row_width(leaf_size, leaf_fmt):
+        raise ValueError(f"threaded rows of {w} floats, leaf size "
+                         f"{leaf_size} with {leaf_fmt!r} slots needs "
+                         f"{traversal_row_width(leaf_size, leaf_fmt)}")
+    if n >= MAX_FLOAT_ID:
+        raise ValueError(f"{n} rows: node ids must stay below 2^24")
+    width = -(-w // 4) * 4
+    if n == 0:
+        return np.zeros((0, width), np.float32), []
+    col = 6 + LEAF_STRIDE[leaf_fmt] * leaf_size
+    links = slice(col + 2, col + 2 + 2 * NUM_OCTANTS)
+    ids = src[:, links].astype(np.int64)
+    if ids.min() < 0 or ids.max() >= MAX_FLOAT_ID:
+        raise ValueError("node ids must lie in [0, 2^24)")
+    internal = src[:, col] < 0
+    near = ids[:, :NUM_OCTANTS]
+    left = near[:, 0]
+    right = np.where(near != left[:, None], near, -1).max(axis=1)
+    if (internal & (right < 0)).any():
+        raise ValueError("an internal row has one child: not a binary tree")
+    order, levels = [], []
+    level = np.zeros(1, np.int64)
+    while level.size:
+        order.append(level)
+        levels.append(int(level.size))
+        inner = level[internal[level]]
+        level = np.stack([left[inner], right[inner]], 1).reshape(-1)
+        if level.size and level.max() >= n:
+            raise ValueError("a child id is past the rows: not a tree")
+        if sum(levels) + level.size > n:
+            raise ValueError("the links revisit rows: not a tree under "
+                             "row 0")
+    order = np.concatenate(order)
+    if order.size != n or np.unique(order).size != n:
+        raise ValueError("the threaded rows are not a tree under row 0")
+    new_id = np.empty(n + 1, np.int64)
+    new_id[order] = np.arange(n)
+    new_id[n] = n
+
+    out = np.zeros((n, width), np.float32)
+    out[:, :w] = src[order]
+    moved = ids[order]
+    out[:, links] = np.where(moved < n, new_id[np.minimum(moved, n)],
+                             moved)
+    return out, levels
+
+
 QUAD_WIDTH = 4
 QUAD_COL_CONT = 2
 QUAD_COL_BODY = 10

@@ -1,5 +1,5 @@
 // Threaded-row BVH walks of the bounce engine for Hopper (sm_90a): one
-// thread per ray walks the threaded rows to the end, closest hit or any
+// thread a ray walks the threaded rows to the end, closest hit or any
 // hit.
 //
 // What it replaces.  On the TPU these are not Pallas kernels but
@@ -13,11 +13,14 @@
 // left to right, min and max carry NaN as torch's do, and every tie is
 // broken as the tensor code breaks it.
 //
-// The table (accel/bvh.py pack_traversal_table) holds one row per node of
-// the binary tree, stride * K + 24 floats: the node's box (0:6), K inline
-// leaf slots from float 6, prim_start (-1 for an internal row), the leaf's
-// count, then next_hit[8] and next_miss[8], the thread's continuations for
-// each ray-direction octant (node ids; the row count is the end).  A walk
+// The table is the walk-order copy of the threaded rows
+// (accel/bvh.py threaded_walk_order_table): the rows of
+// pack_traversal_table in breadth-first order, links renamed, each row
+// padded to a multiple of 4 floats, so every row starts on a 16-byte
+// boundary.  A row holds the node's box (0:6), K inline leaf slots from
+// float 6, prim_start (-1 for an internal row), the leaf's count, then
+// next_hit[8] and next_miss[8], the thread's continuations for each
+// ray-direction octant (row ids; the row count is the end).  A walk
 // fetches row `cur`, tests the box and, on a hit leaf, its slots; it goes
 // on to next_hit of its octant after a hit internal box and to next_miss
 // otherwise.
@@ -33,23 +36,33 @@
 //
 // What bounds it on this card.  A walk knows its next row only after it
 // has read the current one, so each thread runs a chain of dependent
-// loads; the 32 lanes of a warp read 32 different rows, so no load is
-// coalesced; and walks differ in length, so a warp runs as long as its
-// longest walk.  The table itself is small (4 MB on the main path) and
-// stays in the 50 MB L2 after the first walks, so the bytes it must move
-// are few and the time is load latency and instructions a row.  The
-// design is the simple one: rows are 9K + 24 floats for "mt" slots, not
-// always a multiple of 4 (78 at K = 6), so the kernel reads one float at
-// a time, and only what the row's kind needs: the box, prim_start and
-// one link of an internal row (8 loads), a leaf's slots only when its
-// box is hit.  Persistent threads that take new rays as theirs finish,
-// and the top rows in shared memory (quad_walk.cu's answers to the same
-// costs), are later work.
+// loads; the 32 lanes of a warp read 32 different rows; and walks differ
+// in length, so a warp runs as long as its longest walk.  The table (3.8
+// MB on the main path) stays in the 50 MB L2, so the bytes it must move
+// are few; the time is each walk's chain of round trips and how many
+// threads the card keeps waiting on theirs.  The design (PERF.md, each
+// part measured in turns against the scalar-load kernel it replaced):
+//   - One round trip a row.  A row's box (two 16-byte loads), prim_start
+//     and both candidate links of the ray's octant (next_hit and
+//     next_miss) are loaded in one batch of independent loads; the box
+//     test then picks the link in registers.  A leaf's slots are loaded
+//     only after its box is hit, two slots a batch ("bw" slots as the
+//     16-byte units they span, "mt" slots a float at a time), so a hit
+//     leaf of K slots costs K / 2 more round trips, not K.  Four slots a
+//     batch take ~90 registers and halve the threads an SM keeps.
+//   - Blocks of 64 threads, one a ray: a block ends with its longest
+//     walk, so small blocks let the card replace finished rays sooner,
+//     and a block of rays that are all inactive ends at once.  Persistent
+//     blocks that claim rays from a global counter were built and
+//     measured: faster by a sixth when 8% of the rays are alive, slower
+//     by a fifth on full waves, so they went, as did staging the top
+//     levels in shared memory and loading the first slots with the
+//     header.
 //
-// The kernel counts the rows it fetches (a warp sum, then one 64-bit
-// atomic add, which is free of order): the operations of this run's
-// walks, which give its bound.  Launched on the caller's stream;
-// allocates nothing.
+// Every lane's outputs are written here, so the caller allocates them
+// without filling them.  The kernel counts the rows it fetches (a warp
+// sum, then one 64-bit atomic add, which is free of order): the rows of
+// this run's walks.  Launched on the caller's stream; allocates nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,8 +75,19 @@ constexpr int kFmtMT = 1;  // Moller-Trumbore (v0, e1, e2)
 template <int F>
 constexpr int kLeafStride = F == kFmtMT ? 9 : 12;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 64;
 constexpr unsigned kFull = 0xffffffffu;
+
+// Slots loaded in one batch.  A batch whose floats fill whole 16-byte
+// units (two "bw" slots) starts 8 bytes into a unit (float 6 + stride *
+// kGroup * g) and is loaded as the units it spans; another (two "mt"
+// slots) is loaded a float at a time.
+constexpr int kGroup = 2;
+template <int F>
+constexpr bool kGroupVec = (kGroup * kLeafStride<F>) % 4 == 0;
+template <int F>
+constexpr int kGroupUnits = (2 + kGroup * kLeafStride<F> + 3) / 4;
+
 constexpr float kMissT = 1e20f;
 constexpr float kEps = 1e-5f;
 constexpr float kShadowTMin = 1e-3f;
@@ -88,6 +112,10 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 #else
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
 #endif
+}
+
+__device__ __forceinline__ float part(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
 struct Ray {
@@ -141,14 +169,9 @@ __device__ __forceinline__ float moller_trumbore_t(const float s[9],
   return valid ? t : 0.0f;
 }
 
-// Slot j of format F of a leaf row: t, or 0 for a miss.
 template <int F>
-__device__ __forceinline__ float slot_t(const float* __restrict__ row, int j,
+__device__ __forceinline__ float slot_t(const float (&s)[kLeafStride<F>],
                                         const Ray& r) {
-  constexpr int kStride = kLeafStride<F>;
-  float s[kStride];
-#pragma unroll
-  for (int i = 0; i < kStride; ++i) s[i] = __ldg(row + 6 + kStride * j + i);
   if constexpr (F == kFmtMT) {
     return moller_trumbore_t(s, r);
   } else {
@@ -156,16 +179,15 @@ __device__ __forceinline__ float slot_t(const float* __restrict__ row, int j,
   }
 }
 
-// Slab test of a row's box against (t_min, t_max):
+// Slab test of a box (min xyz, max xyz) against (t_min, t_max):
 // tmax >= tmin && tmax > t_min && tmin < t_max, false where NaN.
-__device__ __forceinline__ bool box_hit(const float* __restrict__ row,
-                                        const Ray& r, float t_min,
-                                        float t_max) {
+__device__ __forceinline__ bool box_hit(const float (&box)[6], const Ray& r,
+                                        float t_min, float t_max) {
   float lo = 0.0f, hi = 0.0f;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const float t1 = (__ldg(row + a) - r.o[a]) * r.inv[a];
-    const float t2 = (__ldg(row + 3 + a) - r.o[a]) * r.inv[a];
+    const float t1 = (box[a] - r.o[a]) * r.inv[a];
+    const float t2 = (box[3 + a] - r.o[a]) * r.inv[a];
     const float near_a = nan_min(t1, t2);
     const float far_a = nan_max(t1, t2);
     lo = a == 0 ? near_a : nan_max(lo, near_a);
@@ -175,96 +197,171 @@ __device__ __forceinline__ bool box_hit(const float* __restrict__ row,
 }
 
 struct Params {
-  const float* __restrict__ table;
+  const float4* table;  // walk-order rows, width4 16-byte units a row
+  int width4;
+  int col_ps;           // prim_start's column; the links follow it
   int sentinel;
-  int width;
   int k;
   long long n;
-  const float* __restrict__ o;
-  const float* __restrict__ d;
-  const unsigned char* __restrict__ active;
-  const float* __restrict__ max_dist;  // any hit only
-  float* t_out;                        // closest hit only
-  long long* id_out;                   // closest hit only
-  unsigned char* occ_out;              // any hit only
+  const float* o;
+  const float* d;
+  const unsigned char* active;
+  const float* max_dist;          // any hit only
+  float* t_out;                   // closest hit only
+  long long* id_out;              // closest hit only
+  unsigned char* occ_out;         // any hit only
   unsigned long long* rows_out;
 };
 
-// One thread per ray i; kShadow picks the any-hit walk.
+__device__ __forceinline__ float load1(const float4* row, int f) {
+  return __ldg(reinterpret_cast<const float*>(row) + f);
+}
+
+// What a row's round trip brings: its box, prim_start and the two links
+// of the ray's octant (column col_link and the one 8 after it).
+struct Head {
+  float box[6];
+  float ps;
+  float nh;
+  float nm;
+};
+
+__device__ __forceinline__ Head load_head(const float4* row, int col_ps,
+                                          int col_link) {
+  const float4 b0 = __ldg(row);
+  const float4 b1 = __ldg(row + 1);
+  return Head{{b0.x, b0.y, b0.z, b0.w, b1.x, b1.y},
+              load1(row, col_ps),
+              load1(row, col_link),
+              load1(row, col_link + 8)};
+}
+
+// Slot group g of a leaf row (slots kGroup * g ..): s[b] is slot
+// kGroup * g + b, those at or past k left zero.
+template <int F>
+__device__ __forceinline__ void load_group(
+    const float4* row, int width4, int k, int g,
+    float (&s)[kGroup][kLeafStride<F>]) {
+  constexpr int kStride = kLeafStride<F>;
+  if constexpr (kGroupVec<F>) {
+    const int u0 = (6 + kStride * kGroup * g) >> 2;
+    float4 c[kGroupUnits<F>];
+#pragma unroll
+    for (int i = 0; i < kGroupUnits<F>; ++i) {
+      c[i] = u0 + i < width4 ? __ldg(row + u0 + i)
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int b = 0; b < kGroup; ++b) {
+#pragma unroll
+      for (int i = 0; i < kStride; ++i) {
+        const int f = 2 + kStride * b + i;
+        s[b][i] = part(c[f >> 2], f & 3);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int b = 0; b < kGroup; ++b) {
+      const int j = kGroup * g + b;
+#pragma unroll
+      for (int i = 0; i < kStride; ++i) {
+        s[b][i] = j < k ? load1(row, 6 + kStride * j + i) : 0.0f;
+      }
+    }
+  }
+}
+
+// The thread's walk of lane i, leaf slots of format F; kShadow picks the
+// any hit.  Returns the rows it fetched.
+template <int F, bool kShadow>
+__device__ __forceinline__ unsigned walk(const Params& p, long long i) {
+  if (!p.active[i]) {
+    if (kShadow) {
+      p.occ_out[i] = 0;
+    } else {
+      p.t_out[i] = kMissT;
+      p.id_out[i] = -1;
+    }
+    return 0;
+  }
+  Ray r;
+  r.octant = 0;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    r.o[a] = __ldg(p.o + 3 * i + a);
+    r.d[a] = __ldg(p.d + 3 * i + a);
+    if (kShadow) {
+      r.inv[a] = 1.0f / r.d[a];
+    } else {
+      const bool tiny = fabsf(r.d[a]) < 1e-8f;
+      const float q = 1.0f / (tiny ? 1.0f : r.d[a]);
+      r.inv[a] = tiny ? (r.d[a] >= 0.0f ? 1e20f : -1e20f) : q;
+    }
+    if (r.d[a] < 0.0f) r.octant |= 1 << a;
+  }
+  constexpr int kStride = kLeafStride<F>;
+  const float smax = kShadow ? __ldg(p.max_dist + i) : 0.0f;
+  const int col_link = p.col_ps + 2 + r.octant;
+  float d_min = kMissT;
+  int hit_id = -1;
+  bool occluded = false;
+  unsigned rows = 0;
+  int cur = 0;
+  while (cur < p.sentinel && !occluded) {
+    ++rows;
+    const float4* row = p.table + static_cast<size_t>(cur) * p.width4;
+    const Head h = load_head(row, p.col_ps, col_link);
+    const bool hit = kShadow ? box_hit(h.box, r, kShadowTMin, smax)
+                             : box_hit(h.box, r, 0.0f, d_min);
+    const int prim_start = static_cast<int>(h.ps);
+    const bool is_leaf = prim_start >= 0;
+    if (hit && is_leaf) {
+      const float thi = kShadow ? smax - kShadowTMin : d_min;
+      float best_t = kMissT;
+      int best = -1;
+      for (int g = 0; g * kGroup < p.k && !occluded; ++g) {
+        float s[kGroup][kStride];
+        load_group<F>(row, p.width4, p.k, g, s);
+#pragma unroll
+        for (int b = 0; b < kGroup; ++b) {
+          const int j = kGroup * g + b;
+          if (j < p.k && !occluded) {
+            const float t = slot_t<F>(s[b], r);
+            if (kShadow) {
+              occluded = t > kShadowTMin && t < thi;
+            } else {
+              const float cand = (t > 0.0f && t < thi) ? t : kMissT;
+              if (cand < best_t) {
+                best_t = cand;
+                best = j;
+              }
+            }
+          }
+        }
+      }
+      if (!kShadow && best >= 0) {
+        d_min = best_t;
+        hit_id = prim_start + best;
+      }
+    }
+    cur = static_cast<int>(hit && !is_leaf ? h.nh : h.nm);
+  }
+  if (kShadow) {
+    p.occ_out[i] = occluded ? 1 : 0;
+  } else {
+    p.t_out[i] = d_min;
+    p.id_out[i] = hit_id;
+  }
+  return rows;
+}
+
+// One thread per lane i.
 template <int F, bool kShadow>
 __global__ void __launch_bounds__(kThreads)
     threaded_walk_kernel(const Params p) {
   const long long i =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  unsigned long long rows = 0;
-  if (i < p.n) {
-    Ray r;
-    r.octant = 0;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      r.o[a] = __ldg(p.o + 3 * i + a);
-      r.d[a] = __ldg(p.d + 3 * i + a);
-      if (kShadow) {
-        r.inv[a] = 1.0f / r.d[a];
-      } else {
-        const bool tiny = fabsf(r.d[a]) < 1e-8f;
-        const float q = 1.0f / (tiny ? 1.0f : r.d[a]);
-        r.inv[a] = tiny ? (r.d[a] >= 0.0f ? 1e20f : -1e20f) : q;
-      }
-      if (r.d[a] < 0.0f) r.octant |= 1 << a;
-    }
-    const int col_ps = 6 + kLeafStride<F> * p.k;
-    const float smax = kShadow ? __ldg(p.max_dist + i) : 0.0f;
-    const float leaf_hi = smax - 1e-3f;
-    float d_min = kMissT;
-    long long hit_id = -1;
-    bool occluded = false;
-    int cur = __ldg(p.active + i) ? 0 : p.sentinel;
-    while (cur < p.sentinel) {
-      ++rows;
-      const float* __restrict__ row =
-          p.table + static_cast<size_t>(cur) * p.width;
-      const bool hit = kShadow ? box_hit(row, r, kShadowTMin, smax)
-                               : box_hit(row, r, 0.0f, d_min);
-      const int prim_start = static_cast<int>(__ldg(row + col_ps));
-      const bool is_leaf = prim_start >= 0;
-      if (hit && is_leaf) {
-        if (kShadow) {
-          for (int j = 0; j < p.k; ++j) {
-            const float t = slot_t<F>(row, j, r);
-            if (t > kShadowTMin && t < leaf_hi) {
-              occluded = true;
-              break;
-            }
-          }
-          if (occluded) break;
-        } else {
-          float best_t = kMissT;
-          int best = -1;
-          for (int j = 0; j < p.k; ++j) {
-            const float t = slot_t<F>(row, j, r);
-            const float cand = (t > 0.0f && t < d_min) ? t : kMissT;
-            if (cand < best_t) {
-              best_t = cand;
-              best = j;
-            }
-          }
-          if (best >= 0) {
-            d_min = best_t;
-            hit_id = prim_start + best;
-          }
-        }
-      }
-      const int link = (hit && !is_leaf ? 2 : 10) + r.octant;
-      cur = static_cast<int>(__ldg(row + col_ps + link));
-    }
-    if (kShadow) {
-      p.occ_out[i] = occluded ? 1 : 0;
-    } else {
-      p.t_out[i] = d_min;
-      p.id_out[i] = hit_id;
-    }
-  }
+  unsigned long long rows = i < p.n ? walk<F, kShadow>(p, i) : 0;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     rows += __shfl_down_sync(kFull, rows, off);
@@ -272,64 +369,64 @@ __global__ void __launch_bounds__(kThreads)
   if ((threadIdx.x & 31) == 0 && rows > 0) atomicAdd(p.rows_out, rows);
 }
 
-// Arguments the kernels do not take: cudaErrorInvalidValue.
-inline bool bad_args(long long sentinel, int width, int k, int fmt,
-                     long long n) {
-  if (fmt != kFmtBW && fmt != kFmtMT) return true;
-  const int stride = fmt == kFmtMT ? kLeafStride<kFmtMT> : kLeafStride<kFmtBW>;
-  return sentinel < 1 || sentinel > 0x7fffffffLL || k < 1 ||
-         width < stride * k + 24 || n < 0;
+inline int leaf_stride(int fmt) {
+  return fmt == kFmtMT ? kLeafStride<kFmtMT> : kLeafStride<kFmtBW>;
 }
 
-template <bool kShadow>
-int launch(const Params& p, int fmt, void* stream) {
-  if (p.n == 0) return 0;
-  const long long blocks = (p.n + kThreads - 1) / kThreads;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (fmt == kFmtMT) {
-    threaded_walk_kernel<kFmtMT, kShadow>
-        <<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(p);
-  } else {
-    threaded_walk_kernel<kFmtBW, kShadow>
-        <<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(p);
-  }
-  return static_cast<int>(cudaGetLastError());
+template <int F, bool kShadow>
+void launch(const Params& p, cudaStream_t st) {
+  const unsigned blocks =
+      static_cast<unsigned>((p.n + kThreads - 1) / kThreads);
+  threaded_walk_kernel<F, kShadow><<<blocks, kThreads, 0, st>>>(p);
 }
 
 }  // namespace trt_threaded
 
-// Closest hit.  table [sentinel, width] float32 threaded rows with k
-// slots of format `fmt` (0 Baldwin-Weber, 1 Moller-Trumbore) per leaf; n
-// rays: o, d [n, 3] float32, active [n] bool bytes; writes t [n] float32
-// (1e20 on a miss) and id [n] int64 (-1 on a miss); rows (one int64, zero
-// at launch) is incremented by the rows fetched.  Returns the CUDA error
-// of the launch (0 = launched), 1 (cudaErrorInvalidValue) for arguments
-// it does not take.
-extern "C" int trt_threaded_closest_launch(
+// table [sentinel, width] float32, 16-byte aligned, width a multiple of 4:
+// threaded rows in walk order (accel/bvh.py threaded_walk_order_table)
+// with k slots of format `fmt` (0 Baldwin-Weber, 1 Moller-Trumbore) per
+// leaf.  n rays: o, d [n, 3] float32, active [n] bool bytes, and for the
+// any hit (max_dist non-null) max_dist [n] float32, the NEE segment's
+// length less its epsilon.  The closest hit writes t [n] float32 (1e20 on
+// a miss) and id [n] int64 (-1 on a miss), the any hit occluded [n] bool
+// bytes, for every lane; rows (one int64, zero at launch) is incremented
+// by the rows fetched.  Returns the CUDA error of the launch (0 =
+// launched), 1 (cudaErrorInvalidValue) for arguments it does not take.
+extern "C" int trt_threaded_walk_launch(
     const float* table, long long sentinel, int width, int k, int fmt,
     long long n, const float* o, const float* d, const unsigned char* active,
-    float* t_out, long long* id_out, long long* rows, void* stream) {
-  if (trt_threaded::bad_args(sentinel, width, k, fmt, n)) {
+    const float* max_dist, float* t_out, long long* id_out,
+    unsigned char* occ_out, long long* rows, void* stream) {
+  using namespace trt_threaded;
+  if (n <= 0) return 0;
+  const bool shadow = max_dist != nullptr;
+  if (sentinel < 0 || sentinel > 0x7fffffffLL || width % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(table) % 16 != 0 || k < 1 ||
+      (fmt != kFmtBW && fmt != kFmtMT) ||
+      leaf_stride(fmt) * k + 24 > width ||
+      (shadow ? occ_out == nullptr
+              : (t_out == nullptr || id_out == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  trt_threaded::Params p{table, static_cast<int>(sentinel), width, k, n,
-                         o, d, active, nullptr, t_out, id_out, nullptr,
-                         reinterpret_cast<unsigned long long*>(rows)};
-  return trt_threaded::launch<false>(p, fmt, stream);
-}
-
-// Any hit, as above with max_dist [n] float32 (the NEE segment's length
-// less its epsilon); writes occluded [n] bool bytes.
-extern "C" int trt_threaded_any_launch(
-    const float* table, long long sentinel, int width, int k, int fmt,
-    long long n, const float* o, const float* d, const float* max_dist,
-    const unsigned char* active, unsigned char* occ_out, long long* rows,
-    void* stream) {
-  if (trt_threaded::bad_args(sentinel, width, k, fmt, n)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{reinterpret_cast<const float4*>(table),
+           width / 4,
+           6 + leaf_stride(fmt) * k,
+           static_cast<int>(sentinel),
+           k,
+           n,
+           o,
+           d,
+           active,
+           max_dist,
+           t_out,
+           id_out,
+           occ_out,
+           reinterpret_cast<unsigned long long*>(rows)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (fmt == kFmtMT) {
+    shadow ? launch<kFmtMT, true>(p, st) : launch<kFmtMT, false>(p, st);
+  } else {
+    shadow ? launch<kFmtBW, true>(p, st) : launch<kFmtBW, false>(p, st);
   }
-  trt_threaded::Params p{table, static_cast<int>(sentinel), width, k, n,
-                         o, d, active, max_dist, nullptr, nullptr, occ_out,
-                         reinterpret_cast<unsigned long long*>(rows)};
-  return trt_threaded::launch<true>(p, fmt, stream);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,10 @@ Each stage is masked tensor math over every lane of the wave; dead
 lanes are masked, not compacted, and the loop runs while
 ``depth < max_depth`` and any lane is alive, so the ray counts are the
 JAX engine's.  The two walks are the threaded walks of ops/threaded.py:
-the hand-written CUDA kernel on a card, its plain version on the CPU.
+the hand-written CUDA kernel on a card, its plain version on the CPU,
+both over the walk-order copy of the scene's threaded rows
+(``ops/threaded.py walk_table``; ``engine_tables`` builds it, so a
+refit rebuilds it).
 Textures are sampled from the raw texture tensors
 (``device_scene.device_textures``), not from the persistent engine's
 tile rows.
@@ -37,7 +40,8 @@ from tryraytrace_tpu_torch.engine.camera_rays import generate_rays
 from tryraytrace_tpu_torch.engine.device_scene import device_textures
 from tryraytrace_tpu_torch.ops import shade
 from tryraytrace_tpu_torch.ops.texture import sample_textures
-from tryraytrace_tpu_torch.ops.threaded import any_hit, closest_hit
+from tryraytrace_tpu_torch.ops.threaded import (any_hit, closest_hit,
+                                                walk_table)
 
 def _sanitize(rad, cfg: RenderConfig):
     """Sample sanitation before accumulation (renderer.cu:737-756):
@@ -57,10 +61,11 @@ def _sanitize(rad, cfg: RenderConfig):
     return rad
 
 
-def render_sample(scene, textures, cam, seed: int, width: int, height: int,
-                  cfg: RenderConfig, pixels=None):
+def render_sample(scene, walk, textures, cam, seed: int, width: int,
+                  height: int, cfg: RenderConfig, pixels=None):
     """Trace one 1-spp pass for ``pixels`` (int64 [N] on the scene's
-    device; every pixel by default) with sample seed ``seed`` ->
+    device; every pixel by default) with sample seed ``seed`` over the
+    walk-order threaded rows ``walk`` (``ops/threaded.py walk_table``) ->
     (radiance [N, 3], stats).  Streams are keyed by absolute pixel, so
     a pixel subset renders its pixels' samples exactly.  ``cam`` holds
     tensors on the scene's device (CameraParams.to).
@@ -86,8 +91,8 @@ def render_sample(scene, textures, cam, seed: int, width: int, height: int,
     while depth < cfg.max_depth and bool(alive.any()):
         n_traced = n_traced + alive.sum()
         o, d, tp, rad, alive, prev_spec, sh, rw = _bounce(
-            scene, textures, seed, pixels, depth, o, d, tp, rad, alive,
-            prev_spec, cfg)
+            scene, walk, textures, seed, pixels, depth, o, d, tp, rad,
+            alive, prev_spec, cfg)
         n_shadow = n_shadow + sh
         rows = rows + rw
         depth += 1
@@ -95,15 +100,15 @@ def render_sample(scene, textures, cam, seed: int, width: int, height: int,
                                      iterations=depth, rows_fetched=rows)
 
 
-def _bounce(scene, textures, seed: int, pixels, depth: int, o, d, tp, rad,
-            alive, prev_spec, cfg: RenderConfig):
+def _bounce(scene, walk, textures, seed: int, pixels, depth: int, o, d, tp,
+            rad, alive, prev_spec, cfg: RenderConfig):
     """One wavefront bounce: closest-hit walk, shade (ops/shade.py
     ``surface`` and ``scatter``, the texture sampled from the raw
     textures), the NEE shadow rays as one any-hit walk, next-ray
     selection.  Returns (o, d, tp, rad, alive, prev_spec, shadow rays
     fired, rows fetched)."""
-    t, hit_id, rows = closest_hit(scene.node_table, scene.leaf_size, o, d,
-                                  alive, fmt=scene.leaf_fmt)
+    t, hit_id, rows = closest_hit(walk, scene.leaf_size, o, d, alive,
+                                  fmt=scene.leaf_fmt)
     alive = alive & (hit_id >= 0)  # miss -> path ends (renderer.cu:427)
     hitrow = scene.trimat[torch.clamp(hit_id, min=0)]
     q, uv = shade.surface(hitrow, o + d * t[:, None], d, scene, cfg,
@@ -123,8 +128,8 @@ def _bounce(scene, textures, seed: int, pixels, depth: int, o, d, tp, rad,
     n_shadow = torch.zeros((), dtype=torch.int64, device=pixels.device)
     if out["nee"] is not None:
         geo_ok, so, sd, smax, contrib = out["nee"]
-        occluded, nee_rows = any_hit(scene.node_table, scene.leaf_size, so,
-                                     sd, smax, geo_ok, fmt=scene.leaf_fmt)
+        occluded, nee_rows = any_hit(walk, scene.leaf_size, so, sd, smax,
+                                     geo_ok, fmt=scene.leaf_fmt)
         rad = rad + torch.where((geo_ok & ~occluded)[:, None], contrib, 0.0)
         n_shadow = geo_ok.sum()
         rows = rows + nee_rows
@@ -136,10 +141,13 @@ def engine_tables(scene, textures, cfg: RenderConfig) -> tuple:
     """(inline, texture tensors): what ``render_frame``'s engine reads
     besides the scene, on the scene's device.  The persistent engine
     reads its unified table (engine/persistent.py
-    ``build_inline_table``), the bounce engine the raw textures;
+    ``build_inline_table``), the bounce engine the walk-order copy of the
+    threaded rows (``ops/threaded.py walk_table``) and the raw textures;
     ``textures`` are the upload's [H, W, 3] NumPy textures."""
     if cfg.engine == "bounce":
-        return None, device_textures(textures, scene.trimat.device)
+        return (walk_table(scene.node_table, scene.leaf_size,
+                           scene.leaf_fmt),
+                device_textures(textures, scene.trimat.device))
     from tryraytrace_tpu_torch.engine.persistent import build_inline_table
 
     return build_inline_table(scene, textures), ()
@@ -181,8 +189,8 @@ def render_frame(scene, inline, textures, cam, frame_seed: int, width: int,
                  rows_fetched=zero)
     for s in range(spp):
         seed = rng.sample_seed(frame_seed, seed_spp, sample_offset + s)
-        rad, st = render_sample(scene, textures, cam, seed, width, height,
-                                cfg, pixels)
+        rad, st = render_sample(scene, inline, textures, cam, seed, width,
+                                height, cfg, pixels)
         acc = acc + rad
         stats = {key: stats[key] + st[key] for key in stats}
     return acc, stats
