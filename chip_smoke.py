@@ -59,7 +59,8 @@ after:
     process, byte for byte (NCCL across cards needs more than one card
     and is not run);
   - the row-fetch microbenchmark (scripts/microbench_torch_fetch.py):
-    65,536 lanes, 64 steps, six table variants, both placements; then
+    65,536 lanes, 64 steps, six table variants, both placements (device
+    memory; the leading rows that fit staged in shared memory); then
     one warp of lanes on tables of 16-byte rows, whose device time over
     its 64 steps is one dependent fetch step's latency (L2, shared
     memory).
@@ -115,11 +116,17 @@ the card could take: the larger of the bytes its outputs depend on
 plus the bytes it writes (each counted once) over the device-memory
 rate and the float32 operations those outputs need over the float32
 rate, both NVIDIA's published figures for the H100 SXM.  The threaded
-walk's and the fetch chain's entries also give ``latency_bound_ms``:
-the chain of dependent fetches no design of them avoids (the longest
-walk's rows, or the chain's 64 steps, times one dependent fetch step's
-latency from the one-warp run); the larger of the two is their bound
-(PERF.md).  The service
+walk's entry also gives ``latency_bound_ms``: the chain of dependent
+fetches no design of it avoids (the state's longest walk in rows times
+one dependent fetch step's latency from the one-warp run); the larger
+of the two is its bound (PERF.md).  The fetch chain's ``bound_ms`` is
+the larger of ``byte_bound_ms``, every column of every fetched row
+through the SMs' load path (lanes x steps x row bytes over the SM count
+x 128 B x the maximum SM clock, ``sms`` and ``sm_clock_mhz``), and
+``latency_bound_ms``, its 64 steps times that one-warp step; its
+``dram_bound_ms`` is the table and the lanes' bytes once over the
+device-memory rate, and ``staged_rows`` the rows its "shared" placement
+stages.  The service
 kernel's operations are its double-precision calls on the branches its
 lanes take (service_work), at the FP64 instructions a call of each kind
 takes in the machine code nvcc builds (fp64_per_call), over the FP64
@@ -320,23 +327,52 @@ def ptxas_numbers(compiler_log: str, kernel: str) -> dict:
     return out
 
 
-def _sass_sizes(path: str) -> dict:
-    """Instructions of each kernel in a built library's machine code
+def _sass_listing(path: str) -> dict:
+    """Each kernel's instructions in a built library's machine code
     (cuobjdump -sass); empty where the toolkit has no cuobjdump."""
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         return {}
     sass = subprocess.run([tool, "-sass", path], capture_output=True,
                           text=True, check=True, timeout=120).stdout
-    sizes, name = {}, None
+    listing, name = {}, None
     for line in sass.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = m.group(1)
-            sizes[name] = 0
+            listing[name] = []
         elif name and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
-            sizes[name] += 1
-    return sizes
+            listing[name].append(line)
+    return listing
+
+
+def _sass_sizes(path: str) -> dict:
+    """Instructions of each kernel in a built library's machine code."""
+    return {name: len(lines) for name, lines in _sass_listing(path).items()}
+
+
+def fetch_builds(lib) -> dict:
+    """Registers, spills and 128-bit loads (by kind: LDG from device
+    memory, LDS from shared memory, LD generic) in the machine code of
+    each fetch_chain_kernel instance of a built library, by instance
+    (dtype, placement, 16-byte chunks a row where the source has that
+    template parameter)."""
+    listing = _sass_listing(lib.path)
+    out = {}
+    for name in sorted(set(re.findall(r"_Z\w*fetch_chain_kernel\w*",
+                                      lib.compiler_log))):
+        m = re.search(r"ILb(\d)ELb(\d)E(?:Li(\d+)E)?", name)
+        label = (f"{'bf16' if m.group(1) == '1' else 'f32'} "
+                 f"{'shared' if m.group(2) == '1' else 'global'}"
+                 + (f" {m.group(3)} chunks" if m.group(3) else ""))
+        loads = {}
+        for line in listing.get(name, []):
+            k = re.search(r"\b(LDG|LDS|LD)(\.[A-Z0-9_]+)*\.128\b", line)
+            if k:
+                loads[k.group(1)] = loads.get(k.group(1), 0) + 1
+        out[label] = dict(ptxas_numbers(lib.compiler_log, name),
+                          loads_128=loads)
+    return out
 
 
 def phase_environment() -> str:
@@ -360,6 +396,8 @@ def phase_environment() -> str:
                 log(f"[build]   {line.strip()}")
         for name, n in _sass_sizes(lib.path).items():
             log(f"[build]   {name}: {n} SASS instructions")
+    for label, nums in fetch_builds(fetch.LIBRARY).items():
+        log(f"[build] fetch_chain_kernel {label}: {nums}")
     log(f"[build] all kernels in {time.perf_counter() - t0:.3f} s")
     return smi
 
@@ -478,30 +516,30 @@ def _load_fetch_script():
 
 def phase_fetch(seed: int) -> dict:
     """The fetch-chain kernel, both placements, against the plain gather
-    chain on the card (bit-equal), then the microbenchmark path itself."""
+    chain on the card (bit-equal) on the six variants and the two
+    latency variants, then the microbenchmark path itself, and the
+    kernel's bound."""
     script = _load_fetch_script()
+    rates = script.card_rates()
     rs = np.random.RandomState(seed + 1)
     worst = 0.0
-    first_inputs = None
-    for m, w, dtype, dependent in fetch.VARIANTS:
-        table, idx = fetch.make_inputs(rs, m, w, dtype, dependent,
-                                       fetch.LANES)
+    cases = [(v, fetch.LANES) for v in fetch.VARIANTS]
+    cases += [(v, fetch.LATENCY_LANES) for v in fetch.LATENCY_VARIANTS]
+    for (m, w, dtype, dependent), lanes in cases:
+        table, idx = fetch.make_inputs(rs, m, w, dtype, dependent, lanes)
         table, idx = table.cuda(), idx.cuda()
-        first_inputs = first_inputs or (table, idx)
         want = fetch.fetch_chain_plain(table, idx, fetch.STEPS)
         for placement in fetch.PLACEMENTS:
-            name = f"{script.variant_name(m, w, dtype, dependent)} {placement}"
-            if placement == "shared" and not fetch.fits_shared(table):
-                log(f"[fetch] {name}: {fetch.shared_bytes(table)} B staged "
-                    f"does not fit {fetch.SHARED_LIMIT_BYTES} B of shared "
-                    "memory")
-                continue
+            name = (f"{script.variant_name(m, w, dtype, dependent)} "
+                    f"{placement}, {lanes} lanes")
             got = fetch.fetch_chain_cuda(table, idx, fetch.STEPS, placement)
             torch.cuda.synchronize()
             errs = [float((g - x).abs().max()) for g, x in zip(got, want)]
             worst = max(worst, *errs)
-            log(f"[fetch] {name}: acc max abs err {errs[0]!r}, rowsum max "
-                f"abs err {errs[1]!r} (acc sum {float(got[0].sum())!r})")
+            staged = fetch.staged_rows(table) if placement == "shared" else 0
+            log(f"[fetch] {name}, {staged} of {m} rows staged: acc max abs "
+                f"err {errs[0]!r}, rowsum max abs err {errs[1]!r} (acc sum "
+                f"{float(got[0].sum())!r})")
             if not all(torch.equal(g, x) for g, x in zip(got, want)):
                 raise AssertionError(f"fetch_chain kernel disagrees with "
                                      f"its plain version: {name}")
@@ -509,51 +547,69 @@ def phase_fetch(seed: int) -> dict:
     fetch.fetch_chain_cuda.launches = 0
     results = script.run_benchmark(seed)
     launches = fetch.fetch_chain_cuda.launches
-    for res in results:
-        per = 1e6 / (res["lanes"] * res["steps"])
-        shared = res["ms"]["shared"]
-        log(f"[fetch] {res['name']}: device memory {res['ms']['global']:.4f} "
-            f"ms ({res['ms']['global'] * per:.4f} ns/lane/step), shared "
-            + (f"{shared:.4f} ms ({shared * per:.4f} ns/lane/step)"
-               if shared is not None else "does not fit")
-            + f", plain {res['plain_ms']:.4f} ms "
-            f"({res['plain_ms'] * per:.4f} ns/lane/step), "
-            f"{'EXACT' if res['exact'] else 'DIFFERENT'}")
-        if not res["exact"]:
-            raise AssertionError(f"microbenchmark: {res['name']} not exact")
     if launches < 1:
         raise AssertionError("the microbenchmark never launched fetch_chain")
-    # The kernel line reports the first variant (the TPU script's first),
-    # read from device memory: the table once, an index and two outputs
-    # per lane.  The outputs need, per lane, an accumulator add and an
-    # index advance per step and one W-column sum, of the last row only.
-    first = results[0]
-    lanes, steps = first["lanes"], first["steps"]
-    table, idx = first_inputs
-    ms = _kernel_ms(lambda: fetch.fetch_chain_cuda(table, idx, fetch.STEPS,
-                                                   "global"),
-                    "fetch_chain_kernel")
     # One dependent fetch's latency: a warp of lanes walks the latency
     # variants (16-byte rows), from L2 after a warm-up and from shared
     # memory; each call timed by its own device time.
     lat = script.latency_ns(seed)
-    out = dict(max_abs_err=worst, ms=ms, wrapper_ms=first["ms"]["global"],
-               plain_ms=first["plain_ms"], library_ms=None,
-               launches=launches, variants=results,
-               latency={k: v for k, v in lat.items() if k != "variants"},
-               **bound(first["table_bytes"] + 12 * lanes,
-                       lanes * (2 * steps + first["w"])))
-    # No chain can be shorter than its steps' dependent fetches: the
-    # lanes' chains run side by side, so one chain bounds the call.
-    out["latency_bound_ms"] = steps * lat["global_ns"] * 1e-6
     log(f"[fetch] one dependent fetch step, one warp: device memory (L2) "
         f"{lat['global_ns']:.1f} ns, shared memory {lat['shared_ns']:.1f} "
         f"ns, a 16 KB table from device memory {lat['global_l1_table_ns']:.1f}"
         f" ns")
+    # Two bounds: every column of every fetched row crosses the SMs' load
+    # path (lanes x steps x row bytes at 128 B a clock an SM, at the
+    # card's SM count and maximum SM clock), and no chain is shorter than
+    # its steps' dependent fetches, one warp's step each (the lanes'
+    # chains run side by side, so one chain bounds the call).
+    for res in results:
+        if not res["exact"]:
+            raise AssertionError(f"microbenchmark: {res['name']} not exact")
+        res["byte_bound_ms"] = script.byte_bound_ms(
+            res["lanes"], res["steps"], res["row_bytes"], rates)
+        res["latency_bound_ms"] = res["steps"] * lat["global_ns"] * 1e-6
+        larger = max(res["byte_bound_ms"], res["latency_bound_ms"])
+        per = 1e6 / (res["lanes"] * res["steps"])
+        for placement in fetch.PLACEMENTS:
+            ms = res["ms"][placement]
+            log(f"[fetch] {res['name']} {placement} "
+                f"({res['staged_rows'] if placement == 'shared' else 0} rows"
+                f" staged): own {ms:.4f} ms ({ms * per:.4f} ns/lane/step), "
+                f"wrapper {res['wrapper_ms'][placement]:.4f} ms; bounds "
+                f"{res['byte_bound_ms']:.5f} ms by bytes on chip, "
+                f"{res['latency_bound_ms']:.5f} ms by latency; own time "
+                f"{ms / larger:.2f}x the larger")
+        log(f"[fetch] {res['name']} plain {res['plain_ms']:.4f} ms "
+            f"({res['plain_ms'] * per:.4f} ns/lane/step), EXACT")
+    # The kernel line reports the first variant (the TPU script's first),
+    # read from device memory.  Beside its bound, the bytes it would move
+    # from device memory if each input were read once (the table, an
+    # index and two outputs per lane) and the float32 operations its
+    # outputs need (an add and an index advance per step, one W-column
+    # sum of the last row).
+    first = results[0]
+    lanes, steps = first["lanes"], first["steps"]
+    dram = bound(first["table_bytes"] + 12 * lanes,
+                 lanes * (2 * steps + first["w"]))
+    byte_ms, latency_ms = first["byte_bound_ms"], first["latency_bound_ms"]
+    out = dict(max_abs_err=worst, ms=first["ms"]["global"],
+               wrapper_ms=first["wrapper_ms"]["global"],
+               plain_ms=first["plain_ms"], library_ms=None,
+               launches=launches, variants=results,
+               latency={k: v for k, v in lat.items() if k != "variants"},
+               bound_ms=max(byte_ms, latency_ms),
+               bound_by="bytes" if byte_ms >= latency_ms else "latency",
+               byte_bound_ms=byte_ms, latency_bound_ms=latency_ms,
+               dram_bound_ms=dram["bound_ms"],
+               staged_rows=first["staged_rows"], **rates)
     log(f"[fetch] {first['name']}, device memory: kernel's own time "
-        f"{ms:.4f} ms, wrapper {first['ms']['global']:.4f} ms; bounds "
-        f"{out['bound_ms']:.5f} ms by {out['bound_by']}, "
-        f"{out['latency_bound_ms']:.5f} ms by latency ({steps} steps)")
+        f"{out['ms']:.4f} ms, wrapper {out['wrapper_ms']:.4f} ms; bound "
+        f"{out['bound_ms']:.5f} ms by {out['bound_by']} ({lanes} lanes x "
+        f"{steps} steps x {first['row_bytes']} B over {rates['sms']} SMs x "
+        f"{script.SM_LOAD_BYTES_PER_CLOCK} B x {rates['sm_clock_mhz']} MHz "
+        f"= {byte_ms:.5f} ms; {steps} x {lat['global_ns']:.1f} ns = "
+        f"{latency_ms:.5f} ms), {out['ms'] / out['bound_ms']:.2f}x; from "
+        f"device memory once {out['dram_bound_ms']:.5f} ms")
     return out
 
 
@@ -2562,7 +2618,9 @@ def main() -> int:
              replaces="scripts/microbench_pallas_fetch.py:34",
              launches=chain["launches"], **path_counts("fetch_chain"),
              **{k: chain[k] for k in keys},
-             latency_bound_ms=chain["latency_bound_ms"],
+             **{k: chain[k] for k in ("byte_bound_ms", "latency_bound_ms",
+                                      "dram_bound_ms", "staged_rows", "sms",
+                                      "sm_clock_mhz")},
              latency_ns=chain["latency"], variants=chain["variants"]),
         dict(name="quad_walk", route="cuda",
              source="tryraytrace_tpu_torch/csrc/quad_walk.cu",

@@ -96,15 +96,77 @@ def test_dispatch_on_cpu_uses_plain_version():
 
 
 def test_shared_memory_fit_rule():
-    def fits(m, w, dtype):
-        return fetch.fits_shared(torch.empty((m, w), dtype=dtype))
+    """``placement="shared"`` stages ``staged_rows``: the leading rows
+    that a block's shared memory holds, never more bytes than it has."""
 
-    assert fits(256, 128, torch.bfloat16) and fits(512, 128, torch.bfloat16)
-    assert not fits(1024, 128, torch.bfloat16)
-    assert not fits(1024, 256, torch.bfloat16)
-    assert not fits(1024, 128, torch.float32)
+    def staged(m, w, dtype):
+        return fetch.staged_rows(torch.empty((m, w), dtype=dtype))
+
+    # 232,448 B of shared memory a block hold 908 rows of 256 B and 454 of
+    # 512 B; the staging copy's mbarrier takes 8 B after the rows, one row
+    # fewer of each.
+    assert fetch.SHARED_LIMIT_BYTES == 232448
+    assert fetch.STAGE_BARRIER_BYTES == 8
+    assert staged(1024, 128, torch.bfloat16) == 908 - 1
+    assert staged(1024, 256, torch.bfloat16) == 454 - 1
+    assert staged(1024, 128, torch.float32) == 454 - 1
+    # Tables that fit are staged whole.
+    assert staged(512, 128, torch.bfloat16) == 512
+    assert staged(256, 128, torch.bfloat16) == 256
+    assert staged(1024, 4, torch.float32) == 1024
+    assert staged(131072, 4, torch.float32) == (232448 - 8) // 16
+    for m, w, dtype, _ in fetch.VARIANTS + fetch.LATENCY_VARIANTS:
+        rows = staged(m, w, dtype)
+        row_bytes = w * torch.empty((), dtype=dtype).element_size()
+        assert row_bytes in fetch.ROW_BYTES
+        assert 1 <= rows <= m
+        assert rows * row_bytes + 8 <= fetch.SHARED_LIMIT_BYTES
+        assert rows == m or (rows + 1) * row_bytes + 8 > 232448
     assert [v[:2] for v in fetch.VARIANTS[:5]] == [
         (1024, 128), (1024, 256), (512, 128), (256, 128), (1024, 128)]
+
+
+def _floor_mod_mirror(x: np.ndarray, m: int) -> np.ndarray:
+    """The kernel's floor modulo (csrc/fetch_chain.cu FloorMod) step by
+    step in numpy uint64, each 32-bit result masked to 32 bits."""
+    magic, shift = fetch.mod_constants(m)
+    sh1, sh2 = np.uint64(min(shift, 1)), np.uint64(max(shift - 1, 0))
+    mask, mu = np.uint64(0xFFFFFFFF), np.uint64(m)
+
+    def umod(u):
+        t = (np.uint64(magic) * u) >> np.uint64(32)
+        q = ((t + (((u - t) & mask) >> sh1)) & mask) >> sh2
+        return (u - ((q * mu) & mask)) & mask
+
+    off = umod(np.array([2 ** 31], dtype=np.uint64))[0]
+    a = umod((x.astype(np.int64) + 2 ** 31).astype(np.uint64))
+    return np.where(a >= off, a - off, a + (mu - off)).astype(np.int64)
+
+
+MODULI = sorted({m for m, *_ in fetch.VARIANTS + fetch.LATENCY_VARIANTS}
+                | {1, 3, 2 ** 31 - 1})
+
+
+@pytest.mark.parametrize("m", MODULI)
+def test_floor_mod_constants_give_numpy_mod(m):
+    magic, shift = fetch.mod_constants(m)
+    assert 0 < magic < 2 ** 32 and 0 <= shift <= 31
+    lo, hi = -2 ** 31, 2 ** 31 - 1
+    edges = [0, 1, -1, m, -m, m - 1, -m + 1, m + 1, -m - 1, lo, hi,
+             lo + 1, hi - 1]
+    x = np.array([v for v in edges if lo <= v <= hi]
+                 + list(np.random.RandomState(m % 9973).randint(
+                     lo, hi + 1, 10000, dtype=np.int64)), dtype=np.int64)
+    got = _floor_mod_mirror(x, m)
+    want = np.mod(x, m)
+    assert (want >= 0).all() and (want < m).all()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_floor_mod_constants_refuse_moduli_out_of_range():
+    for m in (0, -1, 2 ** 31):
+        with pytest.raises(ValueError):
+            fetch.mod_constants(m)
 
 
 @pytest.mark.cuda
@@ -112,18 +174,16 @@ def test_cuda_kernel_matches_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("the CUDA fetch-chain kernel runs only on a CUDA device")
     rs = np.random.RandomState(0)
-    for m, w, dtype, dependent in fetch.VARIANTS:
-        table, idx = fetch.make_inputs(rs, m, w, dtype, dependent,
-                                       fetch.LANES)
+    cases = [(v, fetch.LANES) for v in fetch.VARIANTS]
+    cases += [(v, fetch.LATENCY_LANES) for v in fetch.LATENCY_VARIANTS]
+    for (m, w, dtype, dependent), lanes in cases:
+        table, idx = fetch.make_inputs(rs, m, w, dtype, dependent, lanes)
         table, idx = table.cuda(), idx.cuda()
         want = fetch.fetch_chain_plain(table, idx, fetch.STEPS)
         for placement in fetch.PLACEMENTS:
-            if placement == "shared" and not fetch.fits_shared(table):
-                with pytest.raises(ValueError):
-                    fetch.fetch_chain_cuda(table, idx, fetch.STEPS, placement)
-                continue
             before = fetch.fetch_chain_cuda.launches
             got = fetch.fetch_chain_cuda(table, idx, fetch.STEPS, placement)
             torch.cuda.synchronize()
             assert fetch.fetch_chain_cuda.launches == before + 1
-            assert all(torch.equal(g, x) for g, x in zip(got, want))
+            assert all(torch.equal(g, x) for g, x in zip(got, want)), (
+                m, w, dtype, dependent, placement)

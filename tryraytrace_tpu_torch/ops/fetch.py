@@ -18,10 +18,13 @@ the last row a lane fetched.  The comparison with the TPU kernel is on
 ``acc``.
 
 The kernel (csrc/fetch_chain.cu) reads the table from device memory or,
-with ``placement="shared"``, from a copy each block stages in shared
-memory; the outputs are the same.  ``fetch_chain`` runs the plain
+with ``placement="shared"``, stages the table's leading
+``staged_rows(table)`` rows in each block's shared memory (all of them
+where they fit) and reads the rest from device memory; the outputs are
+the same.  Its modulo by M takes no division: ``mod_constants`` gives
+the multiplier and shift it uses.  ``fetch_chain`` runs the plain
 version for CPU tensors and the kernel for CUDA tensors; there is no
-fallback between the two.
+fallback between the two, nor from one placement to the other.
 """
 
 from __future__ import annotations
@@ -33,18 +36,22 @@ import torch
 
 from tryraytrace_tpu_torch.ops._build import KernelLibrary
 
-# Dynamic shared memory one block may use on sm_90 (227 KB) and the gap
-# the kernel leaves between staged rows (csrc/fetch_chain.cu kPadBytes).
+# Dynamic shared memory one block may use on sm_90 (227 KB), and the
+# bytes the kernel keeps after the staged rows for the mbarrier its
+# staging copy completes on (csrc/fetch_chain.cu kBarrierBytes).
 SHARED_LIMIT_BYTES = 232448
-SHARED_PAD_BYTES = 16
+STAGE_BARRIER_BYTES = 8
+# The row sizes the kernel takes: a row is a whole number of 16-byte
+# chunks, 1 to 32 of them, a power of two.
+ROW_BYTES = (16, 32, 64, 128, 256, 512)
 
 PLACEMENTS = ("global", "shared")
 
 LIBRARY = KernelLibrary("fetch_chain", {
-    "trt_fetch_chain_launch": (
+    "trt_fetch_chain_launch_staged": (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p)})
+        ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p)})
 
 
 # (M, W, dtype, data-dependent): the five variants of the TPU script,
@@ -61,6 +68,13 @@ VARIANTS = (
 )
 LANES = 65536
 STEPS = 64
+# The latency variants: one warp of lanes on 16-byte rows whose column 1
+# picks the next row, a table past any SM's L1 for device memory (2 MB)
+# and one that shared memory holds (16 KB); a call's time over its steps
+# is one dependent fetch step (scripts/microbench_torch_fetch.py).
+LATENCY_VARIANTS = ((131072, 4, torch.float32, True),
+                    (1024, 4, torch.float32, True))
+LATENCY_LANES = 32
 
 
 def make_inputs(rs: np.random.RandomState, m: int, w: int, dtype,
@@ -76,14 +90,24 @@ def make_inputs(rs: np.random.RandomState, m: int, w: int, dtype,
     return torch.from_numpy(tab).to(dtype), torch.from_numpy(idx)
 
 
-def shared_bytes(table: torch.Tensor) -> int:
-    """Shared memory the staged copy of ``table`` takes in each block."""
+def staged_rows(table: torch.Tensor) -> int:
+    """Rows of ``table`` that ``placement="shared"`` stages in a block's
+    shared memory: the leading ones, all of them where they fit."""
     m, w = table.shape
-    return m * (w * table.element_size() + SHARED_PAD_BYTES)
+    row = w * table.element_size()
+    return min(m, (SHARED_LIMIT_BYTES - STAGE_BARRIER_BYTES) // row)
 
 
-def fits_shared(table: torch.Tensor) -> bool:
-    return shared_bytes(table) <= SHARED_LIMIT_BYTES
+def mod_constants(m: int) -> tuple:
+    """(magic, shift) of the kernel's floor modulo by ``m`` (1 <= m <
+    2**31) without a division (Granlund and Montgomery, PLDI 1994, fig.
+    4.1): shift = l = ceil(log2 m) and magic = floor(2**32 (2**l - m) / m)
+    + 1, which is below 2**32."""
+    if not 1 <= m < 2 ** 31:
+        raise ValueError(f"the modulus must be in [1, 2**31), got {m}")
+    shift = (m - 1).bit_length()
+    magic = (2 ** 32 * (2 ** shift - m)) // m + 1
+    return magic, shift
 
 
 def _check(table, idx, steps):
@@ -123,10 +147,11 @@ def fetch_chain_plain(table: torch.Tensor, idx: torch.Tensor, steps: int):
 def fetch_chain_cuda(table: torch.Tensor, idx: torch.Tensor, steps: int,
                      placement: str = "global"):
     """Launch the CUDA kernel on the current stream: ``table`` and ``idx``
-    contiguous on one CUDA device, rows a multiple of 16 bytes, indices
-    in [0, M) (the kernel reduces them mod M, as the plain version
-    does).  Raises ValueError when ``placement="shared"`` and the table
-    does not fit a block's shared memory.  Returns (acc, rowsum)."""
+    contiguous on one CUDA device, the table 16-byte aligned with rows
+    of ``ROW_BYTES``; the kernel reduces the indices mod M, as the plain
+    version does.  ``placement="shared"`` stages ``staged_rows(table)``
+    rows.  Raises ValueError on inputs the kernel does not take and
+    RuntimeError when the launch fails.  Returns (acc, rowsum)."""
     _check(table, idx, steps)
     if table.device.type != "cuda" or idx.device != table.device:
         raise ValueError(f"fetch_chain_cuda needs CUDA tensors on one "
@@ -136,23 +161,23 @@ def fetch_chain_cuda(table: torch.Tensor, idx: torch.Tensor, steps: int,
     if placement not in PLACEMENTS:
         raise ValueError(f"placement must be one of {PLACEMENTS}")
     m, w = table.shape
-    if (w * table.element_size()) % 16:
-        raise ValueError(f"rows must be a multiple of 16 bytes, got "
+    if w * table.element_size() not in ROW_BYTES:
+        raise ValueError(f"rows must be one of {ROW_BYTES} bytes, got "
                          f"{w * table.element_size()}")
-    if placement == "shared" and not fits_shared(table):
-        raise ValueError(
-            f"a [{m}, {w}] {table.dtype} table takes {shared_bytes(table)} B "
-            f"staged; a block has {SHARED_LIMIT_BYTES} B of shared memory")
+    if table.data_ptr() % 16:
+        raise ValueError("the table must be 16-byte aligned")
+    staged = staged_rows(table) if placement == "shared" else 0
+    magic, shift = mod_constants(m)
     lib = LIBRARY.load()
     n = idx.shape[0]
     acc = torch.empty((n, 1), dtype=torch.float32, device=table.device)
     rowsum = torch.empty((n, 1), dtype=torch.float32, device=table.device)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.trt_fetch_chain_launch(
+        err = lib.trt_fetch_chain_launch_staged(
             table.data_ptr(), idx.data_ptr(), acc.data_ptr(),
             rowsum.data_ptr(), n, m, w, table.element_size(), int(steps),
-            int(placement == "shared"), stream)
+            staged, magic, shift, stream)
     if err != 0:
         raise RuntimeError(f"fetch_chain kernel launch failed: CUDA error "
                            f"{err}")
