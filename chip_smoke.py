@@ -3,19 +3,20 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written CUDA kernels (tonemap, fetch_chain,
-quad_walk, threaded_walk, service_pass; one nvcc each, side by side)
-from the sources
+quad_walk, threaded_walk, service_pass, wave_advance; one nvcc each,
+side by side) from the sources
 in this checkout and holds each against its plain PyTorch version on
 the card at the shapes its path gives it.  It drives the port's paths,
 each with the kernels' launch counts set to 0 just before and read just
-after:
+after, and with the ``Wave.advance`` calls that have work counted beside
+them (on a card each is one wave-kernel launch):
 
   - the main path (Renderer -> render_frame_persistent -> Renderer.image)
     at the reference's interactive operating point, 1200x800 at 1 spp
-    per step, on a 20,487-triangle Cornell box built in the repo: the
-    round loop, one walk-kernel launch and one service-kernel launch per
-    round.  It runs first, before any kernel is timed under
-    torch.profiler;
+    per step, on a 20,487-triangle Cornell box built in the repo: one
+    wave-kernel launch per step (every lane's walks and services to its
+    end), and no launch of the walk or the service kernel.  It runs
+    first, before any kernel is timed under torch.profiler;
   - the progressive path (ProgressiveRenderer.step / snapshot) on the
     same scene and raster, also before any profiler session: a capped
     wave held bit for bit to a batch step, the same wave split across
@@ -73,9 +74,20 @@ threaded-walk kernel is held to its plain version on three states of a
 full-width bounce frame (camera rays, the first bounce's shadow rays,
 a late bounce) over the walk-order copies of both trees, with each
 state's longest walk (the plain loop's count) and its latency bound.
-``[service]`` holds the service kernel
-to its plain version (persistent.service_plain, the eager service
-block) on each of the walk kernel's six states just after its walk
+``[wave]`` holds the wave kernel to
+the two-kernel round loop on the card (quad_walk_cuda, then
+service_pass_cuda, a round, no compaction), every state field, the
+four totals, the rows and the rounds bit for bit, on the main path's
+1200x800 1-spp step (and to its plain version, ops/wave.py
+wave_advance_plain, field for field), on a progressive wave advanced in
+calls of 1, 3 and 8 rounds (equal to one call of 12), on a tiled
+wave's strip, on the [features] path's renderer ("mt" leaves, SBVH,
+smooth normals, UVs, textures) and on a 1200x800 frame with "mt" leaves,
+smooth normals, UVs, textures, 17 lights and two trimat rows a table
+row; it times the kernel on the main step and gives its bound.
+``[service]`` holds the service kernel to its plain version
+(persistent.service_plain, the eager service block) on each of the walk
+kernel's six states just after its walk
 (the main path's: textured, TEXG lanes in flight; the [features]
 path's: smooth shading and UV mapping on), on rounds SERVICE_ROUNDS
 of two more full-width frames (17 lights, and the main path's scene at
@@ -83,29 +95,32 @@ leaf 6, two trimat rows a table row) and on a seed-made 960,000-lane
 state whose every warp mixes SHADEG, TEXG, REFILL, DONE, TRAVERSE and
 SHADOW lanes and takes every branch (mixed_state); field for field and
 the wave's four totals exactly.  It also checks the port's render on the card
-(round loop, kernel) against the plain version of the whole on the CPU
+(the wave kernel) against the plain version of the whole on the CPU
 (the interleaved eager loop, one row per lane per step), bit for bit
 at 64x64 and 64x48.  Every phase prints its own lines; any failure
 raises and the script exits non-zero.  The last line is a JSON object
 {"ok": true, "device": {...}}, the line before it the card's name and
-power limit, and the line before that the kernel table (the walk
-kernel's entry counts its launches on each path: ``launches`` on the
-main path, ``progressive_launches``, ``tiled_launches``,
-``cli_launches``, ``app_launches``, ``bench_launches`` and
-``features_launches``, ``bounce_launches`` and ``parallel_launches``,
-each with the count set to 0 just before the path and read just after,
-and ``features_mt_launches``, the launches over "mt" leaves in
-``[features]``; its ``mt`` entry holds the "mt" walk's own numbers; the
-other kernels' entries carry the entry points', ``[features]``',
-``[bounce]``'s and ``[parallel]``'s counts the same way, where
-``parallel_launches`` sums the sharded steps of every mesh, each counted
-from 0 around its ``step`` and ``image`` alone, and
-``parallel_mesh_launches`` gives each mesh's count; the threaded
-walk's ``launches`` are the bounce path's, and its ``states`` and ``mt``
-entries hold each state's numbers; the service kernel's entry carries
-every path's count as the walk kernel's does, equal to the walk's on
-each path (one of each a round) and 0 on ``[bounce]``, and its
-``states`` entry each ``[service]`` state's numbers).  Without a CUDA device it
+power limit, and the line before that the kernel table of six kernels
+(the wave, walk and service kernels' entries count their launches on
+each path: ``launches`` on the main path, ``progressive_launches``,
+``tiled_launches``, ``cli_launches``, ``app_launches``,
+``bench_launches`` and ``features_launches``, ``bounce_launches`` and
+``parallel_launches``, each with the count set to 0 just before the path
+and read just after; the wave kernel launches once a step on every
+persistent path and the walk and service kernels on none, only in
+``[walk]``, ``[service]`` and ``[wave]``'s checks; the wave kernel's
+``features_mt_launches`` are its launches over "mt" leaves in
+``[features]``, its ``cases`` the ``[wave]`` cases' numbers, and its
+bound entries those of ``wave_bound``; the walk kernel's ``mt`` entry
+holds the "mt" walk's own numbers; the other kernels' entries carry the
+entry points', ``[features]``', ``[bounce]``'s and ``[parallel]``'s
+counts the same way, where ``parallel_launches`` sums the sharded steps
+of every mesh, each counted from 0 around its ``step`` and ``image``
+alone, and ``parallel_mesh_launches`` gives each mesh's count; the
+threaded walk's ``launches`` are the bounce path's, and its ``states``
+and ``mt`` entries hold each state's numbers; the service kernel's
+``states`` entry holds each ``[service]`` state's numbers).  Without a
+CUDA device it
 exits non-zero and prints no result.
 
 A kernel's ``ms`` is its own device time per launch (torch.profiler's
@@ -162,7 +177,8 @@ from tryraytrace_tpu_torch.display.app import App, ProgressiveApp
 from tryraytrace_tpu_torch.display.input import ScriptedInput
 from tryraytrace_tpu_torch.engine import persistent, wavefront
 from tryraytrace_tpu_torch.engine.device_scene import device_textures
-from tryraytrace_tpu_torch.engine.progressive import ProgressiveRenderer
+from tryraytrace_tpu_torch.engine.progressive import (UNBOUNDED_SPP,
+                                                      ProgressiveRenderer)
 from tryraytrace_tpu_torch.engine.renderer import Renderer
 from tryraytrace_tpu_torch.engine.state import load_checkpoint, save_checkpoint
 from tryraytrace_tpu_torch.io.ppm import load_ppm
@@ -170,7 +186,7 @@ from tryraytrace_tpu_torch.io.snapshot import tonemap_accum
 from tryraytrace_tpu_torch.core import rng, vec
 from tryraytrace_tpu_torch.ops import _build, fetch, threaded, traverse
 from tryraytrace_tpu_torch.ops import tonemap as tm
-from tryraytrace_tpu_torch.ops import service, shade, walk
+from tryraytrace_tpu_torch.ops import service, shade, walk, wave
 from tryraytrace_tpu_torch.ops.texture import TEX_ROW
 from tryraytrace_tpu_torch.oracle import oracle_render
 from tryraytrace_tpu_torch.parallel.mesh import make_mesh
@@ -351,6 +367,24 @@ def _sass_sizes(path: str) -> dict:
     return {name: len(lines) for name, lines in _sass_listing(path).items()}
 
 
+def kernel_builds(lib, kernel: str) -> dict:
+    """Registers, stack and spills of each instance of ``kernel`` in a
+    built library (its template arguments as the name), and its loads
+    through the read-only data cache (``LDG...CONSTANT``) in the machine
+    code."""
+    listing = _sass_listing(lib.path)
+    out = {}
+    for name in sorted(set(re.findall(rf"_Z\w*{kernel}\w*",
+                                      lib.compiler_log))):
+        m = re.search(rf"{kernel}(?:I(\w+?)E)?E", name)
+        label = kernel + (f"<{m.group(1)}>" if m and m.group(1) else "")
+        out[label] = dict(ptxas_numbers(lib.compiler_log, name),
+                          readonly_loads=sum(
+                              "LDG" in line and "CONSTANT" in line
+                              for line in listing.get(name, [])))
+    return out
+
+
 def fetch_builds(lib) -> dict:
     """Registers, spills and 128-bit loads (by kind: LDG from device
     memory, LDS from shared memory, LD generic) in the machine code of
@@ -387,7 +421,7 @@ def phase_environment() -> str:
     log(f"[env] device {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     t0 = time.perf_counter()
     libraries = [tm.LIBRARY, fetch.LIBRARY, walk.LIBRARY, threaded.LIBRARY,
-                 service.LIBRARY]
+                 service.LIBRARY, wave.LIBRARY]
     _build.build_all(libraries)
     for lib in libraries:
         log(f"[build] {lib.path} in {lib.build_seconds:.3f} s")
@@ -398,6 +432,11 @@ def phase_environment() -> str:
             log(f"[build]   {name}: {n} SASS instructions")
     for label, nums in fetch_builds(fetch.LIBRARY).items():
         log(f"[build] fetch_chain_kernel {label}: {nums}")
+    for lib, kernel in ((walk.LIBRARY, "quad_walk_kernel"),
+                        (service.LIBRARY, "service_pass_kernel"),
+                        (wave.LIBRARY, "wave_advance_kernel")):
+        for name, nums in kernel_builds(lib, kernel).items():
+            log(f"[build] {name}: {nums}")
     log(f"[build] all kernels in {time.perf_counter() - t0:.3f} s")
     return smi
 
@@ -614,7 +653,7 @@ def phase_fetch(seed: int) -> dict:
 
 
 def phase_cuda_vs_cpu() -> None:
-    """The renderer on the card (round loop, walk kernel) against the
+    """The renderer on the card (the wave kernel) against the
     plain version of the whole on the CPU (interleaved eager loop), bit
     for bit, at 64x64 and at 64x48 (a side that is not a power of two:
     the camera rays divide by it)."""
@@ -1276,9 +1315,7 @@ def phase_service(params) -> dict:
 
 def phase_main_path(r: Renderer, params) -> dict:
     torch.cuda.reset_peak_memory_stats()
-    tm.tonemap_cuda.launches = 0
-    walk.quad_walk_cuda.launches = 0
-    service.service_pass_cuda.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     r.step(params)
     r.block_until_ready()
@@ -1303,9 +1340,11 @@ def phase_main_path(r: Renderer, params) -> dict:
             f"rounds, {steps[-1]['rows_fetched']} rows fetched, "
             f"{steps[-1]['mrays_per_s']:.3f} Mrays/s")
     img = r.image()
-    launches = tm.tonemap_cuda.launches
-    walk_launches = walk.quad_walk_cuda.launches
-    service_launches = service.service_pass_cuda.launches
+    launched = _counts()
+    launches = launched["tonemap"]
+    wave_launches = launched["wave"]
+    walk_launches = launched["walk"]
+    service_launches = launched["service"]
     accum = r.state.accum
     peak = torch.cuda.max_memory_allocated()
     if not bool(torch.isfinite(accum).all()):
@@ -1314,22 +1353,26 @@ def phase_main_path(r: Renderer, params) -> dict:
         raise AssertionError(f"image {img.shape} {img.dtype}")
     if launches < 1:
         raise AssertionError("the main path never launched the tonemap kernel")
-    if walk_launches < 1:
-        raise AssertionError("the main path never launched the walk kernel")
     rounds = warm_rounds + sum(s["rounds"] for s in steps)
-    if walk_launches != rounds or service_launches != rounds:
+    if (wave_launches != 1 + TIMED_STEPS
+            or wave_launches != launched["advances"]):
+        raise AssertionError(f"{wave_launches} wave-kernel launches for "
+                             f"{launched['advances']} advances in "
+                             f"{1 + TIMED_STEPS} steps: a step is one launch")
+    if walk_launches or service_launches:
         raise AssertionError(f"{walk_launches} walk and {service_launches} "
-                             f"service launches in {warm_rounds} + "
-                             f"{[s['rounds'] for s in steps]} rounds: a round "
-                             "is one launch of each")
+                             "service launches on the main path: its rounds "
+                             "run inside the wave kernel")
     if not img.max() > 0:
         raise AssertionError("the image is all black")
     want = tm.tonemap_plain(accum.cpu(), r.spp()).numpy().reshape(img.shape)
     off = np.abs(img.astype(np.int32) - want.astype(np.int32))
     log(f"[main] image mean {float(img.mean())!r}, spp {r.spp()}, peak "
-        f"device memory {peak} B, tonemap launches {launches}, walk "
-        f"launches {walk_launches}, service launches {service_launches} "
-        f"({rounds} rounds), bytes off the CPU tonemap "
+        f"device memory {peak} B, tonemap launches {launches}, wave-kernel "
+        f"launches {wave_launches} ({launched['advances']} advances with work,"
+        f" {1 + TIMED_STEPS} steps, {rounds} rounds), walk launches "
+        f"{walk_launches}, service launches {service_launches}, bytes off "
+        f"the CPU tonemap "
         f"{int((off > 0).sum())} (max {int(off.max())})")
     if float(img.mean()) != MAIN_IMAGE_MEAN:
         raise AssertionError(f"image mean {float(img.mean())!r} is not "
@@ -1340,32 +1383,38 @@ def phase_main_path(r: Renderer, params) -> dict:
         raise AssertionError(f"steps traced {counts}, not "
                              f"{MAIN_STEP_COUNTS}: the work changed")
     ms = float(np.mean([s["ms"] for s in steps]))
-    return dict(steps=steps, launches=launches, walk_launches=walk_launches,
-                service_launches=service_launches, ms_per_step=ms,
+    return dict(steps=steps, launches=launches, counts=launched,
+                ms_per_step=ms,
                 mrays_per_s=float(np.mean([s["mrays_per_s"] for s in steps])),
                 peak_bytes=peak, image_mean=float(img.mean()))
 
 
+def _launched(fn) -> dict:
+    """The launches ``fn()`` made, by COUNTED's names; a step of the
+    persistent engine on the card must launch the wave kernel once for
+    each Wave.advance with work and neither the walk nor the service
+    kernel."""
+    before = _counts()
+    fn()
+    got = {k: v - before[k] for k, v in _counts().items()}
+    if got["wave"] != got["advances"] or got["walk"] or got["service"]:
+        raise AssertionError(f"launches {got}: an advance with work is one "
+                             "wave-kernel launch, and nothing else walks")
+    return got
+
+
 def _progressive_steps(pr: ProgressiveRenderer, params, rounds) -> tuple:
     """``pr.step(params, n)`` for each n of ``rounds`` while the wave is
-    not done, with a snapshot after each; the walk and the service
-    launches they made, equal in every step."""
-    launches = services_in_all = 0
+    not done, with a snapshot after each; (the wave-kernel launches they
+    made, the steps)."""
+    launches = steps = 0
     for n in rounds:
         if pr.done() and pr.wave is not None:
             break
-        before = (walk.quad_walk_cuda.launches,
-                  service.service_pass_cuda.launches)
-        pr.step(params, n)
-        walks = walk.quad_walk_cuda.launches - before[0]
-        services = service.service_pass_cuda.launches - before[1]
-        if walks != services:
-            raise AssertionError(f"{walks} walk and {services} service "
-                                 "launches: a round is one of each")
-        launches += walks
-        services_in_all += services
+        launches += _launched(lambda: pr.step(params, n))["wave"]
+        steps += 1
         pr.snapshot()
-    return launches, services_in_all
+    return launches, steps
 
 
 def phase_progressive(r: Renderer, arrays, params) -> dict:
@@ -1378,19 +1427,17 @@ def phase_progressive(r: Renderer, arrays, params) -> dict:
       (b) an unbounded run: PROGRESSIVE_FRAMES[0] frames of
           PROGRESSIVE_ROUNDS rounds, reset(), PROGRESSIVE_FRAMES[1] more;
           counts only grow between resets, and reset() zeroes them.
-    Every round is one walk-kernel and one service-kernel launch.
-    Returns the launches of each kernel the progressive renderers made
-    and the unbounded frames."""
+    Every step is one wave-kernel launch.  Returns the wave kernel's
+    launches in the progressive renderers' steps and the unbounded
+    frames."""
     cfg = RenderConfig(width=WIDTH, height=HEIGHT)
     cap, seed = PROGRESSIVE_CAP, PROGRESSIVE_FRAME_SEED
     n = WIDTH * HEIGHT
-    launches = services = 0
     t0 = time.perf_counter()
     pr = ProgressiveRenderer(arrays, cfg=cfg, spp_cap=cap, frame_seed=seed,
                              seed_spp=cap, device=r.device)
     t1 = time.perf_counter()
-    walks, served = _progressive_steps(pr, params, [1 << 20])
-    launches, services = launches + walks, services + served
+    launches, steps = _progressive_steps(pr, params, [1 << 20])
     pr.block_until_ready()
     t2 = time.perf_counter()
     capped_rounds = pr.wave.rounds
@@ -1413,11 +1460,12 @@ def phase_progressive(r: Renderer, arrays, params) -> dict:
         raise AssertionError("capped progressive run differs from the batch "
                              f"step: rays {rays} vs {want_rays}")
     pr.reset()
-    walks, served = _progressive_steps(pr, params, range(1, 1 << 20))
-    launches, services = launches + walks, services + served
+    split_launches, calls = _progressive_steps(pr, params, range(1, 1 << 20))
+    launches += split_launches
+    steps += calls
     split = pr.snapshot()
     log(f"[progressive] split into calls of 1, 2, 3, ... rounds: "
-        f"{pr.wave.rounds} rounds, sums equal "
+        f"{pr.wave.rounds} rounds in {calls} calls, sums equal "
         f"{split[0].tobytes() == accum.tobytes()}, counts equal "
         f"{bool((split[1] == counts).all())}")
     if (split[0].tobytes() != accum.tobytes()
@@ -1436,14 +1484,13 @@ def phase_progressive(r: Renderer, arrays, params) -> dict:
                 raise AssertionError("reset() left samples or rays")
         tr0, sh0 = ((int(pu.wave.n_traced), int(pu.wave.n_shadow))
                     if pu.wave is not None else (0, 0))
-        before = walk.quad_walk_cuda.launches
-        before_service = service.service_pass_cuda.launches
+        before = _counts()
         t0 = time.perf_counter()
         pu.step(params, PROGRESSIVE_ROUNDS)
         pu.block_until_ready()
         dt = time.perf_counter() - t0
-        frame_launches = walk.quad_walk_cuda.launches - before
-        frame_services = service.service_pass_cuda.launches - before_service
+        got = {k: v - before[k] for k, v in _counts().items()}
+        frame_launches = got["wave"]
         t1 = time.perf_counter()
         acc, cnt = pu.snapshot()
         snap_ms = 1e3 * (time.perf_counter() - t1)
@@ -1455,28 +1502,26 @@ def phase_progressive(r: Renderer, arrays, params) -> dict:
                  mrays_per_s=(path + shadow) / dt / 1e6)
         frames.append(f)
         launches += frame_launches
-        services += frame_services
+        steps += 1  # one pu.step
         log(f"[progressive] unbounded frame {i + 1}: {f['ms']:.1f} ms "
-            f"(snapshot {snap_ms:.1f} ms), {frame_launches} walk launches, "
+            f"(snapshot {snap_ms:.1f} ms), {frame_launches} wave-kernel "
+            f"launch for {PROGRESSIVE_ROUNDS} rounds, "
             f"spp mean {f['mean_spp']!r} min {f['min_spp']} max "
             f"{f['max_spp']}, path rays {path}, shadow rays {shadow}, "
             f"{f['mrays_per_s']:.3f} Mrays/s")
-        if (frame_launches != PROGRESSIVE_ROUNDS
-                or frame_services != PROGRESSIVE_ROUNDS or pu.done()):
-            raise AssertionError(f"frame {i + 1}: {frame_launches} walk and "
-                                 f"{frame_services} service launches for "
-                                 f"{PROGRESSIVE_ROUNDS} rounds")
+        if (frame_launches != 1 or got["advances"] != 1 or got["walk"]
+                or got["service"] or pu.done()):
+            raise AssertionError(f"frame {i + 1}: launches {got} for "
+                                 f"{PROGRESSIVE_ROUNDS} rounds in one step")
         if not (cnt >= prev).all() or not cnt.sum() > prev.sum():
             raise AssertionError(f"frame {i + 1}: a count fell or none grew")
         if not np.isfinite(acc).all() or not path > 0:
             raise AssertionError(f"frame {i + 1}: non-finite sums or no rays")
         prev = cnt
-    rounds = 2 * capped_rounds + len(frames) * PROGRESSIVE_ROUNDS
-    if launches != rounds or services != rounds:
-        raise AssertionError(f"{launches} walk and {services} service "
-                             f"launches in {rounds} rounds: a round is one "
-                             "of each")
-    return dict(launches=launches, service_launches=services, frames=frames,
+    if launches != steps:
+        raise AssertionError(f"{launches} wave-kernel launches in {steps} "
+                             "steps: a step is one launch")
+    return dict(launches=launches, steps=steps, frames=frames,
                 capped_rounds=capped_rounds)
 
 
@@ -1487,14 +1532,11 @@ def phase_tiled(r: Renderer, params) -> dict:
     r.step(params)
     want, want_stats = r.state.accum.clone(), r.last_stats
     r.reset()
-    before = walk.quad_walk_cuda.launches
-    before_service = service.service_pass_cuda.launches
     t0 = time.perf_counter()
-    r.step_tiled(params, TILES)
+    got = _launched(lambda: r.step_tiled(params, TILES))
     r.block_until_ready()
     dt = time.perf_counter() - t0
-    launches = walk.quad_walk_cuda.launches - before
-    services = service.service_pass_cuda.launches - before_service
+    launches = got["wave"]
     st = r.last_stats
     counts = [(int(x["n_traced"]), int(x["n_shadow"]), int(x["rows_fetched"]))
               for x in (want_stats, st)]
@@ -1502,21 +1544,20 @@ def phase_tiled(r: Renderer, params) -> dict:
     img = r.image()
     off = int((r.image(on_device=False) != img).sum())
     log(f"[tiled] {TILES} tiles: {1e3 * dt:.1f} ms, {st['iterations']} rounds "
-        f"({launches} walk and {services} service launches; step: "
+        f"({launches} wave-kernel launches; step: "
         f"{want_stats['iterations']}), "
         f"(path, shadow, rows) {counts[1]} vs step {counts[0]}; sums equal "
         f"{equal}; image bytes off the host tonemap {off}")
     if not equal or counts[0] != counts[1]:
         raise AssertionError("step_tiled differs from step")
-    if (launches != st["iterations"] or services != st["iterations"]
-            or launches < TILES):
-        raise AssertionError(f"{launches} walk and {services} service "
-                             f"launches in {st['iterations']} rounds")
+    if launches != TILES:
+        raise AssertionError(f"{launches} wave-kernel launches for {TILES} "
+                             "strips: a strip's wave is one launch")
     if not np.array_equal(r.image(on_device=True), img):
         raise AssertionError("image(on_device=True) differs from image()")
     if off > MAX_BOUNDARY_SHARE * img.size:
         raise AssertionError(f"{off} image bytes off the host tonemap")
-    return dict(launches=launches, service_launches=services)
+    return dict(launches=launches)
 
 
 def phase_checkpoint(r: Renderer, params) -> None:
@@ -1567,12 +1608,42 @@ def write_icosphere_obj(path: str, subdiv: int = 5, uv: bool = False) -> int:
     return int(faces.shape[0])
 
 
-# The wrappers whose launches the entry-point phases count, by the name
-# of their key in those phases' results.
+class _Advances:
+    """The ``Wave.advance`` calls with work (the wave not done, a budget of
+    at least one round) on a card, counted as a wrapper counts its
+    launches: each is one wave-kernel launch (``count_advances``)."""
+
+    launches = 0
+
+
+def count_advances() -> None:
+    """Wrap ``persistent.Wave.advance`` so that each call with work on a
+    wave on a CUDA device adds one to ``_Advances.launches``; once a
+    process (main)."""
+    real = persistent.Wave.advance
+    if getattr(real, "counted", False):
+        return
+
+    def advance(self, max_rounds=None):
+        if (self.totals.is_cuda and not self.done
+                and (max_rounds is None or max_rounds >= 1)):
+            _Advances.launches += 1
+        return real(self, max_rounds)
+
+    advance.counted = True
+    persistent.Wave.advance = advance
+
+
+# The wrappers whose launches the phases count, by the name of their key
+# in those phases' results, and the advances with work beside them.
 COUNTED = dict(tonemap=tm.tonemap_cuda, fetch_chain=fetch.fetch_chain_cuda,
                walk=walk.quad_walk_cuda,
                threaded_walk=threaded.threaded_walk_cuda,
-               service=service.service_pass_cuda)
+               service=service.service_pass_cuda,
+               wave=wave.wave_advance_cuda, advances=_Advances)
+# The kernels among them.
+KERNELS = ("tonemap", "fetch_chain", "walk", "threaded_walk", "service",
+           "wave")
 
 
 def _zero_counts() -> None:
@@ -1618,13 +1689,15 @@ def phase_cli(tmp: str) -> dict:
         res["ppm"] = load_ppm(path(f"{name}.ppm"))
         dt = float(re.search(r"spp, ([0-9.]+)s\)$", res["stdout"]).group(1))
         res["ms_per_frame"] = 1e3 * dt / frames
-        if res["service"] != res["walk"]:
-            raise AssertionError(f"[cli] {name}: {res['walk']} walk and "
-                                 f"{res['service']} service launches: a "
-                                 "round is one of each")
+        if res["wave"] != res["advances"] or res["walk"] or res["service"]:
+            raise AssertionError(f"[cli] {name}: {res['wave']} wave-kernel "
+                                 f"launches for {res['advances']} advances, "
+                                 f"{res['walk']} walk and {res['service']} "
+                                 "service launches")
         log(f"[cli] {name}: {res['stdout']}; {res['ms_per_frame']:.1f} ms a "
             f"frame, {res['seconds']:.2f} s in all; launches: tonemap "
-            f"{res['tonemap']}, fetch_chain {res['fetch_chain']}, walk "
+            f"{res['tonemap']}, fetch_chain {res['fetch_chain']}, wave "
+            f"{res['wave']} ({res['advances']} advances), walk "
             f"{res['walk']}, service {res['service']}")
         return res
 
@@ -1634,9 +1707,11 @@ def phase_cli(tmp: str) -> dict:
     r = Renderer(arrays, cfg=RenderConfig(width=WIDTH, height=HEIGHT, spp=1))
     params = CameraController().get_params(WIDTH, HEIGHT)
     rounds = 0
+    before = _counts()
     for _ in range(CLI_FRAMES):
         r.step(params)
         rounds += r.last_stats["iterations"]
+    hand = {k: v - before[k] for k, v in _counts().items()}
     want = r.image()
     host = tonemap_accum(plain["ck"]["accum"].reshape(HEIGHT, WIDTH, 3),
                          CLI_FRAMES)
@@ -1646,18 +1721,19 @@ def phase_cli(tmp: str) -> dict:
         f"{plain['ppm'].tobytes() == want.tobytes()}, sums equal "
         f"{plain['ck']['accum'].tobytes() == r.state.accum.cpu().numpy().tobytes()}"
         f"; {off} of {host.size} bytes off the host tonemap_accum of its "
-        f"checkpoint; {rounds} rounds in the hand-driven steps")
+        f"checkpoint; {rounds} rounds and {hand['wave']} wave-kernel "
+        f"launches in the hand-driven steps")
     if n_tris != 20480 or arrays.num_objects != 7 + n_tris:
         raise AssertionError(f"{arrays.num_objects} triangles in the scene")
     if plain["ppm"].tobytes() != want.tobytes():
         raise AssertionError("the CLI's image differs from the Renderer's")
     if plain["ck"]["accum"].tobytes() != r.state.accum.cpu().numpy().tobytes():
         raise AssertionError("the CLI's sums differ from the Renderer's")
-    if (plain["tonemap"] != 1 or plain["walk"] != rounds
-            or plain["service"] != rounds):
-        raise AssertionError(f"{plain['tonemap']} tonemap, {plain['walk']}"
-                             f" walk and {plain['service']} service launches "
-                             f"for {rounds} rounds")
+    if (plain["tonemap"] != 1 or plain["wave"] != hand["wave"]
+            or hand["wave"] != hand["advances"]):
+        raise AssertionError(f"{plain['tonemap']} tonemap and "
+                             f"{plain['wave']} wave-kernel launches; the "
+                             f"hand-driven steps launched {hand}")
     if off > MAX_BOUNDARY_SHARE * host.size:
         raise AssertionError(f"{off} image bytes off the host tonemap")
     if not np.isfinite(plain["ck"]["accum"]).all() or not want.max() > 0:
@@ -1701,6 +1777,7 @@ def phase_app(arrays, tmp: str) -> dict:
     cam = CameraController()
     r = Renderer(arrays, cfg=cfg)
     rounds = 0
+    before = _counts()
     for i in range(len(APP_SCRIPT)):
         if i == 2:
             r.reset()
@@ -1709,6 +1786,7 @@ def phase_app(arrays, tmp: str) -> dict:
         rounds += r.last_stats["iterations"]
         if i == 3:
             at_checkpoint = r.state.accum.cpu().numpy()
+    hand = {k: v - before[k] for k, v in _counts().items()}
     state, w, h, frame_seed, _ = load_checkpoint(ck)
     equal = torch.equal(app.renderer.state.accum, r.state.accum)
     ck_equal = state.accum.cpu().numpy().tobytes() == at_checkpoint.tobytes()
@@ -1717,17 +1795,20 @@ def phase_app(arrays, tmp: str) -> dict:
         f"snapshots {len(app.snapshots)}; sums equal to the hand-driven "
         f"Renderer {equal}; last checkpoint frame {frame_seed}, spp "
         f"{state.spp}, equal {ck_equal}; launches: tonemap "
-        f"{launches['tonemap']}, fetch_chain {launches['fetch_chain']}, walk"
-        f" {launches['walk']}, service {launches['service']} ({rounds} "
-        f"rounds)")
+        f"{launches['tonemap']}, fetch_chain {launches['fetch_chain']}, wave"
+        f" {launches['wave']}, walk {launches['walk']}, service "
+        f"{launches['service']} ({rounds} rounds; the hand-driven steps "
+        f"launched the wave kernel {hand['wave']} times)")
     if not equal or not ck_equal or (frame_seed, state.spp) != (3, 2):
         raise AssertionError("the App differs from the hand-driven Renderer")
     if len(app.snapshots) != 2 or app.frames_displayed < 1:
         raise AssertionError(f"{len(app.snapshots)} snapshots, "
                              f"{app.frames_displayed} frames displayed")
-    if launches != dict(tonemap=0, fetch_chain=0, walk=rounds,
-                        threaded_walk=0, service=rounds):
-        raise AssertionError(f"launches {launches} for {rounds} rounds")
+    if launches != dict(tonemap=0, fetch_chain=0, walk=0, threaded_walk=0,
+                        service=0, wave=hand["wave"],
+                        advances=hand["advances"]) or not hand["wave"]:
+        raise AssertionError(f"launches {launches}; the hand-driven steps "
+                             f"launched {hand}")
     del app, r
 
     script = [{}] * PROGRESSIVE_TICKS
@@ -1788,12 +1869,12 @@ def phase_app(arrays, tmp: str) -> dict:
         f"{papp.frames_displayed} frames displayed, {dropped} dropped; host "
         f"ARGB packing {len(packs)} x {np.mean(packs):.2f} ms (min "
         f"{min(packs):.2f}, max {max(packs):.2f}); launches {plaunches} for "
-        f"{sum(t['rounds'] for t in ticks)} rounds")
-    tick_rounds = sum(t["rounds"] for t in ticks)
+        f"{sum(t['rounds'] for t in ticks)} rounds in {len(ticks)} steps")
     if len(ticks) != PROGRESSIVE_TICKS or plaunches != dict(
-            tonemap=0, fetch_chain=0, walk=tick_rounds, threaded_walk=0,
-            service=tick_rounds):
-        raise AssertionError("a round is one walk launch, a tick one step")
+            tonemap=0, fetch_chain=0, walk=0, threaded_walk=0, service=0,
+            wave=len(ticks), advances=len(ticks)):
+        raise AssertionError("a tick is one step, a step one wave-kernel "
+                             "launch")
     if not all(4 <= t["rounds"] <= 4096 for t in ticks) or not packs:
         raise AssertionError("budget out of [4, 4096] or nothing displayed")
     before, after = (ticks[PROGRESSIVE_MOVE - 2]["move_spp"],
@@ -1821,8 +1902,9 @@ def phase_bench() -> dict:
         log(f"[bench] {json.dumps(rec)}")
     log(f"[bench] cube256 with its oracle check {t1 - t0:.1f} s; launches: "
         f"tonemap {launches['tonemap']}, fetch_chain "
-        f"{launches['fetch_chain']}, walk {launches['walk']}, service "
-        f"{launches['service']}")
+        f"{launches['fetch_chain']}, wave {launches['wave']} "
+        f"({launches['advances']} advances), walk {launches['walk']}, "
+        f"service {launches['service']}")
     if not cube["mse_vs_oracle"] < ORACLE_MSE:
         raise AssertionError(f"cube256 MSE {cube['mse_vs_oracle']!r} vs the "
                              "oracle")
@@ -1830,11 +1912,12 @@ def phase_bench() -> dict:
         if not rec["mrays_per_s"] > 0 or rec["device"] != (
                 torch.cuda.get_device_name(0)):
             raise AssertionError(f"bad record {rec}")
-    if not prog["spp_per_frame"] > 0 or launches["walk"] < 1:
+    if not prog["spp_per_frame"] > 0 or launches["wave"] < 1:
         raise AssertionError("the progressive bench did not advance")
-    if launches["service"] != launches["walk"] or launches["threaded_walk"]:
-        raise AssertionError(f"bench launches {launches}: a round is one "
-                             "walk and one service launch")
+    if (launches["wave"] != launches["advances"] or launches["walk"]
+            or launches["service"] or launches["threaded_walk"]):
+        raise AssertionError(f"bench launches {launches}: an advance is one "
+                             "wave-kernel launch")
     return dict(launches, records=[cube, batch, prog])
 
 
@@ -1852,14 +1935,33 @@ def _feature_scene(tmp: str, kind: str):
     load_obj(obj, scene.objects, offset=(50.0, 25.0, 60.0), scale=20.0,
              parse_uv=True, tex_id=0)
     if kind == "lights":
-        for i in range(16):
-            x = 10.0 + 4 * i
-            scene.objects.append(Object(
-                v0=(x, 99.0, 40), v1=(x + 2, 99.0, 40), v2=(x + 1, 99.0, 42),
-                emission=(5.0, 5.0, 5.0)))
+        _add_small_lights(scene)
     tex = checker_texture(512 if kind == "big_texture" else 64)
     arrays = flatten_scene(scene, textures=[tex])
     return arrays, SMALL_FEATURES[kind]
+
+
+def _add_small_lights(scene) -> None:
+    """16 small emitters under the ceiling (17 lights with the box's)."""
+    for i in range(16):
+        x = 10.0 + 4 * i
+        scene.objects.append(Object(
+            v0=(x, 99.0, 40), v1=(x + 2, 99.0, 40), v2=(x + 1, 99.0, 42),
+            emission=(5.0, 5.0, 5.0)))
+
+
+def all_features_arrays(tmp: str):
+    """The [features] path's scene (the Cornell box and an icosphere(5)
+    with UVs on texture slot 0, from an .obj, checker 256) with 16 small
+    emitters under the ceiling: 17 lights."""
+    obj = os.path.join(tmp, "icosphere_uv.obj")
+    if not os.path.exists(obj):
+        write_icosphere_obj(obj, 5, uv=True)
+    scene = create_cornell_box(mesh=None)
+    load_obj(obj, scene.objects, offset=(50.0, 20.0, 50.0), scale=15.0,
+             parse_uv=True, tex_id=0)
+    _add_small_lights(scene)
+    return flatten_scene(scene, textures=[checker_texture(256)])
 
 
 def _small_feature_checks(tmp: str) -> dict:
@@ -1956,16 +2058,14 @@ def phase_features(r: Renderer, params, tmp: str) -> dict:
     rf = Renderer(arrays, cfg=cfg)
     setup = time.perf_counter() - t0
     rounds, path, shadow = 0, 0, 0
-    before = walk.quad_walk_cuda.launches
-    before_service = service.service_pass_cuda.launches
+    before = _counts()
     for _ in range(FEATURE_FRAMES):
         rf.step(params)
         st = rf.last_stats
         rounds += st["iterations"]
         path += int(st["n_traced"])
         shadow += int(st["n_shadow"])
-    hand_walks = walk.quad_walk_cuda.launches - before
-    hand_services = service.service_pass_cuda.launches - before_service
+    hand = {k: v - before[k] for k, v in _counts().items()}
     img = rf.image()
     same_ppm = load_ppm(ppm).tobytes() == img.tobytes()
     same_sums = sums.tobytes() == rf.state.accum.cpu().numpy().tobytes()
@@ -1977,9 +2077,9 @@ def phase_features(r: Renderer, params, tmp: str) -> dict:
         f"{rf.scene.leaf_size}, {rf.scene.quad_table.shape[0]} quad rows, "
         f"walk rows of {rf.inline.walk.shape[1]} floats, {rf.bvh.perm.size} "
         f"references; hand-driven setup {setup:.2f} s, {rounds} rounds, "
-        f"path rays {path}, shadow rays {shadow}; launches: walk "
-        f"{cli_counts['walk']} (hand-driven {hand_walks}), service "
-        f"{cli_counts['service']} (hand-driven {hand_services}), tonemap "
+        f"path rays {path}, shadow rays {shadow}; launches: wave "
+        f"{cli_counts['wave']} (hand-driven {hand['wave']}), walk "
+        f"{cli_counts['walk']}, service {cli_counts['service']}, tonemap "
         f"{cli_counts['tonemap']}, fetch_chain {cli_counts['fetch_chain']};"
         f" PPM equal {same_ppm}, sums equal {same_sums}")
     if n_tris != 20480 or int(mesh.sum()) != n_tris or not (
@@ -1988,10 +2088,13 @@ def phase_features(r: Renderer, params, tmp: str) -> dict:
                              "on texture slot 0")
     if not same_ppm or not same_sums:
         raise AssertionError("the features render differs from the Renderer")
-    if (cli_counts["walk"] != rounds or hand_walks != rounds
-            or cli_counts["service"] != rounds or hand_services != rounds
-            or cli_counts["tonemap"] != 1 or cli_counts["fetch_chain"]):
-        raise AssertionError(f"launches {cli_counts} for {rounds} rounds")
+    if (cli_counts["wave"] != hand["wave"]
+            or hand["wave"] != hand["advances"] or not hand["wave"]
+            or cli_counts["walk"] or cli_counts["service"] or hand["walk"]
+            or hand["service"] or cli_counts["tonemap"] != 1
+            or cli_counts["fetch_chain"]):
+        raise AssertionError(f"launches {cli_counts}; the hand-driven steps "
+                             f"launched {hand}")
     if rf.scene.leaf_fmt != "mt" or not np.isfinite(sums).all():
         raise AssertionError("not an mt render, or non-finite sums")
 
@@ -2057,16 +2160,300 @@ def phase_features(r: Renderer, params, tmp: str) -> dict:
     small = _small_feature_checks(tmp)
     launches = _counts()
     seconds = time.perf_counter() - t_phase
+    mt_wave = cli_counts["wave"] + hand["wave"]
     log(f"[features] {seconds:.1f} s in all; launches: tonemap "
-        f"{launches['tonemap']}, fetch_chain {launches['fetch_chain']}, walk "
-        f"{launches['walk']} (mt leaves {cli_counts['walk'] + hand_walks}), "
-        f"service {launches['service']}")
-    if launches["service"] != launches["walk"]:
-        raise AssertionError(f"[features] launches {launches}: a round is "
-                             "one walk and one service launch")
-    return dict(launches, mt_walk=cli_counts["walk"] + hand_walks,
+        f"{launches['tonemap']}, fetch_chain {launches['fetch_chain']}, wave "
+        f"{launches['wave']} (mt leaves {mt_wave}; {launches['advances']} "
+        f"advances), walk {launches['walk']}, service {launches['service']}")
+    if (launches["wave"] != launches["advances"] or launches["walk"]
+            or launches["service"]):
+        raise AssertionError(f"[features] launches {launches}: an advance "
+                             "is one wave-kernel launch")
+    return dict(launches, mt_wave=mt_wave,
                 ms_per_frame=1e3 * dt / FEATURE_FRAMES, refit_s=refit_s,
                 fresh_setup_s=fresh_s, small=small, seconds=seconds), rf
+
+
+# -- [wave]: the wave kernel against the two-kernel round loop ---------------
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bits (float32 as int32), for bit-for-bit comparison."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _copy(s) -> dict:
+    return {key: val.clone() for key, val in s.items()}
+
+
+def state_bytes_once(s, textured: bool) -> int:
+    """Bytes of lane state a wave's whole advance must move at least: the
+    fields of ops/service.py FIELDS of every lane not DONE, read once and
+    written once (pix only read; tstash only with textures), and the mode
+    of every DONE lane."""
+    per_lane = sum(torch.empty((), dtype=dtype).element_size() * cols
+                   for name, dtype, cols in service.FIELDS
+                   if textured or name != "tstash")
+    live = int((s["mode"] != walk.DONE).sum())
+    return (2 * per_lane - 8) * live + 8 * (s["mode"].numel() - live)
+
+
+def two_kernel_rounds(r: Renderer, fr, s, totals, rows, budget,
+                      rounds_before: int, work=None) -> tuple:
+    """The two-kernel round loop on the card as ``Wave.advance`` runs it
+    with ``round_fn=_round_quad``, but without compaction: each round one
+    quad_walk_cuda launch (every lane's walk to its end), then one
+    service_pass_cuda launch; while a lane is live and at most ``budget``
+    rounds (None: no budget).  Updates ``totals`` and ``rows``; returns
+    (state, rounds run, lanes live).  With ``work`` (a list), each round
+    appends what [walk] and [service] count for their bounds: the walk's
+    rows and state bytes (walk_state_bytes), the pass's bytes
+    (service_state_bytes) and double calls (service_work), and the
+    triangles and tile rows the pass reads."""
+    inline = r.inline
+    passes = max(1, r.cfg.quad_redirect_passes)
+    ran = 0
+    live = int((s["mode"] != walk.DONE).sum())
+    while live and (budget is None or ran < budget):
+        modes = torch.bincount(s["mode"], minlength=walk.TEXG + 1).tolist()
+        walked, n = walk.quad_walk_cuda(s, inline.walk, inline.sentinel,
+                                        r.scene.leaf_size, passes,
+                                        inline.walk_levels,
+                                        fmt=r.scene.leaf_fmt)
+        rows += n
+        if work is not None:
+            want, _, sw = service_work(walked, fr)
+            mode = walked["mode"]
+            shadeg = (mode == walk.SHADEG) & (walked["hit_id"] >= 0)
+            work.append(dict(
+                walk_rows=int(n),
+                walk_bytes=walk_state_bytes(
+                    modes[walk.TRAVERSE], modes[walk.SHADOW],
+                    mode.numel() - modes[walk.TRAVERSE] - modes[walk.SHADOW]),
+                service_bytes=service_state_bytes(walked, want, fr.service),
+                calls=sw["calls"],
+                hits=torch.unique(walked["hit_id"][shadeg]),
+                tiles=torch.unique(walked["cur"][mode == walk.TEXG])))
+        slot = (rounds_before + ran) % 2
+        s = service.service_pass_cuda(walked, inline, fr.service, totals,
+                                      slot)
+        live = int(totals[service.LIVE + slot])
+        ran += 1
+    return s, ran, live
+
+
+def wave_bound(s0, work, r: Renderer, fr) -> dict:
+    """Two bounds of the main step's wave kernel.  ``bound_ms``: the
+    least time the card could take for the step's work, the larger of
+    its bytes (every lane's state read and written once,
+    state_bytes_once; the walk-order rows once; each triangle's trimat
+    row and each tile row the services read, once) over the memory rate
+    and its operations (the walks' float32 work, 120 a row as [walk]
+    counts it; the services' FP64 instructions as [service] counts them)
+    over their rates.  ``rounds_bound_ms``: the sum over the step's
+    rounds of the walk's and the service's bounds as [walk] and
+    [service] state them, the bound of the two-kernel round loop."""
+    inline = r.inline
+    table_bytes = inline.sentinel * inline.walk.shape[1] * 4
+    per = fp64_per_call()
+    rounds_ms = 0.0
+    rows = fp64 = 0
+    for rnd in work:
+        rounds_ms += bound(table_bytes + rnd["walk_bytes"],
+                           120 * rnd["walk_rows"])["bound_ms"]
+        sb = service_bound(rnd["service_bytes"], rnd["calls"])
+        rounds_ms += sb["bound_ms"]
+        rows += rnd["walk_rows"]
+        fp64 += sb["fp64_instructions"]
+    hits = torch.unique(torch.cat([rnd["hits"] for rnd in work]))
+    tiles = torch.unique(torch.cat([rnd["tiles"] for rnd in work]))
+    n_bytes = (state_bytes_once(s0, inline.tex0 is not None) + table_bytes
+               + 148 * hits.numel() + 48 * tiles.numel()
+               + fr.service.lights.numel() * 4
+               + fr.service.metas.numel() * 8 + 8 * len(service.TOTALS))
+    bytes_ms = 1e3 * n_bytes / MEM_BYTES_PER_S
+    f32_ms = 1e3 * 120 * rows / F32_FLOP_PER_S
+    fp64_ms = 1e3 * 2 * fp64 / F64_FLOP_PER_S
+    larger = max(bytes_ms, f32_ms, fp64_ms)
+    return dict(bound_ms=larger,
+                bound_by="bytes" if bytes_ms == larger else "operations",
+                bytes_ms=bytes_ms, f32_ms=f32_ms, fp64_ms=fp64_ms,
+                bound_bytes=n_bytes, rounds_bound_ms=rounds_ms,
+                rows_fetched=rows, fp64_instructions=fp64)
+
+
+def _check_wave(label: str, r: Renderer, fr, s0, budgets, work=None,
+                one_call: int | None = None) -> dict:
+    """The wave kernel (wave_advance_cuda, one launch a call) and the
+    two-kernel round loop, each on a copy of state ``s0``, in calls of
+    ``budgets`` rounds: after every call each state field, the four
+    totals, the rows and the rounds and live lanes must be equal bit for
+    bit.  With ``one_call``, a third copy advanced by one call of that
+    many rounds must equal the calls' end.  Returns the counts."""
+    inline = r.inline
+    n = s0["mode"].shape[0]
+    passes = max(1, r.cfg.quad_redirect_passes)
+    new_totals = lambda: torch.tensor([n, 0, 0, 0], dtype=torch.int64,
+                                      device=r.device)
+    new_rows = lambda: torch.zeros((), dtype=torch.int64, device=r.device)
+    kern, k_tot, k_rows = _copy(s0), new_totals(), new_rows()
+    ref, r_tot, r_rows = _copy(s0), new_totals(), new_rows()
+    advance = lambda s, t, rw, budget, before: wave.wave_advance_cuda(
+        s, inline, fr.service, t, rw, budget, k=r.scene.leaf_size,
+        fmt=r.scene.leaf_fmt, passes=passes, rounds_before=before)
+    done, calls = 0, []
+    for budget in budgets:
+        before = wave.wave_advance_cuda.launches
+        ran, live = advance(kern, k_tot, k_rows, budget, done)
+        if wave.wave_advance_cuda.launches != before + 1:
+            raise AssertionError(f"[wave] {label}: a call launched "
+                                 f"{wave.wave_advance_cuda.launches - before}")
+        ref, ref_ran, ref_live = two_kernel_rounds(
+            r, fr, ref, r_tot, r_rows, budget, done, work)
+        done += ran
+        bad = [key for key in kern if not torch.equal(_bits(kern[key]),
+                                                      _bits(ref[key]))]
+        same = (not bad and (ran, live) == (ref_ran, ref_live)
+                and k_tot.tolist() == r_tot.tolist()
+                and int(k_rows) == int(r_rows))
+        calls.append(dict(budget=budget, rounds=ran, live=live,
+                          totals=k_tot.tolist(), rows=int(k_rows)))
+        log(f"[wave] {label}, a call of {budget or 'all'} rounds: kernel "
+            f"{ran} rounds, {live} lanes live, totals {k_tot.tolist()}, rows "
+            f"{int(k_rows)}; round loop {ref_ran}, {ref_live}, "
+            f"{r_tot.tolist()}, {int(r_rows)}; fields not bit-equal {bad}")
+        if not same:
+            raise AssertionError(f"[wave] {label}: the kernel differs from "
+                                 f"the two-kernel round loop")
+    if one_call is not None:
+        one, o_tot, o_rows = _copy(s0), new_totals(), new_rows()
+        ran, live = advance(one, o_tot, o_rows, one_call, 0)
+        bad = [key for key in kern if not torch.equal(_bits(kern[key]),
+                                                      _bits(one[key]))]
+        log(f"[wave] {label}: one call of {one_call} rounds: {ran} rounds, "
+            f"{live} live, totals {o_tot.tolist()}, rows {int(o_rows)}; "
+            f"fields not bit-equal to the calls' {bad}")
+        if (bad or (ran, live) != (done, calls[-1]["live"])
+                or o_tot.tolist() != k_tot.tolist()
+                or int(o_rows) != int(k_rows)):
+            raise AssertionError(f"[wave] {label}: the calls differ from one "
+                                 "call")
+    return dict(lanes=n, rounds=done, calls=calls, state=kern)
+
+
+def phase_wave(r: Renderer, features_r: Renderer, params, tmp: str) -> dict:
+    """The wave kernel against the two-kernel round loop on the card, bit
+    for bit (_check_wave), on the main path's 1200x800 1-spp step (and
+    against its plain version, wave_advance_plain, field for field), on a
+    progressive wave (unbounded cap) in calls of 1, 3 and 8 rounds
+    against one call of 12, on strip 2 of a TILES-strip tiled step, on
+    the [features] path's renderer ("mt" leaves, SBVH, smooth normals,
+    UVs, textures) and on a 1200x800 frame with "mt" leaves, smooth
+    normals, UVs, textures, 17 lights and two trimat rows a table row (a
+    median build at leaf 10).  Then the kernel's own time and its
+    wrapper's on the main step, its plain version's, its bound
+    (wave_bound) and its builds."""
+    out = dict(cases={})
+    cam = params.to(r.device)
+    n = WIDTH * HEIGHT
+    # The main step.
+    fr, s0 = service_frame(r, params)
+    work = []
+    res = _check_wave("main step", r, fr, s0, [None], work)
+    out["cases"]["main"] = {k: v for k, v in res.items() if k != "state"}
+    # Its plain version on the card, field for field (-0.0 == 0.0; the
+    # skip registers stay in the kernel's threads).
+    plain, p_tot = _copy(s0), torch.tensor([n, 0, 0, 0], device=r.device)
+    p_rows = torch.zeros((), dtype=torch.int64, device=r.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ran, live = wave.wave_advance_plain(
+        plain, r.inline, fr, p_tot, p_rows,
+        passes=max(1, r.cfg.quad_redirect_passes))
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    got = res["state"]
+    fields = [f for f in got if f not in ("reg_e", "reg_s")]
+    bad = [f for f in fields if not _same(got[f], plain[f])]
+    err = max(float((got[f].double() - plain[f].double()).abs()
+                    .nan_to_num(0.0).max()) for f in fields)
+    log(f"[wave] main step against wave_advance_plain: {ran} rounds, {live} "
+        f"live, totals {p_tot.tolist()}, rows {int(p_rows)} in {plain_ms:.1f}"
+        f" ms; fields differing {bad} (-0.0 == 0.0, NaN == NaN), max abs err "
+        f"{err!r}")
+    if (bad or (ran, live) != (res["rounds"], 0)
+            or p_tot.tolist() != res["calls"][-1]["totals"]
+            or int(p_rows) != res["calls"][-1]["rows"]):
+        raise AssertionError("[wave] the kernel differs from its plain "
+                             "version on the main step")
+    del plain, got, res
+    # A progressive wave: unbounded cap, the progressive renderer's seeds.
+    pfr = persistent._Frame(r.scene, r.inline, r.cfg, cam, 0, WIDTH, HEIGHT,
+                            UNBOUNDED_SPP, 1)
+    pfr.service = service.service_params(pfr)
+    ps = persistent.init_lane_ctx(0, 1, torch.arange(n, device=r.device),
+                                  cam, WIDTH, HEIGHT, r.cfg,
+                                  with_tstash=r.inline.tex0 is not None)
+    res = _check_wave("progressive", r, pfr, ps, [1, 3, 8], one_call=12)
+    out["cases"]["progressive"] = {k: v for k, v in res.items()
+                                   if k != "state"}
+    # A tiled step's second strip.
+    span = -(-n // TILES)
+    strip = torch.arange(span, 2 * span, device=r.device)
+    tfr = persistent._Frame(r.scene, r.inline, r.cfg, cam, 1, WIDTH, HEIGHT,
+                            1, 1)
+    tfr.service = service.service_params(tfr)
+    ts = persistent.init_lane_ctx(1, 1, strip, cam, WIDTH, HEIGHT, r.cfg,
+                                  with_tstash=r.inline.tex0 is not None)
+    res = _check_wave("tiled strip 2", r, tfr, ts, [None])
+    out["cases"]["tiled"] = {k: v for k, v in res.items() if k != "state"}
+    # The features: the [features] path's renderer (SBVH), and the other
+    # features at once with 17 lights and two trimat rows a table row: a
+    # median build at leaf 10, whose "mt" quad rows are 100 floats (SAH
+    # and SBVH leaves on this mesh hold at most 6 triangles, 64 floats).
+    rall = Renderer(all_features_arrays(tmp), cfg=RenderConfig(
+        width=WIDTH, height=HEIGHT, spp=1, bvh_leaf_size=10,
+        **dict(FEATURE_CFG, bvh_method="median")))
+    if (rall.scene.num_lights != 17 or rall.inline.pack != 2
+            or rall.scene.leaf_fmt != "mt" or rall.inline.tex0 is None):
+        raise AssertionError(f"{rall.scene.num_lights} lights, pack "
+                             f"{rall.inline.pack}, {rall.scene.leaf_fmt}")
+    for label, rr in (("features", features_r),
+                      ("features, 17 lights, median leaf 10, pack 2",
+                       rall)):
+        ffr, fs = service_frame(rr, params)
+        res = _check_wave(label, rr, ffr, fs, [None])
+        out["cases"][label] = {k: v for k, v in res.items() if k != "state"}
+    del rall
+    # The kernel's own time, its wrapper's, and its bound, on the main step.
+    passes = max(1, r.cfg.quad_redirect_passes)
+
+    def run(s, t, rw):
+        return wave.wave_advance_cuda(s, r.inline, fr.service, t, rw,
+                                      k=r.scene.leaf_size,
+                                      fmt=r.scene.leaf_fmt, passes=passes)
+
+    totals0 = torch.tensor([n, 0, 0, 0], device=r.device)
+    rows0 = torch.zeros((), dtype=torch.int64, device=r.device)
+    fresh = lambda: (_copy(s0), totals0.clone(), rows0.clone())
+    copies = iter([fresh() for _ in range(4)])
+    wrapper_ms = _time_ms(lambda: run(*next(copies)), reps=3)
+    del copies
+    ms = _kernel_ms(lambda: run(*fresh()), "wave_advance_kernel", reps=5)
+    b = wave_bound(s0, work, r, fr)
+    build = kernel_builds(wave.LIBRARY, "wave_advance_kernel")
+    out.update(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
+               plain_ms=plain_ms, library_ms=None, plan=wave.wave_advance_cuda
+               .plan, build=build, rounds=out["cases"]["main"]["rounds"], **b)
+    log(f"[wave] main step: kernel's own time {ms:.4f} ms, wrapper "
+        f"{wrapper_ms:.4f} ms, plain {plain_ms:.1f} ms; {b['rows_fetched']} "
+        f"rows in {out['rounds']} rounds; bound {b['bound_ms']:.5f} ms by "
+        f"{b['bound_by']} (bytes {b['bytes_ms']:.5f} ms: {b['bound_bytes']} B;"
+        f" float32 {b['f32_ms']:.5f} ms; FP64 {b['fp64_ms']:.5f} ms: "
+        f"{b['fp64_instructions']} instructions), own time "
+        f"{ms / b['bound_ms']:.1f}x; the round loop's bound (each round's "
+        f"walk and service bounds summed) {b['rounds_bound_ms']:.4f} ms, own "
+        f"time {ms / b['rounds_bound_ms']:.2f}x; plan {out['plan']}")
+    return out
 
 
 # -- [bounce]: the bounce engine ---------------------------------------------
@@ -2162,14 +2549,15 @@ def phase_bounce(arrays, r: Renderer, params, tmp: str) -> tuple:
     log(f"[bounce] image mean {float(img.mean())!r}, spp {rb.spp()}; "
         f"launches: threaded_walk {launches['threaded_walk']}, tonemap "
         f"{launches['tonemap']}, walk {launches['walk']}, fetch_chain "
-        f"{launches['fetch_chain']}, service {launches['service']}")
+        f"{launches['fetch_chain']}, service {launches['service']}, wave "
+        f"{launches['wave']}")
     if not bool(torch.isfinite(rb.state.accum).all()) or not img.max() > 0:
         raise AssertionError("non-finite sums or a black bounce image")
     # Two walks a bounce: the closest hit and the NEE any hit.
     walks = 2 * (warm_bounces + sum(s["bounces"] for s in steps))
     if (launches["threaded_walk"] != walks or launches["tonemap"] != 1
             or launches["walk"] or launches["fetch_chain"]
-            or launches["service"]):
+            or launches["service"] or launches["wave"]):
         raise AssertionError(f"bounce path launches {launches} for {walks} "
                              "walks")
 
@@ -2420,9 +2808,9 @@ def phase_parallel(arrays, r: Renderer, rb: Renderer, params,
     image), (2,2) within ATOL_SP, with equal int64 ray totals.  The
     counts are set to 0 after each reference render, just before each
     mesh's ``sr.step``, and read just after its ``sr.image()``: they
-    must be exactly what the sharded step alone launches (a walk kernel
-    and a service kernel a round, two threaded walks a bounce, summed
-    over the shards; one tonemap).  Then two processes of ``tpurt-torch
+    must be exactly what the sharded step alone launches (a wave kernel a
+    shard, two threaded walks a bounce, summed over the shards; one
+    tonemap).  Then two processes of ``tpurt-torch
     render --coordinator ... --num-processes 2`` over gloo on the one
     card, whose PPM must equal a one-process render's byte for byte.
     NCCL across cards needs more than one card, so it is not run
@@ -2454,11 +2842,11 @@ def phase_parallel(arrays, r: Renderer, rb: Renderer, params,
             launches = _counts()
             iters = sr.last_stats["shard_iterations"]
             n_iter = sum(iters.values())
-            expect = dict(tonemap=1, fetch_chain=0,
-                          walk=n_iter if engine == "persistent" else 0,
+            waves = len(iters) if engine == "persistent" else 0
+            expect = dict(tonemap=1, fetch_chain=0, walk=0,
                           threaded_walk=2 * n_iter if engine == "bounce"
                           else 0,
-                          service=n_iter if engine == "persistent" else 0)
+                          service=0, wave=waves, advances=waves)
             got = sr.accum_host()
             rays = (int(sr.last_stats["n_traced"]),
                     int(sr.last_stats["n_shadow"]))
@@ -2498,8 +2886,8 @@ def phase_parallel(arrays, r: Renderer, rb: Renderer, params,
         ref.reset()
     log(f"[parallel] launches of the sharded steps and images, summed over "
         f"the meshes: {totals}")
-    if (totals["walk"] < 1 or totals["threaded_walk"] < 1
-            or totals["service"] != totals["walk"]):
+    if (totals["wave"] < 1 or totals["threaded_walk"] < 1 or totals["walk"]
+            or totals["service"]):
         raise AssertionError(f"the sharded renders launched {totals}")
 
     # Two processes on the one card over gloo, against one process.
@@ -2551,6 +2939,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    count_advances()
     smi = phase_environment()
     phase_cuda_vs_cpu()
     t0 = time.perf_counter()
@@ -2566,8 +2955,10 @@ def main() -> int:
     main_run = phase_main_path(r, params)
     _zero_counts()
     progressive = phase_progressive(r, arrays, params)
+    progressive["counts"] = _counts()
     _zero_counts()
     tiled = phase_tiled(r, params)
+    tiled["counts"] = _counts()
     phase_checkpoint(r, params)
     with tempfile.TemporaryDirectory() as tmp:
         cli_run = phase_cli(tmp)
@@ -2576,22 +2967,28 @@ def main() -> int:
         features_run, features_r = phase_features(r, params, tmp)
         bounce_run, rb = phase_bounce(arrays, r, params, tmp)
         parallel_run = phase_parallel(arrays, r, rb, params, tmp)
-    tone = phase_tonemap()
-    chain = phase_fetch(seed=0)
-    walked, serviced = phase_walk(r, params)
-    # The Moller-Trumbore leaf slots on the table the features path walks
-    # (smooth shading and UV mapping on for its service states).
-    walked_mt, serviced_features = phase_walk(features_r, params)
-    serviced_more = phase_service(params)
-    if not any(x["modes"][walk.TEXG] for x in serviced.values()):
-        raise AssertionError("no [service] state of the main path had TEXG "
-                             "lanes in flight")
+        tone = phase_tonemap()
+        chain = phase_fetch(seed=0)
+        walked, serviced = phase_walk(r, params)
+        # The Moller-Trumbore leaf slots on the table the features path
+        # walks (smooth shading and UV mapping on for its service states).
+        walked_mt, serviced_features = phase_walk(features_r, params)
+        serviced_more = phase_service(params)
+        if not any(x["modes"][walk.TEXG] for x in serviced.values()):
+            raise AssertionError("no [service] state of the main path had "
+                                 "TEXG lanes in flight")
+        waved = phase_wave(r, features_r, params, tmp)
     threaded_states = phase_threaded_walk(rb, features_r, params,
                                           chain["latency"]["global_ns"])
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     keys = ("max_abs_err", "ms", "wrapper_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    # Each kernel's launches on the paths counted with COUNTED.
+    # Each kernel's launches on the paths counted with COUNTED: the main
+    # path's, the progressive and tiled phases', the entry points'.
+    main_counts = lambda name: dict(
+        launches=main_run["counts"][name],
+        progressive_launches=progressive["counts"][name],
+        tiled_launches=tiled["counts"][name])
     path_counts = lambda name: dict(
         cli_launches=cli_run[name], app_launches=app_run[name],
         bench_launches=bench_run[name],
@@ -2625,12 +3022,10 @@ def main() -> int:
         dict(name="quad_walk", route="cuda",
              source="tryraytrace_tpu_torch/csrc/quad_walk.cu",
              replaces="tryraytrace_tpu/engine/persistent.py:948",
-             launches=main_run["walk_launches"],
-             progressive_launches=progressive["launches"],
-             tiled_launches=tiled["launches"], **path_counts("walk"),
-             features_mt_launches=features_run["mt_walk"],
+             **main_counts("walk"), **path_counts("walk"),
              **{k: walked[k] for k in keys},
              rows_fetched=walked["rows_fetched"], plan=walked["plan"],
+             build=kernel_builds(walk.LIBRARY, "quad_walk_kernel"),
              mt={k: walked_mt[k] for k in (*keys, "rows_fetched", "plan")}),
         dict(name="threaded_walk", route="cuda",
              source="tryraytrace_tpu_torch/csrc/threaded_walk.cu",
@@ -2651,10 +3046,7 @@ def main() -> int:
              replaces="tryraytrace_tpu/engine/persistent.py:793",
              also_replaces="tryraytrace_tpu/engine/persistent.py:776,1166,"
                            "1265,1450",
-             launches=main_run["service_launches"],
-             progressive_launches=progressive["service_launches"],
-             tiled_launches=tiled["service_launches"],
-             **path_counts("service"),
+             **main_counts("service"), **path_counts("service"),
              **{k: serviced["fresh"][k] for k in keys},
              bytes_ms=serviced["fresh"]["bytes_ms"],
              fp64_ms=serviced["fresh"]["fp64_ms"],
@@ -2668,7 +3060,19 @@ def main() -> int:
                          *((f"main {x}", y) for x, y in serviced.items()),
                          *((f"features {x}", y)
                            for x, y in serviced_features.items()),
-                         *serviced_more.items())})]}))
+                         *serviced_more.items())}),
+        dict(name="wave_advance", route="cuda",
+             source="tryraytrace_tpu_torch/csrc/wave_advance.cu",
+             replaces="tryraytrace_tpu/engine/persistent.py:623,635; "
+                      "tryraytrace_tpu/engine/progressive.py:248",
+             **main_counts("wave"), **path_counts("wave"),
+             features_mt_launches=features_run["mt_wave"],
+             **{k: waved[k] for k in keys},
+             **{k: waved[k] for k in (
+                 "rounds", "rows_fetched", "bytes_ms", "f32_ms", "fp64_ms",
+                 "bound_bytes", "fp64_instructions", "rounds_bound_ms",
+                 "plan", "build")},
+             cases=waved["cases"])]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
 """Where the port's render on a CUDA card departs from its render on the
-CPU: the same wave on both devices, advanced one round at a time, each
-lane-state field compared after every round.
+CPU: the same wave on both devices, advanced one round at a time (on
+the card one wave-kernel launch a round, on the CPU the round loop
+without compaction), each lane-state field compared after every
+round.
 
     python3 scripts/diff_torch_devices.py [--width 64 --height 48]
         [--keys w] [--frames 2]
@@ -27,7 +29,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from tryraytrace_tpu_torch.camera.controller import CameraController  # noqa: E402
 from tryraytrace_tpu_torch.config import RenderConfig  # noqa: E402
-from tryraytrace_tpu_torch.engine.persistent import Wave  # noqa: E402
+from tryraytrace_tpu_torch.engine import persistent  # noqa: E402
 from tryraytrace_tpu_torch.engine.renderer import Renderer  # noqa: E402
 from tryraytrace_tpu_torch.scene.assets import checker_texture  # noqa: E402
 from tryraytrace_tpu_torch.scene.cornell import create_cornell_box  # noqa: E402
@@ -50,9 +52,10 @@ def _ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 def frame(renderers, params, frame_seed: int, cfg: RenderConfig) -> None:
     n = cfg.width * cfg.height
-    waves = [Wave(r.scene, r.inline, params, frame_seed, cfg.width,
-                  cfg.height, cfg, torch.arange(n, device=r.device),
-                  cfg.spp, cfg.spp) for r in renderers]
+    waves = [persistent.Wave(r.scene, r.inline, params, frame_seed,
+                             cfg.width, cfg.height, cfg,
+                             torch.arange(n, device=r.device), cfg.spp,
+                             cfg.spp) for r in renderers]
     first = None
     rnd = 0
     while True:
@@ -110,6 +113,9 @@ def main() -> int:
         cam.update(1.0, set(args.keys))
     params = cam.get_params(args.width, args.height)
     renderers = [Renderer(arrays, cfg=cfg, device=d) for d in ("cuda", "cpu")]
+    # The card's wave kernel keeps every lane in place; the CPU's round
+    # loop here does too, so the states compare lane for lane.
+    persistent.MIN_COMPACT_WIDTH = args.width * args.height
     print(f"{torch.cuda.get_device_name(0)}; {args.width}x{args.height}, "
           f"camera keys {args.keys!r}")
     for f in range(1, args.frames + 1):

@@ -2,7 +2,7 @@
 one checkout, in a process that does nothing else.
 
     python3 scripts/time_torch_step.py [--tree DIR] [--steps 8]
-        [--profile-first]
+        [--profile-first] [--progressive ROUNDS]
 
 Imports ``tryraytrace_tpu_torch`` and ``chip_smoke`` (for the main-path
 scene) from ``DIR`` (default: this checkout), so that a commit and its
@@ -13,8 +13,10 @@ steps, each timed on the host clock and ended by
 ``Renderer.block_until_ready``.  ``--profile-first`` runs one
 torch.profiler session around a tonemap before the warm-up, to see
 whether a profiler session slows the steps that follow it.  Prints one
-JSON line: the step times, rounds, path and shadow rays and rows per
-step, and the image mean.  Needs a CUDA device.
+JSON line: the step times, their median and quartiles, rounds, path and
+shadow rays and rows per step, and the image mean.  ``--progressive
+ROUNDS`` times ``--steps`` frames of an unbounded ProgressiveRenderer
+(ROUNDS rounds a frame, as the app's ticks) instead.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -32,9 +34,13 @@ def main() -> int:
         os.path.abspath(__file__))))
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--profile-first", action="store_true")
+    ap.add_argument("--progressive", type=int, default=0, metavar="ROUNDS",
+                    help="time progressive frames of ROUNDS rounds "
+                         "(ProgressiveRenderer.step) instead of steps")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -50,9 +56,11 @@ def main() -> int:
         print("time_torch_step: no CUDA device", file=sys.stderr)
         return 2
     w, h = chip_smoke.WIDTH, chip_smoke.HEIGHT
+    params = CameraController().get_params(w, h)
+    if args.progressive:
+        return _progressive(args, tree, chip_smoke, params, np, torch)
     r = Renderer(chip_smoke.main_path_arrays(),
                  cfg=RenderConfig(width=w, height=h, spp=1))
-    params = CameraController().get_params(w, h)
     if args.profile_first:
         acc = torch.zeros((w * h, 3), dtype=torch.float32, device="cuda")
         with profile(activities=[ProfilerActivity.CPU,
@@ -72,9 +80,39 @@ def main() -> int:
                               shadow=int(st["n_shadow"]),
                               rows=int(st["rows_fetched"])))
     img = r.image()
+    q1, median, q3 = (float(v) for v in np.percentile(
+        [s["ms"] for s in steps], (25, 50, 75)))
     print(json.dumps({"tree": tree, "profile_first": args.profile_first,
-                      "ms": [s["ms"] for s in steps], "steps": steps,
+                      "ms": [s["ms"] for s in steps], "median_ms": median,
+                      "q1_ms": q1, "q3_ms": q3, "steps": steps,
                       "image_mean": float(img.mean()),
+                      "device": torch.cuda.get_device_name(0)}))
+    return 0
+
+
+def _progressive(args, tree, chip_smoke, params, np, torch) -> int:
+    """``--steps`` frames of ``--progressive`` rounds of an unbounded
+    ProgressiveRenderer on the main path's scene (after one warm-up
+    frame), each timed on the host clock and ended by
+    ``block_until_ready``; one JSON line."""
+    from tryraytrace_tpu_torch.config import RenderConfig
+    from tryraytrace_tpu_torch.engine.progressive import ProgressiveRenderer
+    w, h = chip_smoke.WIDTH, chip_smoke.HEIGHT
+    pr = ProgressiveRenderer(chip_smoke.main_path_arrays(),
+                             cfg=RenderConfig(width=w, height=h))
+    frames = []
+    for i in range(args.steps + 1):
+        t0 = time.perf_counter()
+        pr.step(params, args.progressive)
+        pr.block_until_ready()
+        if i:
+            frames.append(1e3 * (time.perf_counter() - t0))
+    _, counts = pr.snapshot()
+    q1, median, q3 = (float(v) for v in np.percentile(frames, (25, 50, 75)))
+    print(json.dumps({"tree": tree, "progressive_rounds": args.progressive,
+                      "ms": frames, "median_ms": median, "q1_ms": q1,
+                      "q3_ms": q3, "mean_spp": float(counts.mean()),
+                      "rays": pr.rays_traced(),
                       "device": torch.cuda.get_device_name(0)}))
     return 0
 

@@ -13,7 +13,7 @@ from tryraytrace_tpu_torch.config import RenderConfig
 from tryraytrace_tpu_torch.engine.progressive import (UNBOUNDED_SPP,
                                                       ProgressiveRenderer)
 from tryraytrace_tpu_torch.engine.renderer import Renderer
-from tryraytrace_tpu_torch.ops import walk
+from tryraytrace_tpu_torch.ops import walk, wave
 from tryraytrace_tpu_torch.scene.assets import checker_texture, cube_mesh
 from tryraytrace_tpu_torch.scene.cornell import create_cornell_box
 from tryraytrace_tpu_torch.scene.model import Object, Scene, flatten_scene
@@ -233,8 +233,9 @@ def test_matches_jax_progressive_renderer(arrays):
 
 @pytest.mark.cuda
 def test_cuda_capped_progressive_matches_batch():
-    """On the card: the capped wave runs the walk kernel every round and
-    its sums and ray counts equal the batch Renderer's bit for bit."""
+    """On the card: the capped wave runs one wave-kernel launch a call
+    (and no walk kernel) and its sums and ray counts equal the batch
+    Renderer's bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("the CUDA walk kernel runs only on a CUDA device")
     arrays = flatten_scene(_scene(create_cornell_box, cube_mesh, Object),
@@ -247,13 +248,18 @@ def test_cuda_capped_progressive_matches_batch():
     st = r.last_stats
     pr = ProgressiveRenderer(arrays, cfg=RenderConfig(width=w, height=h),
                              spp_cap=CAP, frame_seed=FRAME, seed_spp=CAP)
-    before = walk.quad_walk_cuda.launches
+    before = (wave.wave_advance_cuda.launches, walk.quad_walk_cuda.launches)
+    calls = 0
     for iters in range(1, 100):
         pr.step(cam, iters)
+        calls += 1
         pr.snapshot()
         if pr.done():
             break
-    assert walk.quad_walk_cuda.launches - before == pr.wave.rounds > 0
+    assert wave.wave_advance_cuda.launches - before[0] == calls > 1
+    assert walk.quad_walk_cuda.launches == before[1]
+    # Every call but the last ran its whole budget of 1, 2, 3, ... rounds.
+    assert sum(range(1, calls)) < pr.wave.rounds <= sum(range(1, calls + 1))
     accum, counts = pr.snapshot()
     assert (counts == CAP).all()
     assert torch.equal(torch.from_numpy(accum), r.state.accum.cpu())

@@ -14,6 +14,7 @@ from tryraytrace_tpu_torch.camera.controller import CameraController
 from tryraytrace_tpu_torch.config import RenderConfig
 from tryraytrace_tpu_torch.engine import persistent
 from tryraytrace_tpu_torch.engine.renderer import Renderer
+from tryraytrace_tpu_torch.ops import wave
 from tryraytrace_tpu_torch.scene.assets import checker_texture, cube_mesh
 from tryraytrace_tpu_torch.scene.cornell import create_cornell_box
 from tryraytrace_tpu_torch.scene.model import Object, Scene, flatten_scene
@@ -237,6 +238,19 @@ def test_matches_jax_renderer_and_ray_counts():
     assert _mse(plain.numpy().reshape(want.shape) / 2, want / 2) < MSE_EXPECT
     assert int(stats["n_traced"]) == int(tr)
     assert int(stats["n_shadow"]) == int(sh)
+    # The plain version of the card's wave kernel (ops/wave.py: every
+    # lane's rounds, no compaction) on the same frame: the same image and
+    # counts, in the round loop's rounds.
+    wv = persistent.Wave(r.scene, r.inline, CameraController().get_params(
+        40, 30), 1, 40, 30, r.cfg, torch.arange(40 * 30), 2, 2)
+    ran, live = wave.wave_advance_plain(wv.state, r.inline, wv._fr,
+                                        wv.totals, wv.rows_fetched)
+    assert live == 0 and ran == r.last_stats["iterations"]
+    sums = wv.state["out"].numpy().reshape(want.shape)
+    assert _mse(sums / 2, want / 2) < MSE_EXPECT
+    assert sums.tobytes() == got.tobytes()
+    assert int(wv.totals[0]) == int(tr) and int(wv.totals[1]) == int(sh)
+    assert int(wv.rows_fetched) == int(r.last_stats["rows_fetched"])
 
 
 def test_default_device_is_the_card_and_raises_without_one():

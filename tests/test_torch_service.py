@@ -552,9 +552,10 @@ def _kernels(fn) -> list:
 
 @pytest.mark.cuda
 def test_cuda_round_launches_nothing_for_its_counts(sphere_obj):
-    """A round that does not compact launches the walk wrapper's kernels,
-    the service kernel and the add of the walk's rows, and nothing for
-    the ray totals or the live count."""
+    """A round of the two-kernel round loop (the route ``round_fn=
+    _round_quad`` takes on a card) that does not compact launches the
+    walk wrapper's kernels, the service kernel and the add of the walk's
+    rows, and nothing for the ray totals or the live count."""
     _need_card()
     arrays = _arrays(sphere_obj, True, 1)
     cfg = RenderConfig(width=WAVE_W, height=WAVE_H, spp=SPP_CAP)
@@ -563,7 +564,7 @@ def test_cuda_round_launches_nothing_for_its_counts(sphere_obj):
     n = WAVE_W * WAVE_H
     wave = persistent.Wave(r.scene, r.inline, cam, FRAME, WAVE_W, WAVE_H,
                            cfg, torch.arange(n, device="cuda"), SPP_CAP,
-                           SEED_SPP)
+                           SEED_SPP, persistent._round_quad)
     wave.advance(1)  # builds the service parameters and the walk's plan
     state = {key: val.clone() for key, val in wave.state.items()}
     in_round = _kernels(lambda: wave.advance(1))

@@ -19,7 +19,7 @@ from tryraytrace_tpu_torch.config import RenderConfig
 from tryraytrace_tpu_torch.engine import state
 from tryraytrace_tpu_torch.engine.renderer import Renderer
 from tryraytrace_tpu_torch.io import snapshot
-from tryraytrace_tpu_torch.ops import walk
+from tryraytrace_tpu_torch.ops import walk, wave
 from tryraytrace_tpu_torch.scene.assets import checker_texture
 from tryraytrace_tpu_torch.scene.cornell import create_cornell_box
 from tryraytrace_tpu_torch.scene.model import flatten_scene
@@ -198,7 +198,7 @@ def test_save_snapshot_writes_the_jax_packages_bytes(tmp_path, monkeypatch):
 
 @pytest.mark.cuda
 def test_cuda_step_tiled_bit_identical_and_image_paths(arrays):
-    """On the card: tiled waves run the walk kernel and equal step bit for
+    """On the card: tiled waves run the wave kernel and equal step bit for
     bit; the three image paths agree."""
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernels run only on a CUDA device")
@@ -208,10 +208,12 @@ def test_cuda_step_tiled_bit_identical_and_image_paths(arrays):
     r1 = Renderer(arrays, cfg=cfg)
     r1.step(params)
     r2 = Renderer(arrays, cfg=cfg)
-    before = walk.quad_walk_cuda.launches
+    before = (wave.wave_advance_cuda.launches, walk.quad_walk_cuda.launches)
     r2.step_tiled(params, 4)
-    assert (walk.quad_walk_cuda.launches - before
-            == r2.last_stats["iterations"] > 0)
+    # One wave-kernel launch a tile, and no walk kernel.
+    assert wave.wave_advance_cuda.launches - before[0] == 4
+    assert walk.quad_walk_cuda.launches == before[1]
+    assert r2.last_stats["iterations"] > 0
     assert torch.equal(r2.state.accum, r1.state.accum)
     for key in ("n_traced", "n_shadow", "rows_fetched"):
         assert int(r2.last_stats[key]) == int(r1.last_stats[key])

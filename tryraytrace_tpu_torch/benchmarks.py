@@ -113,8 +113,8 @@ def run_progressive(name: str, frames: int = 10, device="cuda") -> dict:
     1-spp-equivalent frame (the mean per-pixel sample count advancing by
     1 is one reference frame's worth of work, main.cpp:181).
 
-    A frame's budget is in rounds (one walk launch and one service pass
-    each), calibrated to ~1 mean sample per frame from a warm-up
+    A frame's budget is in rounds (a lane's walk and one service each),
+    calibrated to ~1 mean sample per frame from a warm-up
     probe."""
     arrays, w, h, _spp, _ = build_config(name)
     cfg = RenderConfig(width=w, height=h, spp=1)

@@ -173,8 +173,8 @@ class ProgressiveApp(App):
     pixels converge faster); the display normalizes each pixel by its
     own completed-sample count.
 
-    ``iters_per_frame`` is the budget in rounds (one walk launch and one
-    service pass each), not the JAX class's row-fetch iterations.
+    ``iters_per_frame`` is the budget in rounds (a lane's walk and one
+    service each), not the JAX class's row-fetch iterations.
     ``0`` (default) adapts it so the MEAN per-pixel sample count
     advances ~1 per displayed frame -- the reference's
     1-spp-per-frame pacing (main.cpp:181) at whatever wall-clock the

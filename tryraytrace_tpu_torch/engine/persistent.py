@@ -16,18 +16,24 @@ and every step fetches ONE row per lane from the unified table
 a walking lane, its hit's material row for a SHADEG lane, its texture
 tile row for a TEXG lane.
 
-``render_frame_persistent`` runs it in rounds, on every device: one call
-of ``quad_walk`` (ops/walk.py) runs every TRAVERSE and SHADOW lane's
-walk to its end, then one service pass serves every SHADEG, TEXG and
-REFILL lane once (a row fetch, shade, texture, refill).  For CUDA
-tensors each is one launch of a hand-written kernel (ops/walk.py,
-ops/service.py), for CPU tensors its plain version: ``walk_plain``,
-and ``service_plain``, the eager service block of this module.  Rounds
-repeat until every lane is DONE.  The loop is a ``Wave``: its
-lane state lives across calls, it advances by a given number of rounds
-and is read without being consumed, so the progressive engine
-(engine/progressive.py) and tiled steps (a wave over a pixel subset)
-run the same code as a batch frame.
+``render_frame_persistent`` runs it in rounds: in a round, every
+TRAVERSE and SHADOW lane's walk runs to its end, then one service pass
+serves every SHADEG, TEXG and REFILL lane once (a row fetch, shade,
+texture, refill).  Rounds repeat until every lane is DONE.  The loop is
+a ``Wave``: its lane state lives across calls, it advances by a given
+number of rounds and is read without being consumed, so the progressive
+engine (engine/progressive.py) and tiled steps (a wave over a pixel
+subset) run the same code as a batch frame.  On a card a
+``Wave.advance`` is one launch of a hand-written kernel
+(ops/wave.py ``wave_advance_cuda``: the call's rounds, each the walks,
+a grid-wide barrier and the services, over the lanes still live), and
+the host reads the rounds run and the live count at its end.  On the CPU it is the round
+loop: one call of ``quad_walk`` (ops/walk.py; ``walk_plain``) runs every
+walk to its end, then ``service_plain``, the eager service block of this
+module, serves every lane; ``_round_quad`` is that round, which on a
+card launches the walk and service kernels (ops/walk.py,
+ops/service.py), a route the tests and the smoke run take by passing it
+as ``round_fn``.
 
 ``render_frame_interleaved`` is the plain version of the whole: a Python
 ``while`` over eager tensor steps, each of which advances every walking
@@ -43,13 +49,14 @@ Two further liberties are exact too: the interleaved loop checks for a
 live lane every ``LIVE_CHECK_EVERY`` steps (a DONE lane's step changes
 nothing), and once at most half the lanes are live both loops keep only
 the live ones (a lane permutation, the eager counterpart of the JAX
-spill ladder).
+spill ladder).  The card's wave kernel keeps the state in place and
+lists the live lanes on the device each round instead.
 
 The ray counters are int64.  A wave keeps them, with the live-lane
 count of its last round, in one device tensor (ops/service.py
-``TOTALS``) that every round adds to where it runs: on a card the
-service kernel does, so a round launches nothing for its counts and the
-host reads one number a round.
+``TOTALS``) that every round adds to where it runs: on a card the wave
+kernel (or the service kernel) does, so nothing is launched for the
+counts.
 """
 
 from __future__ import annotations
@@ -73,6 +80,7 @@ from tryraytrace_tpu_torch.ops.traverse import MISS_T
 from tryraytrace_tpu_torch.ops.walk import (DONE, REFILL, SHADEG, SHADOW,
                                             TEXG, TRAVERSE, quad_walk,
                                             walk_index, walk_step)
+from tryraytrace_tpu_torch.ops.wave import wave_advance_cuda
 
 # Steps between checks for a live lane (each check waits for the
 # device); DONE lanes are no-ops, so overshooting is exact.
@@ -203,8 +211,8 @@ def render_frame_persistent(scene, inline: InlineTable, cam, frame_seed: int,
                             seed_spp: int | None = None):
     """All ``spp`` samples of one frame in one regenerating wave on the
     scene's device, one lane per pixel, in rounds: every walk run to its
-    end, then one service pass (on a CUDA device, one launch each of the
-    walk and service kernels).
+    end, then one service pass (on a CUDA device, all of them in one
+    launch of the wave kernel).
     ``inline`` is the scene's ``build_inline_table``; ``cam`` a
     CameraParams (NumPy or tensors); ``pixels`` the pixel ids to render
     (an int64 tensor on the scene's device; all ``width * height`` by
@@ -218,7 +226,7 @@ def render_frame_persistent(scene, inline: InlineTable, cam, frame_seed: int,
     ``iterations`` (rounds) and ``rows_fetched`` (int64 tensor: quad
     rows the walks fetched)."""
     return _render_frame(scene, inline, cam, frame_seed, width, height, cfg,
-                         spp, pixels, _round_quad, 1, sample_offset,
+                         spp, pixels, None, 1, sample_offset,
                          spp if seed_spp is None else seed_spp)
 
 
@@ -251,18 +259,22 @@ class Wave:
     ``sample_seed(frame_seed, seed_spp, sample_offset + sample)``) and
     retires once the pixel has ``spp_cap`` of them.
 
-    ``advance`` runs rounds of ``round_fn`` (``_round_quad``, the
-    default: the walks, then a service pass, a kernel launch each on a
-    card; or ``_step_quad``, the interleaved loop's step), looking for a
-    live lane every ``check_every`` of them; once at most half the lanes
-    are live and the wave is wider than ``MIN_COMPACT_WIDTH`` it keeps
-    only the live ones and holds the retired lanes' sums and counts
-    itself.  A round adds its rays to ``totals`` (ops/service.py
-    ``TOTALS``) and leaves its live-lane count in the slot of its
-    parity, which is all the host reads of it.  ``read`` gives the
-    per-pixel sums and completed-sample counts and leaves the wave as it
-    was, so a wave advanced in several calls ends where one call takes
-    it."""
+    On a card, by default, ``advance`` is one launch of the wave kernel
+    (ops/wave.py ``wave_advance_cuda``), which runs the rounds in place
+    and adds their rays to ``totals`` (ops/service.py ``TOTALS``) and
+    their rows to ``rows_fetched``; the host reads the rounds run and
+    the live count, and the state keeps every lane in its place.  A failed build or launch raises.  Otherwise (on the CPU,
+    or given a ``round_fn``) ``advance`` runs rounds of ``round_fn``
+    (``_round_quad``, the CPU's default: the walks, then a service pass,
+    a kernel launch each on a card; or ``_step_quad``, the interleaved
+    loop's step), looking for a live lane every ``check_every`` of them;
+    once at most half the lanes are live and the wave is wider than
+    ``MIN_COMPACT_WIDTH`` it keeps only the live ones and holds the
+    retired lanes' sums and counts itself.  A round leaves its live-lane
+    count in the totals' slot of its parity, which is all the host reads
+    of it.  ``read`` gives the per-pixel sums and completed-sample
+    counts and leaves the wave as it was, so a wave advanced in several
+    calls ends where one call takes it."""
 
     def __init__(self, scene, inline: InlineTable, cam, frame_seed: int,
                  width: int, height: int, cfg: RenderConfig, pixels,
@@ -272,7 +284,9 @@ class Wave:
         dev = scene.quad_table.device
         frame_seed = int(frame_seed) & rng.MASK32
         cam = cam.to(dev)
-        self._round = round_fn or _round_quad
+        # None: the wave kernel, one launch an advance (the card's default).
+        self._round = (round_fn if round_fn is not None
+                       else _round_quad if dev.type == "cpu" else None)
         self._check_every = check_every
         self._fr = _Frame(scene, inline, cfg, cam, frame_seed, width, height,
                           int(spp_cap), int(seed_spp), int(sample_offset))
@@ -296,6 +310,19 @@ class Wave:
         of them.  Returns whether every lane is DONE."""
         fr = self._fr
         passes = max(1, fr.cfg.quad_redirect_passes)
+        if self._round is None:
+            if self.done or (max_rounds is not None and max_rounds < 1):
+                return self.done
+            if fr.service is None:
+                fr.service = service_params(fr)
+            ran, live = wave_advance_cuda(
+                self.state, fr.inline, fr.service, self.totals,
+                self.rows_fetched, max_rounds, k=fr.scene.leaf_size,
+                fmt=fr.scene.leaf_fmt, passes=passes,
+                rounds_before=self.rounds)
+            self.rounds += ran
+            self.done = live == 0
+            return self.done
         ran = 0
         while not self.done and (max_rounds is None or ran < max_rounds):
             slot = self.rounds % 2
@@ -343,9 +370,11 @@ class Wave:
         return self.totals[1].clone()
 
     def stats(self) -> dict:
-        """Rays and rows so far (int64 tensors) and rounds run."""
+        """Rays and rows so far (int64 tensors, copies: the wave kernel
+        adds to the wave's own) and rounds run."""
         return dict(n_traced=self.n_traced, n_shadow=self.n_shadow,
-                    iterations=self.rounds, rows_fetched=self.rows_fetched)
+                    iterations=self.rounds,
+                    rows_fetched=self.rows_fetched.clone())
 
 
 def _step_quad(s, inline: InlineTable, k: int, fr: _Frame,

@@ -105,8 +105,9 @@ class ProgressiveRenderer:
         DONE (finite cap only).  ``cam_params`` must be constant since
         the last ``reset()``.
 
-        A round is one walk (the CUDA walk kernel on a card) plus one
-        service pass; the JAX class's ``iters`` counts while-loop
+        A round is a lane's walk to its end plus one service (on a card
+        the whole call is one launch of the wave kernel, ops/wave.py);
+        the JAX class's ``iters`` counts while-loop
         iterations of one row fetch per lane.  So the per-pixel counts
         after k calls differ between the two packages; the sums under a
         finite cap, once ``done()``, do not."""

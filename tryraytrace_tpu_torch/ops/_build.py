@@ -4,7 +4,8 @@ kernels.
 Each kernel source under ``csrc/`` has a plain C interface and no
 PyTorch header, so nvcc compiles it in seconds.  A ``KernelLibrary``
 compiles its source into ``build/kernels/`` (listed in .gitignore)
-under a name that carries a hash of the source and the flags, loads it
+under a name that carries a hash of the source, of every device-code
+header beside it (``csrc/*.cuh``) and of the flags, loads it
 with ctypes and declares the argument types of its entry points
 (``c_void_p`` for every pointer and for the stream: an undeclared
 pointer would be cut to 32 bits).  Nothing is built when a module is
@@ -20,6 +21,7 @@ stay IEEE.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -32,6 +34,13 @@ BUILD_DIR = os.path.join(os.path.dirname(_ROOT), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 BUILD_TIMEOUT_S = 600
+
+
+def headers() -> list:
+    """The device-code headers beside the kernel sources (``csrc/*.cuh``),
+    which a source may include: a library's name hashes all of them, so
+    an edit to one never loads a library built before it."""
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
 
 
 def nvcc() -> str:
@@ -67,9 +76,12 @@ class KernelLibrary:
         self._t0 = None
 
     def _target(self) -> str:
-        with open(self.source, "rb") as f:
-            tag = hashlib.sha1(f.read() + " ".join(self.flags).encode()
-                               ).hexdigest()[:12]
+        digest = hashlib.sha1()
+        for path in (self.source, *headers()):
+            with open(path, "rb") as f:
+                digest.update(f.read())
+        digest.update(" ".join(self.flags).encode())
+        tag = digest.hexdigest()[:12]
         return os.path.join(BUILD_DIR, f"libtrt_{self.name}_{tag}.so")
 
     def start_build(self) -> None:

@@ -150,26 +150,20 @@ def _check_layout(lib) -> None:
                            f"packs {want}")
 
 
-def service_pass_cuda(s, inline, params: ServiceParams, totals, slot: int):
-    """Launch the service kernel on the current stream.
-
-    ``s`` holds the engine's lane state (engine/persistent.py
-    ``init_lane_ctx``) on the table's CUDA device.  Every field in
-    ``FIELDS`` must have its engine dtype and shape and be contiguous
-    (``tstash`` only with textures); a field that is not raises, and
-    none is copied.  After a compaction ``Wave.advance`` indexes the
-    state, which gives contiguous fields.  ``params`` is the wave's
-    ``service_params``.  ``totals`` is the wave's int64 tensor of
-    ``TOTALS`` on the same device: the pass adds the path rays it starts
-    and the shadow rays it fires to the first two, adds the count of
-    lanes not DONE after it to ``totals[LIVE + slot]`` (which must be 0)
-    and zeroes ``totals[LIVE + 1 - slot]``; nothing else is launched.
-    The pass writes the state in place: the returned state is ``s``
-    itself, and the caller keeps no copy of the state before the pass."""
+def state_pointers(s, inline, params: ServiceParams, totals,
+                   who: str) -> list:
+    """The device pointers a service kernel takes, in its order (the
+    unified table, the light rows, the texture metas, the state fields
+    of ``FIELDS``, the totals), after refusing for the wrapper ``who``
+    what it cannot take: tensors off the table's CUDA device, a field
+    with another dtype or shape or not contiguous (``tstash`` only with
+    textures; a null pointer without), ``params`` packed for another
+    table, totals that are not ``TOTALS``' int64 [4].  Waits for nothing
+    on the device."""
     table = inline.table
     dev = table.device
     if dev.type != "cuda":
-        raise ValueError(f"service_pass_cuda needs CUDA tensors, got {dev}")
+        raise ValueError(f"{who} needs CUDA tensors, got {dev}")
     if table is not params.table:
         raise ValueError("params were packed for another table")
     if (table.dim() != 2 or table.dtype != torch.float32
@@ -201,6 +195,28 @@ def service_pass_cuda(s, inline, params: ServiceParams, totals, slot: int):
             or not totals.is_contiguous()):
         raise ValueError(f"totals must be a contiguous int64 tensor of shape "
                          f"({len(TOTALS)},) on {dev}")
+    ptrs.append(totals.data_ptr())
+    return ptrs
+
+
+def service_pass_cuda(s, inline, params: ServiceParams, totals, slot: int):
+    """Launch the service kernel on the current stream.
+
+    ``s`` holds the engine's lane state (engine/persistent.py
+    ``init_lane_ctx``) on the table's CUDA device.  Every field in
+    ``FIELDS`` must have its engine dtype and shape and be contiguous
+    (``tstash`` only with textures); a field that is not raises, and
+    none is copied.  After a compaction ``Wave.advance`` indexes the
+    state, which gives contiguous fields.  ``params`` is the wave's
+    ``service_params``.  ``totals`` is the wave's int64 tensor of
+    ``TOTALS`` on the same device: the pass adds the path rays it starts
+    and the shadow rays it fires to the first two, adds the count of
+    lanes not DONE after it to ``totals[LIVE + slot]`` (which must be 0)
+    and zeroes ``totals[LIVE + 1 - slot]``; nothing else is launched.
+    The pass writes the state in place: the returned state is ``s``
+    itself, and the caller keeps no copy of the state before the pass."""
+    ptrs = state_pointers(s, inline, params, totals, "service_pass_cuda")
+    w = s["mode"].shape[0]
     if slot not in (0, 1):
         raise ValueError(f"live slot {slot} is not 0 or 1")
     library = LIBRARY
@@ -208,12 +224,11 @@ def service_pass_cuda(s, inline, params: ServiceParams, totals, slot: int):
     if library not in _checked:
         _check_layout(lib)
         _checked.add(library)
-    ptrs.append(totals.data_ptr())
     host_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     floats = np.ascontiguousarray(params.floats, np.float32)
     ints = np.ascontiguousarray(params.ints, np.int64)
     if w > 0:
-        with torch.cuda.device(dev):
+        with torch.cuda.device(inline.table.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.trt_service_launch(floats.ctypes.data, ints.ctypes.data,
                                          ctypes.addressof(host_ptrs), w,

@@ -205,22 +205,68 @@ _PLAN = ("staged_rows", "shared_bytes", "grid", "blocks_per_sm", "threads")
 _plans = {}
 
 
-def _plan(library, lib, dev, regs: int, fmt: str, width: int, sentinel: int,
-          levels: tuple) -> dict:
+def launch_plan(library, plan_fn, dev, regs: int, fmt: str, width: int,
+                sentinel: int, levels: tuple) -> dict:
+    """The launch plan of a kernel over walk-order rows (``plan_fn``, its
+    library's ``trt_..._plan`` entry point; this kernel's or the wave
+    kernel's), worked out once per (library, device, regs, leaf format,
+    width, sentinel, levels)."""
     key = (library.path, dev.index, regs, fmt, width, sentinel, levels)
     if key not in _plans:
         host_levels = (ctypes.c_longlong * max(1, len(levels)))(*levels)
-        plan = (ctypes.c_int * len(_PLAN))()
+        out = (ctypes.c_int * len(_PLAN))()
         with torch.cuda.device(dev):
-            err = lib.trt_quad_walk_plan(sentinel, width, regs,
-                                         LEAF_FORMATS[fmt],
-                                         ctypes.addressof(host_levels),
-                                         len(levels), ctypes.addressof(plan))
+            err = plan_fn(sentinel, width, regs, LEAF_FORMATS[fmt],
+                          ctypes.addressof(host_levels), len(levels),
+                          ctypes.addressof(out))
         if err != 0:
-            raise RuntimeError(f"quad_walk kernel cannot be planned: CUDA "
-                               f"error {err}")
-        _plans[key] = dict(zip(_PLAN, plan))
+            raise RuntimeError(f"{library.name} kernel cannot be planned: "
+                               f"CUDA error {err}")
+        _plans[key] = dict(zip(_PLAN, out))
     return _plans[key]
+
+
+def check_table(table, sentinel: int, k: int, fmt: str, levels,
+                who: str) -> tuple:
+    """Refuse, for the wrapper ``who``, a walk-order table the walk's
+    device code cannot take (see ``quad_walk_cuda``); returns (row width,
+    levels as a tuple of ints)."""
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError(f"{who} needs CUDA tensors, got {dev}")
+    if (table.dim() != 2 or table.dtype != torch.float32
+            or not table.is_contiguous()):
+        raise ValueError("table must be a contiguous [rows, width] float32 "
+                         "tensor")
+    width = table.shape[1]
+    if width % 4 or table.data_ptr() % 16:
+        raise ValueError(f"the kernel reads 16-byte rows: a row of {width} "
+                         "floats, or a table not 16-byte aligned, is not "
+                         "one (walk_order_table pads the rows)")
+    if not 0 < sentinel <= table.shape[0]:
+        raise ValueError(f"sentinel {sentinel} outside the table's "
+                         f"{table.shape[0]} rows")
+    if fmt not in LEAF_FORMATS:
+        raise ValueError(f"unknown leaf format {fmt!r} (the kernel is "
+                         f"built for {sorted(LEAF_FORMATS)})")
+    if k < 1 or quad_row_width(k, fmt) > width:
+        raise ValueError(f"rows of {width} floats cannot hold quad rows "
+                         f"with {k} {fmt!r} triangles per leaf")
+    levels = tuple(int(v) for v in levels)
+    if min(levels, default=0) < 0 or sum(levels) > sentinel:
+        raise ValueError(f"levels {list(levels)} are not the top of a tree "
+                         f"of {sentinel} rows")
+    return width, levels
+
+
+def state_regs(s) -> int:
+    """The skip registers of lane state ``s`` (``reg_e``'s columns, 0
+    without it), refused unless the kernels are built for that count."""
+    regs = s["reg_e"].shape[1] if "reg_e" in s else 0
+    if regs not in KERNEL_REGS:
+        raise ValueError(f"the kernel is built for {KERNEL_REGS} skip "
+                         f"registers, the state has {regs}")
+    return regs
 
 
 def quad_walk_cuda(s, table, sentinel: int, k: int, passes: int = 1,
@@ -249,34 +295,9 @@ def quad_walk_cuda(s, table, sentinel: int, k: int, passes: int = 1,
     ``quad_walk_cuda.plan``.  Returns (state', rows fetched as an int64
     tensor)."""
     dev = table.device
-    if dev.type != "cuda":
-        raise ValueError(f"quad_walk_cuda needs CUDA tensors, got {dev}")
-    if (table.dim() != 2 or table.dtype != torch.float32
-            or not table.is_contiguous()):
-        raise ValueError("table must be a contiguous [rows, width] float32 "
-                         "tensor")
-    width = table.shape[1]
-    if width % 4 or table.data_ptr() % 16:
-        raise ValueError(f"the kernel reads 16-byte rows: a row of {width} "
-                         "floats, or a table not 16-byte aligned, is not "
-                         "one (walk_order_table pads the rows)")
-    if not 0 < sentinel <= table.shape[0]:
-        raise ValueError(f"sentinel {sentinel} outside the table's "
-                         f"{table.shape[0]} rows")
-    if fmt not in LEAF_FORMATS:
-        raise ValueError(f"unknown leaf format {fmt!r} (the kernel is "
-                         f"built for {sorted(LEAF_FORMATS)})")
-    if k < 1 or quad_row_width(k, fmt) > width:
-        raise ValueError(f"rows of {width} floats cannot hold quad rows "
-                         f"with {k} {fmt!r} triangles per leaf")
-    levels = tuple(int(v) for v in levels)
-    if min(levels, default=0) < 0 or sum(levels) > sentinel:
-        raise ValueError(f"levels {list(levels)} are not the top of a tree "
-                         f"of {sentinel} rows")
-    regs = s["reg_e"].shape[1] if "reg_e" in s else 0
-    if regs not in KERNEL_REGS:
-        raise ValueError(f"the kernel is built for {KERNEL_REGS} skip "
-                         f"registers, the state has {regs}")
+    width, levels = check_table(table, sentinel, k, fmt, levels,
+                                "quad_walk_cuda")
+    regs = state_regs(s)
     w = s["mode"].shape[0]
     for name, dtype, cols in _FIELDS:
         t = s[name]
@@ -298,8 +319,8 @@ def quad_walk_cuda(s, table, sentinel: int, k: int, passes: int = 1,
         out[name] = s[name].clone()
     counters = torch.zeros(2, dtype=torch.int64, device=dev)
     if w > 0:
-        plan = dict(_plan(library, lib, dev, regs, fmt, width, sentinel,
-                          levels))
+        plan = dict(launch_plan(library, lib.trt_quad_walk_plan, dev, regs,
+                                fmt, width, sentinel, levels))
         plan["grid"] = min(plan["grid"], -(-w // plan["threads"]))
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
