@@ -79,12 +79,16 @@ the two-kernel round loop on the card (quad_walk_cuda, then
 service_pass_cuda, a round, no compaction), every state field, the
 four totals, the rows and the rounds bit for bit, on the main path's
 1200x800 1-spp step (and to its plain version, ops/wave.py
-wave_advance_plain, field for field), on a progressive wave advanced in
+wave_advance_plain, field for field), on that step in calls that end
+in its grid-wide rounds, at the switch to the kernel's sparse tail and
+inside it (equal to one call), on a progressive wave advanced in
 calls of 1, 3 and 8 rounds (equal to one call of 12), on a tiled
 wave's strip, on the [features] path's renderer ("mt" leaves, SBVH,
 smooth normals, UVs, textures) and on a 1200x800 frame with "mt" leaves,
 smooth normals, UVs, textures, 17 lights and two trimat rows a table
-row; it times the kernel on the main step and gives its bound.
+row; it times the kernel on the main step and gives its bounds (the
+byte bound, the round loop's, and the rounds' latency floor: each
+round's longest walk times [fetch]'s one-warp dependent step).
 ``[service]`` holds the service kernel to its plain version
 (persistent.service_plain, the eager service block) on each of the walk
 kernel's six states just after its walk
@@ -152,6 +156,7 @@ rate; its entry also gives both times apart (``bytes_ms``,
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import importlib.util
 import io
@@ -340,6 +345,10 @@ def ptxas_numbers(compiler_log: str, kernel: str) -> dict:
             used = next(m for m in (re.search(r"Used (\d+) registers", x)
                                     for x in lines[k + 1:]) if m)
             out["registers"] = int(used.group(1))
+            cumulative = re.search(r"(\d+) bytes cumulative stack size",
+                                   used.string)
+            if cumulative:
+                out["cumulative_stack_bytes"] = int(cumulative.group(1))
     return out
 
 
@@ -382,6 +391,24 @@ def kernel_builds(lib, kernel: str) -> dict:
                           readonly_loads=sum(
                               "LDG" in line and "CONSTANT" in line
                               for line in listing.get(name, [])))
+    return out
+
+
+def wave_builds(lib) -> dict:
+    """kernel_builds of the wave kernel's instances, each with the blocks
+    of 256 threads an SM holds by its registers (its plan for a one-row
+    table with nothing staged)."""
+    out = kernel_builds(lib, "wave_advance_kernel")
+    for label, nums in out.items():
+        m = re.search(r"<Li(\d+)ELi(\d+)>", label)
+        plan = (ctypes.c_int * 5)()
+        levels = (ctypes.c_longlong * 1)(0)
+        err = lib.handle.trt_wave_advance_plan(1, 64, int(m.group(1)),
+                                               int(m.group(2)), levels, 0,
+                                               plan)
+        if err != 0:
+            raise RuntimeError(f"wave plan failed: CUDA error {err}")
+        nums["blocks_an_sm"] = plan[3]
     return out
 
 
@@ -433,10 +460,11 @@ def phase_environment() -> str:
     for label, nums in fetch_builds(fetch.LIBRARY).items():
         log(f"[build] fetch_chain_kernel {label}: {nums}")
     for lib, kernel in ((walk.LIBRARY, "quad_walk_kernel"),
-                        (service.LIBRARY, "service_pass_kernel"),
-                        (wave.LIBRARY, "wave_advance_kernel")):
+                        (service.LIBRARY, "service_pass_kernel")):
         for name, nums in kernel_builds(lib, kernel).items():
             log(f"[build] {name}: {nums}")
+    for name, nums in wave_builds(wave.LIBRARY).items():
+        log(f"[build] {name}: {nums}")
     log(f"[build] all kernels in {time.perf_counter() - t0:.3f} s")
     return smi
 
@@ -2197,6 +2225,28 @@ def state_bytes_once(s, textured: bool) -> int:
     return (2 * per_lane - 8) * live + 8 * (s["mode"].numel() - live)
 
 
+def longest_quad_walk(s, r: Renderer, passes: int) -> tuple:
+    """(rows, longest): the rows that the walks of state ``s`` fetch and
+    its longest walk in rows, by the plain walk (walk_index, walk_step)
+    over the walking lanes alone (the lanes are independent): one fetch
+    of every walking lane's row a step, so the steps are the longest
+    walk.  ``s`` is left as it was."""
+    mode = s["mode"]
+    lanes = torch.nonzero((mode == walk.TRAVERSE) | (mode == walk.SHADOW))
+    sub = {key: val[lanes[:, 0]] for key, val in s.items()}
+    table, sentinel = r.inline.walk, r.inline.sentinel
+    rows = steps = 0
+    while True:
+        idx, stepping = walk.walk_index(sub, sentinel)
+        n = int(stepping.sum())
+        if n == 0:
+            return rows, steps
+        rows += n
+        steps += 1
+        sub = walk.walk_step(sub, table[idx], sentinel, r.scene.leaf_size,
+                             passes, fmt=r.scene.leaf_fmt)
+
+
 def two_kernel_rounds(r: Renderer, fr, s, totals, rows, budget,
                       rounds_before: int, work=None) -> tuple:
     """The two-kernel round loop on the card as ``Wave.advance`` runs it
@@ -2206,9 +2256,11 @@ def two_kernel_rounds(r: Renderer, fr, s, totals, rows, budget,
     rounds (None: no budget).  Updates ``totals`` and ``rows``; returns
     (state, rounds run, lanes live).  With ``work`` (a list), each round
     appends what [walk] and [service] count for their bounds: the walk's
-    rows and state bytes (walk_state_bytes), the pass's bytes
+    rows, its longest walk (longest_quad_walk, which must fetch the same
+    rows) and state bytes (walk_state_bytes), the pass's bytes
     (service_state_bytes) and double calls (service_work), and the
-    triangles and tile rows the pass reads."""
+    triangles and tile rows the pass reads, and the lanes it leaves
+    live."""
     inline = r.inline
     passes = max(1, r.cfg.quad_redirect_passes)
     ran = 0
@@ -2221,11 +2273,15 @@ def two_kernel_rounds(r: Renderer, fr, s, totals, rows, budget,
                                         fmt=r.scene.leaf_fmt)
         rows += n
         if work is not None:
+            plain_rows, longest = longest_quad_walk(s, r, passes)
+            if plain_rows != int(n):
+                raise AssertionError(f"[wave] the plain walks fetch "
+                                     f"{plain_rows} rows, the kernel {int(n)}")
             want, _, sw = service_work(walked, fr)
             mode = walked["mode"]
             shadeg = (mode == walk.SHADEG) & (walked["hit_id"] >= 0)
             work.append(dict(
-                walk_rows=int(n),
+                walk_rows=int(n), longest_walk=longest,
                 walk_bytes=walk_state_bytes(
                     modes[walk.TRAVERSE], modes[walk.SHADOW],
                     mode.numel() - modes[walk.TRAVERSE] - modes[walk.SHADOW]),
@@ -2237,12 +2293,14 @@ def two_kernel_rounds(r: Renderer, fr, s, totals, rows, budget,
         s = service.service_pass_cuda(walked, inline, fr.service, totals,
                                       slot)
         live = int(totals[service.LIVE + slot])
+        if work is not None:
+            work[-1]["live"] = live
         ran += 1
     return s, ran, live
 
 
-def wave_bound(s0, work, r: Renderer, fr) -> dict:
-    """Two bounds of the main step's wave kernel.  ``bound_ms``: the
+def wave_bound(s0, work, r: Renderer, fr, latency_ns: float) -> dict:
+    """Three bounds of the main step's wave kernel.  ``bound_ms``: the
     least time the card could take for the step's work, the larger of
     its bytes (every lane's state read and written once,
     state_bytes_once; the walk-order rows once; each triangle's trimat
@@ -2251,7 +2309,11 @@ def wave_bound(s0, work, r: Renderer, fr) -> dict:
     counts it; the services' FP64 instructions as [service] counts them)
     over their rates.  ``rounds_bound_ms``: the sum over the step's
     rounds of the walk's and the service's bounds as [walk] and
-    [service] state them, the bound of the two-kernel round loop."""
+    [service] state them, the bound of the two-kernel round loop.
+    ``latency_floor_ms``: the sum over the rounds of each round's
+    longest walk times ``latency_ns``, one warp's dependent fetch step
+    ([fetch]): the least time of rounds that each end on their longest
+    walk."""
     inline = r.inline
     table_bytes = inline.sentinel * inline.walk.shape[1] * 4
     per = fp64_per_call()
@@ -2274,7 +2336,10 @@ def wave_bound(s0, work, r: Renderer, fr) -> dict:
     f32_ms = 1e3 * 120 * rows / F32_FLOP_PER_S
     fp64_ms = 1e3 * 2 * fp64 / F64_FLOP_PER_S
     larger = max(bytes_ms, f32_ms, fp64_ms)
-    return dict(bound_ms=larger,
+    floor_ms = sum(rnd["longest_walk"] for rnd in work) * latency_ns * 1e-6
+    return dict(bound_ms=larger, latency_floor_ms=floor_ms,
+                longest_walks=[rnd["longest_walk"] for rnd in work],
+                latency_ns=latency_ns,
                 bound_by="bytes" if bytes_ms == larger else "operations",
                 bytes_ms=bytes_ms, f32_ms=f32_ms, fp64_ms=fp64_ms,
                 bound_bytes=n_bytes, rounds_bound_ms=rounds_ms,
@@ -2340,18 +2405,22 @@ def _check_wave(label: str, r: Renderer, fr, s0, budgets, work=None,
     return dict(lanes=n, rounds=done, calls=calls, state=kern)
 
 
-def phase_wave(r: Renderer, features_r: Renderer, params, tmp: str) -> dict:
+def phase_wave(r: Renderer, features_r: Renderer, params, tmp: str,
+               latency_ns: float) -> dict:
     """The wave kernel against the two-kernel round loop on the card, bit
     for bit (_check_wave), on the main path's 1200x800 1-spp step (and
     against its plain version, wave_advance_plain, field for field), on a
     progressive wave (unbounded cap) in calls of 1, 3 and 8 rounds
-    against one call of 12, on strip 2 of a TILES-strip tiled step, on
+    against one call of 12, on the main step in calls that end before,
+    at and inside the switch to the kernel's sparse tail against one
+    call, on strip 2 of a TILES-strip tiled step, on
     the [features] path's renderer ("mt" leaves, SBVH, smooth normals,
     UVs, textures) and on a 1200x800 frame with "mt" leaves, smooth
     normals, UVs, textures, 17 lights and two trimat rows a table row (a
     median build at leaf 10).  Then the kernel's own time and its
-    wrapper's on the main step, its plain version's, its bound
-    (wave_bound) and its builds."""
+    wrapper's on the main step, its plain version's, its bounds
+    (wave_bound; ``latency_ns`` is [fetch]'s one-warp dependent step) and
+    its builds."""
     out = dict(cases={})
     cam = params.to(r.device)
     n = WIDTH * HEIGHT
@@ -2386,6 +2455,26 @@ def phase_wave(r: Renderer, features_r: Renderer, params, tmp: str) -> dict:
         raise AssertionError("[wave] the kernel differs from its plain "
                              "version on the main step")
     del plain, got, res
+    # The main step in calls that end in the grid-wide rounds, at the
+    # switch to the sparse tail (the last grid-wide round before it) and
+    # inside the tail (a call's first round is grid-wide, over every
+    # lane), then the rest, against one call.
+    tail_lanes = wave.wave_advance_cuda.plan["tail_lanes"]
+    switch = next((i + 1 for i, rnd in enumerate(work)
+                   if rnd["live"] <= tail_lanes), None)
+    if switch is not None and switch > 2:
+        budgets = [switch - 2, 2, 3, None]
+    else:
+        budgets = [5, 10, 20, None]
+    log(f"[wave] main step: tail at <= {tail_lanes} live lanes, after round "
+        f"{switch} of {len(work)} (live lanes a round "
+        f"{[rnd['live'] for rnd in work]}); calls of {budgets}")
+    res = _check_wave("main step in calls", r, fr, s0, budgets,
+                      one_call=len(work))
+    out["cases"]["main in calls"] = dict(
+        {k: v for k, v in res.items() if k != "state"}, switch=switch,
+        tail_lanes=tail_lanes)
+    del res
     # A progressive wave: unbounded cap, the progressive renderer's seeds.
     pfr = persistent._Frame(r.scene, r.inline, r.cfg, cam, 0, WIDTH, HEIGHT,
                             UNBOUNDED_SPP, 1)
@@ -2439,8 +2528,8 @@ def phase_wave(r: Renderer, features_r: Renderer, params, tmp: str) -> dict:
     wrapper_ms = _time_ms(lambda: run(*next(copies)), reps=3)
     del copies
     ms = _kernel_ms(lambda: run(*fresh()), "wave_advance_kernel", reps=5)
-    b = wave_bound(s0, work, r, fr)
-    build = kernel_builds(wave.LIBRARY, "wave_advance_kernel")
+    b = wave_bound(s0, work, r, fr, latency_ns)
+    build = wave_builds(wave.LIBRARY)
     out.update(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
                plain_ms=plain_ms, library_ms=None, plan=wave.wave_advance_cuda
                .plan, build=build, rounds=out["cases"]["main"]["rounds"], **b)
@@ -2452,7 +2541,10 @@ def phase_wave(r: Renderer, features_r: Renderer, params, tmp: str) -> dict:
         f"{b['fp64_instructions']} instructions), own time "
         f"{ms / b['bound_ms']:.1f}x; the round loop's bound (each round's "
         f"walk and service bounds summed) {b['rounds_bound_ms']:.4f} ms, own "
-        f"time {ms / b['rounds_bound_ms']:.2f}x; plan {out['plan']}")
+        f"time {ms / b['rounds_bound_ms']:.2f}x; the rounds' latency floor "
+        f"(each round's longest walk x {latency_ns:.1f} ns, summed) "
+        f"{b['latency_floor_ms']:.4f} ms, own time "
+        f"{ms / b['latency_floor_ms']:.2f}x; plan {out['plan']}")
     return out
 
 
@@ -2977,7 +3069,8 @@ def main() -> int:
         if not any(x["modes"][walk.TEXG] for x in serviced.values()):
             raise AssertionError("no [service] state of the main path had "
                                  "TEXG lanes in flight")
-        waved = phase_wave(r, features_r, params, tmp)
+        waved = phase_wave(r, features_r, params, tmp,
+                           chain["latency"]["global_ns"])
     threaded_states = phase_threaded_walk(rb, features_r, params,
                                           chain["latency"]["global_ns"])
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
@@ -3071,7 +3164,8 @@ def main() -> int:
              **{k: waved[k] for k in (
                  "rounds", "rows_fetched", "bytes_ms", "f32_ms", "fp64_ms",
                  "bound_bytes", "fp64_instructions", "rounds_bound_ms",
-                 "plan", "build")},
+                 "latency_floor_ms", "longest_walks", "latency_ns", "plan",
+                 "build")},
              cases=waved["cases"])]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

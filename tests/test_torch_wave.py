@@ -10,15 +10,23 @@
   - budgets of 1, 3 and 8 rounds, advanced in calls, equal one call;
     each call runs at most its budget, and the calls' rounds add up;
   - the most rounds a lane ran equals ``Wave.rounds``;
+  - lanes advanced apart equal the wave advanced at once: disjoint
+    subsets of a wave's lanes, each run by the plain version at budgets
+    of 1, 3, 8 rounds and none, give every field of the whole wave, its
+    path and shadow rays and rows summed and its rounds as the most of
+    theirs (the rule that lets the kernel run a sparse tail's lanes by
+    warps on their own rounds);
   - the dispatch: a ``Wave`` on the CPU runs the round loop and never
     loads the wave kernel; the wrapper refuses CPU tensors and bad
     budgets before it loads any library;
   - the kernel library's name changes with an edit to a device-code
     header (ops/_build.py);
   - on a card (``cuda``-marked, skipped elsewhere): the kernel against
-    the plain version and the two-kernel round loop, one launch per
-    ``Wave.advance`` with work and none of the walk or service kernels,
-    and the wrapper's refusals.
+    the plain version and the two-kernel round loop, also on a wave
+    with most lanes DONE in calls that end at and inside the switch to
+    the kernel's sparse tail; one launch per ``Wave.advance``
+    with work and none of the walk or service kernels, and the
+    wrapper's refusals.
 
 Tolerance: 0.  The plain version and the round loop run the same eager
 code on the same lanes in another order; the kernel against the plain
@@ -29,6 +37,7 @@ compiled here.
 
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -74,10 +83,11 @@ def scenes(tmp_path_factory):
 
 
 def _wave(arrays, cfg, device="cpu", round_fn=None):
+    w, h = cfg.width, cfg.height
     r = Renderer(arrays, cfg=cfg, device=device)
-    cam = CameraController().get_params(W, H)
-    return persistent.Wave(r.scene, r.inline, cam, FRAME, W, H, cfg,
-                           torch.arange(W * H, device=device), SPP, SPP,
+    cam = CameraController().get_params(w, h)
+    return persistent.Wave(r.scene, r.inline, cam, FRAME, w, h, cfg,
+                           torch.arange(w * h, device=device), SPP, SPP,
                            round_fn)
 
 
@@ -141,6 +151,36 @@ def test_most_rounds_of_a_lane_are_the_waves_rounds(name, round_loops):
     assert int(lane_rounds.min()) >= 1
     # Lanes differ: the wave's rounds are set by its longest lanes.
     assert int(lane_rounds.min()) < loop.rounds
+
+
+@pytest.mark.parametrize("budget", [1, 3, 8, None])
+def test_lanes_advanced_apart_equal_the_wave_advanced_at_once(budget,
+                                                              round_loops):
+    _, fresh, _, _ = round_loops["bw"]
+    want, want_totals, want_rows, want_ran, want_live = _plain(fresh,
+                                                               [budget])
+    # Three disjoint subsets of the lanes, in a seed-made order.
+    order = torch.from_numpy(np.random.RandomState(7).permutation(W * H))
+    got = {key: torch.empty_like(val) for key, val in fresh.state.items()}
+    totals = fresh.totals.clone()
+    rows, ran, live = fresh.rows_fetched.clone(), [], 0
+    for lanes in (order[:50], order[50:200], order[200:]):
+        s = {key: val[lanes].clone() for key, val in fresh.state.items()}
+        t = torch.zeros_like(totals)
+        n, left = wave.wave_advance_plain(s, fresh._fr.inline, fresh._fr, t,
+                                          rows, budget)
+        for key in s:
+            got[key][lanes] = s[key]
+        totals[:service.LIVE] += t[:service.LIVE]
+        ran.append(n)
+        live += left
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    assert totals[:service.LIVE].tolist() == \
+        want_totals[:service.LIVE].tolist()
+    assert int(rows) == int(want_rows)
+    assert max(ran) == want_ran[0] and [live] == want_live
+    assert budget is None or max(ran) == budget
 
 
 @pytest.mark.parametrize("budget", [1, 3, 8])
@@ -261,6 +301,62 @@ def test_cuda_kernel_matches_plain_version_and_round_loop(name, scenes):
     finally:
         persistent.MIN_COMPACT_WIDTH = saved
     assert kern.done and loop.done
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SCENES))
+def test_cuda_kernel_matches_round_loop_in_the_sparse_tail(name, scenes):
+    """A wave wider than the card's grid (81,920 lanes: the tail starts
+    only once a round leaves at most TRT_WAVE_TAIL_WARP_LANES live lanes
+    a warp of the grid), most of whose lanes end in its early rounds: a
+    call of two rounds and calls of one until the live lanes fit the
+    tail (calls that end before the kernel's switch to its sparse tail),
+    then calls of one round (a call's first round is grid-wide, over
+    every lane: it ends at the switch), of two and five (inside the tail)
+    and to the end, against the plain version and the two-kernel round
+    loop."""
+    _need_card()
+    arrays, cfg = scenes[name]
+    cfg = cfg.with_size(320, 256)
+    kern = _wave(arrays, cfg, "cuda")
+    loop = _wave(arrays, cfg, "cuda", persistent._round_quad)
+    plain = {key: val.clone() for key, val in kern.state.items()}
+    totals, rows = kern.totals.clone(), kern.rows_fetched.clone()
+    fr = kern._fr
+
+    def call(budget):
+        n0 = kern.rounds
+        kern.advance(budget)
+        loop.advance(budget)
+        ran, live = wave.wave_advance_plain(
+            plain, fr.inline, fr, totals, rows, budget, rounds_before=n0)
+        assert kern.rounds - n0 == ran == loop.rounds - n0 > 0
+        assert kern.totals.tolist() == totals.tolist()
+        assert kern.totals.tolist() == loop.totals.tolist()
+        assert int(kern.rows_fetched) == int(rows)
+        assert int(loop.rows_fetched) == int(rows)
+        for key in kern.state:
+            assert torch.equal(_bits(kern.state[key]),
+                               _bits(loop.state[key])), key
+            if key not in NOT_WRITTEN:
+                assert _same(kern.state[key], plain[key]), key
+        assert kern.done == (live == 0)
+        return live
+
+    saved = persistent.MIN_COMPACT_WIDTH
+    persistent.MIN_COMPACT_WIDTH = cfg.width * cfg.height  # keep every lane
+    try:
+        live = call(2)
+        tail_lanes = wave.wave_advance_cuda.plan["tail_lanes"]
+        assert live > tail_lanes > 0
+        while live > tail_lanes:
+            live = call(1)
+        for budget in (1, 2, 5, None):
+            if live:
+                live = call(budget)
+    finally:
+        persistent.MIN_COMPACT_WIDTH = saved
+    assert live == 0 and kern.done and loop.done
 
 
 @pytest.mark.cuda

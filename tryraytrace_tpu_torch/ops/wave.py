@@ -13,8 +13,11 @@ runs the rounds, each every listed lane's walk to its end, a grid-wide
 barrier, every listed lane's service, a grid-wide barrier, up to
 ``max_rounds`` rounds or until no lane is live, with the walk's and the
 service's device code as the two kernels of the round loop run them;
-each round lists the lanes still live for the next, and the host reads
-two numbers at the end.
+each round lists the lanes still live for the next.  Once a round
+leaves few lanes live (the plan's ``tail_lanes``), the launch's warps
+share them out and each warp runs its own rounds (its lanes' walks, then
+their services) with no grid-wide barrier, to each lane's end or the
+budget.  The host reads two numbers at the end.
 ``wave_advance_plain`` is the same contract as a loop of rounds over
 ``walk_plain`` and ``service_plain`` on every lane (no compaction); the
 engine's CPU path keeps its own round loop (engine/persistent.py
@@ -32,7 +35,8 @@ round loop's count.
 
 The lanes are independent (owner schedule), so the kernel's state,
 sums, rays, rows and rounds are the round loop's bit for bit, field for
-field (chip_smoke.py ``[wave]``), whatever order its lists hold.  Signed zeros are the walk kernel's
+field (chip_smoke.py ``[wave]``), whatever order its lists hold and
+whichever warp runs a lane's late rounds.  Signed zeros are the walk kernel's
 (ops/walk.py): against the plain version, -0.0 == 0.0.
 """
 
@@ -49,9 +53,11 @@ from tryraytrace_tpu_torch.ops._build import KernelLibrary
 
 # The launch's int64 counters (csrc/wave_advance.cu Ctl): the walk
 # phases' lane claims and the rounds' live counts, taken in turn by the
-# rounds, and the lanes live at the start (all zero at launch and left
+# dense rounds, the lanes live at the start, the most rounds of a warp in
+# the tail and the tail's lanes not DONE (all zero at launch and left
 # zero), then the launch's rounds and live lanes.
-CTL = ("claim0", "claim1", "live0", "live1", "start", "rounds", "live")
+CTL = ("claim0", "claim1", "live0", "live1", "start", "tail_rounds",
+       "tail_live", "rounds", "live")
 _OUT = CTL.index("rounds")
 # The budget of a call without one: more rounds than any frame runs.
 NO_BUDGET = 0x7FFFFFFF
@@ -75,18 +81,24 @@ LIBRARY = KernelLibrary("wave_advance", {
 # The launch counters of each (device, stream): left zero by every launch
 # but for the two results, so one tensor serves every launch in turn.
 _ctl = {}
-_checked = set()  # libraries whose array layout matched the wrapper's
+# The tail's threshold of each library whose array layout matched the
+# wrapper's (csrc/wave_advance.cu TRT_WAVE_TAIL_WARP_LANES).
+_tail_warp_lanes = {}
 
 
-def _check_layout(lib) -> None:
-    layout = (ctypes.c_int * 5)()
+def _check_layout(lib) -> int:
+    """Refuse a library whose arrays differ from the wrapper's; returns
+    its tail threshold (a round that leaves at most that many live lanes
+    a warp of the grid ends the grid-wide rounds; 0: never)."""
+    layout = (ctypes.c_int * 6)()
     lib.trt_wave_layout(ctypes.addressof(layout))
     want = (len(service.FLOATS), len(service.INTS),
             3 + len(service.FIELDS) + 1, len(service.TOTALS), len(CTL))
-    if tuple(layout) != want:
-        raise RuntimeError(f"wave_advance kernel takes {tuple(layout)} "
+    if tuple(layout[:5]) != want:
+        raise RuntimeError(f"wave_advance kernel takes {tuple(layout[:5])} "
                            f"(floats, ints, pointers, totals, counters), the "
                            f"wrapper packs {want}")
+    return layout[5]
 
 
 def _budget(max_rounds) -> int:
@@ -125,7 +137,9 @@ def wave_advance_cuda(s, inline, params, totals, rows, max_rounds=None, *,
     which waits for the launch.  The launch's plan (staged rows, grid:
     the blocks the card holds at once, as a cooperative launch needs) is
     worked out once per table and device; it is left in
-    ``wave_advance_cuda.plan``.  Its scratch, two int32 lists of lanes,
+    ``wave_advance_cuda.plan`` with ``tail_lanes``, the live lanes at or
+    below which a round ends the grid-wide rounds and the launch's
+    warps run the lanes left on their own rounds (0: never).  Its scratch, two int32 lists of lanes,
     comes from PyTorch's allocator."""
     budget = _budget(max_rounds)
     if rounds_before < 0:
@@ -146,12 +160,13 @@ def wave_advance_cuda(s, inline, params, totals, rows, max_rounds=None, *,
         return 0, 0
     library = LIBRARY
     lib = library.load()
-    if library not in _checked:
-        _check_layout(lib)
-        _checked.add(library)
+    if library not in _tail_warp_lanes:
+        _tail_warp_lanes[library] = _check_layout(lib)
     plan = dict(walk.launch_plan(library, lib.trt_wave_advance_plan, dev,
                                  regs, fmt, width, sentinel, levels))
     plan["grid"] = min(plan["grid"], -(-w // plan["threads"]))
+    plan["tail_lanes"] = (plan["grid"] * plan["threads"] // 32
+                          * _tail_warp_lanes[library])
     host_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     floats = np.ascontiguousarray(params.floats, np.float32)
     ints = np.ascontiguousarray(params.ints, np.int64)
