@@ -2225,12 +2225,13 @@ def state_bytes_once(s, textured: bool) -> int:
     return (2 * per_lane - 8) * live + 8 * (s["mode"].numel() - live)
 
 
-def longest_quad_walk(s, r: Renderer, passes: int) -> tuple:
+def longest_quad_walk(s, r: Renderer, passes: int, lane_rows=None) -> tuple:
     """(rows, longest): the rows that the walks of state ``s`` fetch and
     its longest walk in rows, by the plain walk (walk_index, walk_step)
     over the walking lanes alone (the lanes are independent): one fetch
     of every walking lane's row a step, so the steps are the longest
-    walk.  ``s`` is left as it was."""
+    walk.  Adds each lane's rows to ``lane_rows`` (int [lanes]) when
+    given.  ``s`` is left as it was."""
     mode = s["mode"]
     lanes = torch.nonzero((mode == walk.TRAVERSE) | (mode == walk.SHADOW))
     sub = {key: val[lanes[:, 0]] for key, val in s.items()}
@@ -2241,6 +2242,9 @@ def longest_quad_walk(s, r: Renderer, passes: int) -> tuple:
         n = int(stepping.sum())
         if n == 0:
             return rows, steps
+        if lane_rows is not None:
+            lane_rows.index_add_(0, lanes[:, 0],
+                                 stepping.to(lane_rows.dtype))
         rows += n
         steps += 1
         sub = walk.walk_step(sub, table[idx], sentinel, r.scene.leaf_size,
@@ -2248,7 +2252,8 @@ def longest_quad_walk(s, r: Renderer, passes: int) -> tuple:
 
 
 def two_kernel_rounds(r: Renderer, fr, s, totals, rows, budget,
-                      rounds_before: int, work=None) -> tuple:
+                      rounds_before: int, work=None,
+                      lane_rows=False) -> tuple:
     """The two-kernel round loop on the card as ``Wave.advance`` runs it
     with ``round_fn=_round_quad``, but without compaction: each round one
     quad_walk_cuda launch (every lane's walk to its end), then one
@@ -2260,7 +2265,7 @@ def two_kernel_rounds(r: Renderer, fr, s, totals, rows, budget,
     rows) and state bytes (walk_state_bytes), the pass's bytes
     (service_state_bytes) and double calls (service_work), and the
     triangles and tile rows the pass reads, and the lanes it leaves
-    live."""
+    live; with ``lane_rows`` also each lane's walk rows (int32 [lanes])."""
     inline = r.inline
     passes = max(1, r.cfg.quad_redirect_passes)
     ran = 0
@@ -2273,7 +2278,9 @@ def two_kernel_rounds(r: Renderer, fr, s, totals, rows, budget,
                                         fmt=r.scene.leaf_fmt)
         rows += n
         if work is not None:
-            plain_rows, longest = longest_quad_walk(s, r, passes)
+            per = (torch.zeros(s["mode"].shape, dtype=torch.int32,
+                               device=s["mode"].device) if lane_rows else None)
+            plain_rows, longest = longest_quad_walk(s, r, passes, per)
             if plain_rows != int(n):
                 raise AssertionError(f"[wave] the plain walks fetch "
                                      f"{plain_rows} rows, the kernel {int(n)}")
@@ -2288,7 +2295,8 @@ def two_kernel_rounds(r: Renderer, fr, s, totals, rows, budget,
                 service_bytes=service_state_bytes(walked, want, fr.service),
                 calls=sw["calls"],
                 hits=torch.unique(walked["hit_id"][shadeg]),
-                tiles=torch.unique(walked["cur"][mode == walk.TEXG])))
+                tiles=torch.unique(walked["cur"][mode == walk.TEXG]),
+                lane_rows=per))
         slot = (rounds_before + ran) % 2
         s = service.service_pass_cuda(walked, inline, fr.service, totals,
                                       slot)

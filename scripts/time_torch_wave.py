@@ -16,12 +16,12 @@ another commit unpacked into a directory that .gitignore lists, such as
 ``build/parent``), and each ``--variant`` (this source with ``-D``
 flags, comma-separated: ``TRT_WAVE_MIN_BLOCKS=N`` the launch bounds'
 blocks an SM, ``TRT_WAVE_TAIL_WARP_LANES=N`` the tail's threshold in
-live lanes a warp of the grid, 0 for no tail, ``TRT_WAVE_PHASE=
-__noinline__`` the phases compiled apart from the round loop).  Every build is held bit for bit to the port's build first
-(every state field, the four totals, the rows, the rounds and the live
-lanes), then timed ``--turns`` times, in forward and backward order, by
-torch.profiler's durations of the kernel itself (chip_smoke._kernel_ms,
-``--reps`` launches a time).
+live lanes a warp of the grid, 0 for no tail).  Every build is launched
+by ops/wave.py wave_advance_cuda and held bit for bit to the port's
+build first (every state field, the four totals, the rows, the rounds
+and the live lanes), then timed ``--turns`` times, in forward and
+backward order, by torch.profiler's durations of the kernel itself
+(chip_smoke._kernel_ms, ``--reps`` launches a time).
 
 ``--rounds`` also builds every build of this source with
 ``-D TRT_WAVE_ROUND_CLOCK`` and runs it once on the main step: thread 0
@@ -31,7 +31,11 @@ lanes it leaves live are printed beside the round loop's longest walk
 of that round (chip_smoke.longest_quad_walk) and its latency floor,
 that walk times one warp's dependent fetch step (measured here as
 chip_smoke.py [fetch] measures it); the tail, where there is one, is
-one span from the last dense round to the launch's end.
+one span from the last dense round to the launch's end, printed beside
+two floors of those rounds: the round loop's (the sum of their longest
+walks x the step) and the longest lane's own chain (the most walk rows
+one lane fetches in them x the step), which a tail whose warps wait
+for no other could reach.
 
 Prints each build's registers, stack, spills and blocks an SM, one line
 per time and a JSON line last (also written to ``--out``).  Needs a
@@ -46,7 +50,6 @@ import json
 import os
 import sys
 
-import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -66,8 +69,9 @@ PROGRESSIVE_ROUNDS = 8
 
 
 class Build:
-    """One build of a wave kernel source, launched through its C entry
-    points with as many launch counters as its library reports."""
+    """One build of a wave kernel source, launched by ops/wave.py
+    wave_advance_cuda (which sizes the launch counters from the
+    library's own layout)."""
 
     def __init__(self, name: str, source: str, defines=()):
         self.name = name
@@ -82,48 +86,19 @@ class Build:
 
     def load(self):
         handle = self.lib.load()
-        layout = (ctypes.c_int * 8)()
-        handle.trt_wave_layout(ctypes.addressof(layout))
-        self.n_ctl = layout[4]
         self.numbers = chip_smoke.ptxas_numbers(self.lib.compiler_log,
                                                 "wave_advance_kernel")
         return handle
 
     def run(self, r: Renderer, fr, s, totals, rows, budget=None):
-        """One launch on ``s`` in place, as ops/wave.py wave_advance_cuda
-        makes it; returns (rounds run, lanes live)."""
-        handle = self.lib.handle
-        inline = r.inline
-        table, dev = inline.walk, inline.walk.device
-        fmt = r.scene.leaf_fmt
-        regs = walk.state_regs(s)
-        width, levels = walk.check_table(table, inline.sentinel,
-                                         r.scene.leaf_size, fmt,
-                                         inline.walk_levels, self.name)
-        self.plan = dict(walk.launch_plan(
-            self.lib, handle.trt_wave_advance_plan, dev, regs, fmt, width,
-            inline.sentinel, levels))
-        w = s["mode"].shape[0]
-        grid = min(self.plan["grid"], -(-w // self.plan["threads"]))
-        ptrs = service.state_pointers(s, inline, fr.service, totals,
-                                      self.name)
-        host_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-        floats = np.ascontiguousarray(fr.service.floats, np.float32)
-        ints = np.ascontiguousarray(fr.service.ints, np.int64)
-        ctl = torch.zeros(self.n_ctl, dtype=torch.int64, device=dev)
-        lists = torch.empty((2, w), dtype=torch.int32, device=dev)
-        err = handle.trt_wave_advance_launch(
-            table.data_ptr(), inline.sentinel, width, r.scene.leaf_size,
-            regs, LEAF_FORMATS[fmt], max(1, r.cfg.quad_redirect_passes),
-            self.plan["staged_rows"], grid, floats.ctypes.data,
-            ints.ctypes.data, ctypes.addressof(host_ptrs), w,
-            wave.NO_BUDGET if budget is None else budget, 0, ctl.data_ptr(),
-            lists.data_ptr(), rows.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"{self.name}: launch failed, CUDA error {err}")
-        ran, live = ctl[-2:].tolist()
-        return ran, live
+        """One launch on ``s`` in place; returns (rounds run, lanes
+        live)."""
+        out = wave.wave_advance_cuda(
+            s, r.inline, fr.service, totals, rows, budget,
+            k=r.scene.leaf_size, fmt=r.scene.leaf_fmt,
+            passes=r.cfg.quad_redirect_passes, library=self.lib)
+        self.plan = wave.wave_advance_cuda.plan
+        return out
 
     def clock(self) -> list:
         """The round clock of the build's last launch (clock builds)."""
@@ -151,7 +126,12 @@ def blocks_an_sm(build: Build, r: Renderer, regs: int) -> int:
 def round_table(clock: list, work: list, latency_ns: float) -> dict:
     """Each dense round's phases (ms), live lanes and the round loop's
     longest walk and latency floor of that round, from a clock build's
-    record and two_kernel_rounds' work."""
+    record and two_kernel_rounds' work; and for the rounds after the
+    last dense one, the round loop's per-round floor (their longest
+    walks x the step) and the longest lane's own chain (the most walk
+    rows of one lane in those rounds x the step; its services' latency
+    not counted), the least time of a tail in which a warp waits for
+    no other."""
     start, end, dense, tail = clock[:CLOCK_HEAD]
     rows, prev = [], start
     for i in range(min(dense, CLOCK_ROUNDS)):
@@ -163,8 +143,15 @@ def round_table(clock: list, work: list, latency_ns: float) -> dict:
             longest_walk=work[i]["longest_walk"],
             floor_ms=work[i]["longest_walk"] * latency_ns * 1e-6))
         prev = serve_end
+    after = work[min(dense, len(work)):]
+    chain = (int(torch.stack([x["lane_rows"] for x in after]).sum(0).max())
+             if after else 0)
     return dict(rounds=rows, dense=dense, tail_rounds=tail,
-                tail_ms=(end - prev) * 1e-6, total_ms=(end - start) * 1e-6)
+                tail_ms=(end - prev) * 1e-6, total_ms=(end - start) * 1e-6,
+                after_floor_ms=sum(x["longest_walk"] for x in after)
+                * latency_ns * 1e-6,
+                lane_chain_rows=chain,
+                lane_chain_ms=chain * latency_ns * 1e-6)
 
 
 def main() -> int:
@@ -268,7 +255,8 @@ def main() -> int:
         s = chip_smoke._copy(s_main)
         totals = torch.tensor([n, 0, 0, 0], device=r.device)
         rows = torch.zeros((), dtype=torch.int64, device=r.device)
-        chip_smoke.two_kernel_rounds(r, fr, s, totals, rows, None, 0, work)
+        chip_smoke.two_kernel_rounds(r, fr, s, totals, rows, None, 0, work,
+                                     lane_rows=True)
         floor = sum(x["longest_walk"] for x in work) * latency * 1e-6
         print(f"[time_wave] one warp's dependent fetch step {latency:.1f} ns;"
               f" the round loop's {len(work)} rounds: latency floor "
@@ -282,7 +270,11 @@ def main() -> int:
             print(f"[time_wave] {b.name}: {table['dense']} dense rounds, "
                   f"{table['tail_rounds']} tail rounds; launch "
                   f"{table['total_ms']:.4f} ms, after the last dense round "
-                  f"{table['tail_ms']:.4f} ms")
+                  f"{table['tail_ms']:.4f} ms (the round loop's per-round "
+                  f"floor of those rounds {table['after_floor_ms']:.4f} ms; "
+                  f"the longest lane's own walks in them "
+                  f"{table['lane_chain_rows']} rows, "
+                  f"{table['lane_chain_ms']:.4f} ms)")
             print("[time_wave]   round  walk_ms  service_ms  live_after  "
                   "longest_walk  floor_ms")
             for x in table["rounds"]:

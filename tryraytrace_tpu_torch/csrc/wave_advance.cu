@@ -61,14 +61,12 @@
 //     time, on full warps: a design that kept a lane on one thread
 //     across its rounds ran walk and service code side by side in a warp
 //     and took 1.1-2.3x as long (PERF.md).
-//   - Two blocks of 256 an SM (~128 registers).  The phases are device
-//     functions; compiled apart (TRT_WAVE_PHASE=__noinline__, reading
-//     the launch's parameters through a __restrict__ pointer to the
-//     __grid_constant__ struct) they fit 80 registers and three blocks,
-//     but every parameter read becomes a load and the calls spill: the
-//     service phase ran at half speed.  Inlined at three blocks the
-//     kernel spills ~480 B.  Both were slower on the main step than two
-//     blocks (PERF.md), so the phases are inlined.
+//   - Two blocks of 256 an SM (~128 registers), the phases inlined into
+//     the round loop.  Compiled apart (__noinline__) they fit 80
+//     registers and three blocks, but every parameter read becomes a load
+//     and the calls spill: the service phase ran at half speed.  Inlined
+//     at three blocks (TRT_WAVE_MIN_BLOCKS=3) the kernel spills ~480 B.
+//     Both were slower on the main step than two blocks (PERF.md).
 //   - The lanes a round serves are listed for the next: the service
 //     phase appends each lane still live to a list (one atomicAdd a
 //     warp), and the next round walks and serves the list, so a late
@@ -137,19 +135,15 @@ using trt::kThreads;
 using trt::kWarps;
 
 // The blocks an SM must hold at once (__launch_bounds__, which caps the
-// registers), the tail's threshold (the tail starts once a round leaves
-// at most TRT_WAVE_TAIL_WARP_LANES live lanes a warp of the grid; 0: no
-// tail) and how the phases are compiled (__noinline__: apart from the
-// round loop).  A benchmark build may set any of them
+// registers) and the tail's threshold (the tail starts once a round
+// leaves at most TRT_WAVE_TAIL_WARP_LANES live lanes a warp of the grid;
+// 0: no tail).  A benchmark build may set either
 // (scripts/time_torch_wave.py); the port builds the defaults.
 #ifndef TRT_WAVE_MIN_BLOCKS
 #define TRT_WAVE_MIN_BLOCKS 2
 #endif
 #ifndef TRT_WAVE_TAIL_WARP_LANES
 #define TRT_WAVE_TAIL_WARP_LANES 32
-#endif
-#ifndef TRT_WAVE_PHASE
-#define TRT_WAVE_PHASE __forceinline__
 #endif
 constexpr long long kTailWarpLanes = TRT_WAVE_TAIL_WARP_LANES;
 static_assert(kTailWarpLanes >= 0, "tail threshold");
@@ -236,11 +230,11 @@ __device__ __forceinline__ unsigned long long read_l2(
 // count; every lane without a list) to its end, lanes claimed from the
 // counter of parity k.  Called by every thread.  Returns its rows.
 template <int R, int F>
-__device__ TRT_WAVE_PHASE unsigned long long walk_phase(
-    const Params* __restrict__ wp, int k, const int* list, long long count) {
-  const trt::Params& p = wp->walk;
+__device__ __forceinline__ unsigned long long walk_phase(
+    const Params& wp, int k, const int* list, long long count) {
+  const trt::Params& p = wp.walk;
   const trt::Rows rows{p.table, p.width4, p.stride4, p.staged};
-  return trt::walk_lanes<R, F>(p, rows, wp->ctl + kClaim0 + k, list, count);
+  return trt::walk_lanes<R, F>(p, rows, wp.ctl + kClaim0 + k, list, count);
 }
 
 // A dense round's services, one lane a thread in list order, and the lanes
@@ -248,14 +242,13 @@ __device__ TRT_WAVE_PHASE unsigned long long walk_phase(
 // atomicAdd a warp).  Called by every thread; every thread of a warp runs
 // the same iterations.  With `first`, also counts the lanes live at the
 // start.  Returns the thread's counts.
-__device__ TRT_WAVE_PHASE Counts serve_phase(const Params* __restrict__ wp,
-                                             int k, bool first,
-                                             const int* list,
-                                             long long count) {
-  const trt_service::Params& sp = wp->service;
+__device__ __forceinline__ Counts serve_phase(const Params& wp, int k,
+                                              bool first, const int* list,
+                                              long long count) {
+  const trt_service::Params& sp = wp.service;
   const int lane_in_warp = threadIdx.x & 31;
   const unsigned below = (1u << lane_in_warp) - 1u;
-  int* next = wp->lists + static_cast<long long>(k) * wp->walk.n;
+  int* next = wp.lists + static_cast<long long>(k) * wp.walk.n;
   Counts c{0, 0, 0, 0};
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   for (long long j0 = static_cast<long long>(blockIdx.x) * kThreads +
@@ -277,7 +270,7 @@ __device__ TRT_WAVE_PHASE Counts serve_phase(const Params* __restrict__ wp,
     if (keep) {
       unsigned long long at = 0;
       if (lane_in_warp == 0) {
-        at = atomicAdd(wp->ctl + kLive0 + k,
+        at = atomicAdd(wp.ctl + kLive0 + k,
                        static_cast<unsigned long long>(__popc(keep)));
       }
       at = __shfl_sync(kFull, at, 0);
@@ -291,9 +284,8 @@ __device__ TRT_WAVE_PHASE Counts serve_phase(const Params* __restrict__ wp,
 // with the walk kernel's device code.  Called by every thread of the warp
 // together.  Returns the rows fetched.
 template <int R, int F>
-__device__ TRT_WAVE_PHASE unsigned long long walk_own(
-    const trt::Params* __restrict__ wp, long long i) {
-  const trt::Params& p = *wp;
+__device__ __forceinline__ unsigned long long walk_own(const trt::Params& p,
+                                                       long long i) {
   const trt::Rows rows{p.table, p.width4, p.stride4, p.staged};
   trt::Walk<R, F> w;
   w.lane = -1;
@@ -313,11 +305,11 @@ struct Served {
   unsigned long long path, shadow;
   bool alive;  // the lane is left not DONE
 };
-__device__ TRT_WAVE_PHASE Served serve_own(
-    const trt_service::Params* __restrict__ sp, long long i) {
+__device__ __forceinline__ Served serve_own(const trt_service::Params& sp,
+                                            long long i) {
   int cont = 0, fire = 0;
   bool started = false;
-  const bool alive = trt_service::serve(*sp, i, &cont, &fire, &started);
+  const bool alive = trt_service::serve(sp, i, &cont, &fire, &started);
   return Served{static_cast<unsigned long long>(cont + (started ? 1 : 0)),
                 static_cast<unsigned long long>(fire), alive};
 }
@@ -344,10 +336,10 @@ __device__ __forceinline__ void run_tail(const Params& wp, const int* list,
     long long i = j < end ? list[j] : -1;
     int own = 0;
     while (own < budget && __ballot_sync(kFull, i >= 0)) {
-      c->rows += walk_own<R, F>(&wp.walk, i);
+      c->rows += walk_own<R, F>(wp.walk, i);
       __syncwarp();
       if (i >= 0) {
-        const Served s = serve_own(&wp.service, i);
+        const Served s = serve_own(wp.service, i);
         c->path += s.path;
         c->shadow += s.shadow;
         if (!s.alive) i = -1;
@@ -385,7 +377,7 @@ __global__ void __launch_bounds__(kThreads, TRT_WAVE_MIN_BLOCKS)
     const int* list =
         ran ? wp.lists + static_cast<long long>(1 - k) * wp.walk.n : nullptr;
     // The round's walks, every walking lane of the round to its end.
-    c.rows += walk_phase<R, F>(&wp, k, list, count);
+    c.rows += walk_phase<R, F>(wp, k, list, count);
     grid.sync();
     clock_mark(lead, kClockHead + 3 * ran, clock_now());
     // The other parity's counters were last used in the round before,
@@ -396,7 +388,7 @@ __global__ void __launch_bounds__(kThreads, TRT_WAVE_MIN_BLOCKS)
     }
     // The round's services, then the lanes still live listed for the
     // next round.
-    const Counts s = serve_phase(&wp, k, ran == 0, list, count);
+    const Counts s = serve_phase(wp, k, ran == 0, list, count);
     c.path += s.path;
     c.shadow += s.shadow;
     if (ran == 0) block_add(s.start, ctl + kStart);

@@ -58,7 +58,6 @@ from tryraytrace_tpu_torch.ops._build import KernelLibrary
 # zero), then the launch's rounds and live lanes.
 CTL = ("claim0", "claim1", "live0", "live1", "start", "tail_rounds",
        "tail_live", "rounds", "live")
-_OUT = CTL.index("rounds")
 # The budget of a call without one: more rounds than any frame runs.
 NO_BUDGET = 0x7FFFFFFF
 
@@ -78,27 +77,34 @@ LIBRARY = KernelLibrary("wave_advance", {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p)})
 
-# The launch counters of each (device, stream): left zero by every launch
-# but for the two results, so one tensor serves every launch in turn.
+# The launch counters of each (device, stream, counter count): left zero
+# by every launch but for the two results, so one tensor serves every
+# launch in turn.
 _ctl = {}
-# The tail's threshold of each library whose array layout matched the
-# wrapper's (csrc/wave_advance.cu TRT_WAVE_TAIL_WARP_LANES).
-_tail_warp_lanes = {}
+# The layout of each library whose arrays matched the wrapper's: its
+# counters and its tail threshold (csrc/wave_advance.cu
+# TRT_WAVE_TAIL_WARP_LANES).
+_layouts = {}
 
 
-def _check_layout(lib) -> int:
+def _check_layout(library, lib) -> tuple:
     """Refuse a library whose arrays differ from the wrapper's; returns
-    its tail threshold (a round that leaves at most that many live lanes
-    a warp of the grid ends the grid-wide rounds; 0: never)."""
+    (its counters, the last two the results; its tail threshold: a round
+    that leaves at most that many live lanes a warp of the grid ends the
+    grid-wide rounds, 0 never).  The port's library has ``CTL``'s
+    counters; another build of the kernel (scripts/time_torch_wave.py
+    times a parent's) may have others."""
     layout = (ctypes.c_int * 6)()
     lib.trt_wave_layout(ctypes.addressof(layout))
     want = (len(service.FLOATS), len(service.INTS),
-            3 + len(service.FIELDS) + 1, len(service.TOTALS), len(CTL))
-    if tuple(layout[:5]) != want:
+            3 + len(service.FIELDS) + 1, len(service.TOTALS))
+    n_ctl = layout[4]
+    if (tuple(layout[:4]) != want or n_ctl < 2
+            or (library is LIBRARY and n_ctl != len(CTL))):
         raise RuntimeError(f"wave_advance kernel takes {tuple(layout[:5])} "
                            f"(floats, ints, pointers, totals, counters), the "
-                           f"wrapper packs {want}")
-    return layout[5]
+                           f"wrapper packs {want} and {len(CTL)} counters")
+    return n_ctl, layout[5]
 
 
 def _budget(max_rounds) -> int:
@@ -112,7 +118,7 @@ def _budget(max_rounds) -> int:
 
 def wave_advance_cuda(s, inline, params, totals, rows, max_rounds=None, *,
                       k: int, fmt: str, passes: int = 1,
-                      rounds_before: int = 0) -> tuple:
+                      rounds_before: int = 0, library=LIBRARY) -> tuple:
     """Launch the wave kernel on the current stream: every lane of state
     ``s`` runs rounds (its walk to its end over ``inline.walk``, then its
     service) until it is DONE or has run ``max_rounds`` of them (None:
@@ -124,14 +130,17 @@ def wave_advance_cuda(s, inline, params, totals, rows, max_rounds=None, *,
     TRAVERSE and SHADOW lanes stand at row 0 with an empty
     skip-register file, as every lane of ``init_lane_ctx`` and every
     lane the kernel stops does (a lane stops only between rounds); this
-    is not checked, since it would wait for the device.  ``inline`` is the engine's InlineTable (the walk-order
-    rows and their top levels, ``k`` triangles of format ``fmt`` a leaf;
-    the unified table the service reads), ``params`` the wave's
-    ``service.service_params``, ``passes`` the skip registers' redirect
-    sweeps.  ``totals`` (``service.TOTALS``, int64 [4]) and ``rows``
-    (int64, one element) are the wave's and are added to; ``rounds_before``
-    is the wave's rounds before the call.  Refuses on the host, before any
-    library is loaded, what the kernel cannot take.
+    is not checked, since it would wait for the device.  ``inline`` is
+    the engine's InlineTable (the walk-order rows and their top levels,
+    ``k`` triangles of format ``fmt`` a leaf; the unified table the
+    service reads), ``params`` the wave's ``service.service_params``,
+    ``passes`` the skip registers' redirect sweeps.  ``totals``
+    (``service.TOTALS``, int64 [4]) and ``rows`` (int64, one element) are
+    the wave's and are added to; ``rounds_before`` is the wave's rounds
+    before the call.  ``library`` is the kernel's build (the port
+    launches ``LIBRARY``; a timing script another source or ``-D``
+    build).  Refuses on the host, before any library is loaded, what the
+    kernel cannot take.
 
     Returns (rounds run, lanes not DONE): the one read of the call,
     which waits for the launch.  The launch's plan (staged rows, grid:
@@ -139,8 +148,8 @@ def wave_advance_cuda(s, inline, params, totals, rows, max_rounds=None, *,
     worked out once per table and device; it is left in
     ``wave_advance_cuda.plan`` with ``tail_lanes``, the live lanes at or
     below which a round ends the grid-wide rounds and the launch's
-    warps run the lanes left on their own rounds (0: never).  Its scratch, two int32 lists of lanes,
-    comes from PyTorch's allocator."""
+    warps run the lanes left on their own rounds (0: never).  Its
+    scratch, two int32 lists of lanes, comes from PyTorch's allocator."""
     budget = _budget(max_rounds)
     if rounds_before < 0:
         raise ValueError(f"rounds_before {rounds_before} < 0")
@@ -158,23 +167,23 @@ def wave_advance_cuda(s, inline, params, totals, rows, max_rounds=None, *,
     w = s["mode"].shape[0]
     if w == 0:
         return 0, 0
-    library = LIBRARY
     lib = library.load()
-    if library not in _tail_warp_lanes:
-        _tail_warp_lanes[library] = _check_layout(lib)
+    if library not in _layouts:
+        _layouts[library] = _check_layout(library, lib)
+    n_ctl, tail_warp_lanes = _layouts[library]
     plan = dict(walk.launch_plan(library, lib.trt_wave_advance_plan, dev,
                                  regs, fmt, width, sentinel, levels))
     plan["grid"] = min(plan["grid"], -(-w // plan["threads"]))
     plan["tail_lanes"] = (plan["grid"] * plan["threads"] // 32
-                          * _tail_warp_lanes[library])
+                          * tail_warp_lanes)
     host_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     floats = np.ascontiguousarray(params.floats, np.float32)
     ints = np.ascontiguousarray(params.ints, np.int64)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream()
-        key = (dev.index, stream.cuda_stream)
+        key = (dev.index, stream.cuda_stream, n_ctl)
         if key not in _ctl:
-            _ctl[key] = torch.zeros(len(CTL), dtype=torch.int64, device=dev)
+            _ctl[key] = torch.zeros(n_ctl, dtype=torch.int64, device=dev)
         ctl = _ctl[key]
         lists = torch.empty((2, w), dtype=torch.int32, device=dev)
         err = lib.trt_wave_advance_launch(
@@ -189,7 +198,7 @@ def wave_advance_cuda(s, inline, params, totals, rows, max_rounds=None, *,
                            f"{err}")
     wave_advance_cuda.launches += 1
     wave_advance_cuda.plan = plan
-    ran, live = ctl[_OUT:_OUT + 2].tolist()
+    ran, live = ctl[-2:].tolist()
     return ran, live
 
 
