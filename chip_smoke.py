@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written CUDA kernels (tonemap, fetch_chain,
-quad_walk, threaded_walk, service_pass, wave_advance; one nvcc each,
-side by side) from the sources
+quad_walk, threaded_walk, service_pass, wave_advance, lane_init; one
+nvcc each, side by side) from the sources
 in this checkout and holds each against its plain PyTorch version on
 the card at the shapes its path gives it.  It drives the port's paths,
 each with the kernels' launch counts set to 0 just before and read just
@@ -14,8 +14,11 @@ them (on a card each is one wave-kernel launch):
   - the main path (Renderer -> render_frame_persistent -> Renderer.image)
     at the reference's interactive operating point, 1200x800 at 1 spp
     per step, on a 20,487-triangle Cornell box built in the repo: one
-    wave-kernel launch per step (every lane's walks and services to its
-    end), and no launch of the walk or the service kernel.  It runs
+    lane set-up launch (the wave's fresh state) and one wave-kernel
+    launch per step (every lane's walks and services to its end), no
+    launch of the walk or the service kernel, and, in one more step, no
+    synchronizing call from the step's start to the wave kernel's read
+    of its counters (torch.cuda.set_sync_debug_mode("error")).  It runs
     first, before any kernel is timed under torch.profiler;
   - the progressive path (ProgressiveRenderer.step / snapshot) on the
     same scene and raster, also before any profiler session: a capped
@@ -89,7 +92,17 @@ smooth normals, UVs, textures, 17 lights and two trimat rows a table
 row; it times the kernel on the main step and gives its bounds (the
 byte bound, the round loop's, and the rounds' latency floor: each
 round's longest walk times [fetch]'s one-warp dependent step).
-``[service]`` holds the service kernel to its plain version
+``[lane_init]`` holds the lane set-up kernel to its plain version
+(persistent.init_lane_ctx) on the card, every field bit for bit on a
+state poisoned first (NaN payloads, 0x5A bytes), with the wave's
+totals and rows, in seven cases at 1200x800 (the main path's 960,000
+lanes, a tiled strip, a sample-parallel shard, a thin lens, an
+untextured scene with no skip registers, the [features] renderer, a
+pixel tensor read as given), and the main case also to
+init_lane_ctx run on the CPU; it gives the kernel's own time, its
+wrapper's, the plain version's and its byte bound (it runs after every
+phase that times steps, and its own time is the first profiler
+session).  ``[service]`` holds the service kernel to its plain version
 (persistent.service_plain, the eager service block) on each of the walk
 kernel's six states just after its walk
 (the main path's: textured, TEXG lanes in flight; the [features]
@@ -104,14 +117,17 @@ the wave's four totals exactly.  It also checks the port's render on the card
 at 64x64 and 64x48.  Every phase prints its own lines; any failure
 raises and the script exits non-zero.  The last line is a JSON object
 {"ok": true, "device": {...}}, the line before it the card's name and
-power limit, and the line before that the kernel table of six kernels
-(the wave, walk and service kernels' entries count their launches on
+power limit, and the line before that the kernel table of seven
+kernels (the wave, lane set-up, walk and service kernels' entries count
+their launches on
 each path: ``launches`` on the main path, ``progressive_launches``,
 ``tiled_launches``, ``cli_launches``, ``app_launches``,
 ``bench_launches`` and ``features_launches``, ``bounce_launches`` and
 ``parallel_launches``, each with the count set to 0 just before the path
 and read just after; the wave kernel launches once a step on every
-persistent path and the walk and service kernels on none, only in
+persistent path, the lane set-up kernel once a wave (a step, a strip, a
+shard, a progressive wave), and the walk and service kernels on none,
+only in
 ``[walk]``, ``[service]`` and ``[wave]``'s checks; the wave kernel's
 ``features_mt_launches`` are its launches over "mt" leaves in
 ``[features]``, its ``cases`` the ``[wave]`` cases' numbers, and its
@@ -191,7 +207,7 @@ from tryraytrace_tpu_torch.io.snapshot import tonemap_accum
 from tryraytrace_tpu_torch.core import rng, vec
 from tryraytrace_tpu_torch.ops import _build, fetch, threaded, traverse
 from tryraytrace_tpu_torch.ops import tonemap as tm
-from tryraytrace_tpu_torch.ops import service, shade, walk, wave
+from tryraytrace_tpu_torch.ops import lane_init, service, shade, walk, wave
 from tryraytrace_tpu_torch.ops.texture import TEX_ROW
 from tryraytrace_tpu_torch.oracle import oracle_render
 from tryraytrace_tpu_torch.parallel.mesh import make_mesh
@@ -283,6 +299,7 @@ PROFILE_TRIES = 3
 # NVIDIA's published H100 SXM figures: device-memory rate, and float32
 # and float64 rates outside the tensor cores.
 MEM_BYTES_PER_S = 3.35e12
+LANE_POISON = 0x7FC05A5A       # [lane_init]: a NaN with a payload
 F32_FLOP_PER_S = 67e12
 F64_FLOP_PER_S = 34e12
 
@@ -448,7 +465,7 @@ def phase_environment() -> str:
     log(f"[env] device {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     t0 = time.perf_counter()
     libraries = [tm.LIBRARY, fetch.LIBRARY, walk.LIBRARY, threaded.LIBRARY,
-                 service.LIBRARY, wave.LIBRARY]
+                 service.LIBRARY, wave.LIBRARY, lane_init.LIBRARY]
     _build.build_all(libraries)
     for lib in libraries:
         log(f"[build] {lib.path} in {lib.build_seconds:.3f} s")
@@ -1391,6 +1408,10 @@ def phase_main_path(r: Renderer, params) -> dict:
         raise AssertionError(f"{walk_launches} walk and {service_launches} "
                              "service launches on the main path: its rounds "
                              "run inside the wave kernel")
+    if launched["lane_init"] != wave_launches:
+        raise AssertionError(f"{launched['lane_init']} lane set-up launches "
+                             f"for {wave_launches} wave-kernel launches: a "
+                             "step's wave is set up by one launch")
     if not img.max() > 0:
         raise AssertionError("the image is all black")
     want = tm.tonemap_plain(accum.cpu(), r.spp()).numpy().reshape(img.shape)
@@ -1399,8 +1420,8 @@ def phase_main_path(r: Renderer, params) -> dict:
         f"device memory {peak} B, tonemap launches {launches}, wave-kernel "
         f"launches {wave_launches} ({launched['advances']} advances with work,"
         f" {1 + TIMED_STEPS} steps, {rounds} rounds), walk launches "
-        f"{walk_launches}, service launches {service_launches}, bytes off "
-        f"the CPU tonemap "
+        f"{walk_launches}, service launches {service_launches}, lane set-up "
+        f"launches {launched['lane_init']}, bytes off the CPU tonemap "
         f"{int((off > 0).sum())} (max {int(off.max())})")
     if float(img.mean()) != MAIN_IMAGE_MEAN:
         raise AssertionError(f"image mean {float(img.mean())!r} is not "
@@ -1410,11 +1431,40 @@ def phase_main_path(r: Renderer, params) -> dict:
     if counts != MAIN_STEP_COUNTS:
         raise AssertionError(f"steps traced {counts}, not "
                              f"{MAIN_STEP_COUNTS}: the work changed")
+    no_sync_step(r, params)
     ms = float(np.mean([s["ms"] for s in steps]))
     return dict(steps=steps, launches=launches, counts=launched,
                 ms_per_step=ms,
                 mrays_per_s=float(np.mean([s["mrays_per_s"] for s in steps])),
                 peak_bytes=peak, image_mean=float(img.mean()))
+
+
+def no_sync_step(r: Renderer, params) -> None:
+    """One more ``Renderer.step`` with synchronizing calls refused
+    (torch.cuda.set_sync_debug_mode("error")) from its start to the wave
+    kernel's one read of its counters (ops/wave.py read_counters): the
+    wave's set-up (Wave.__init__, the lane set-up kernel) and the wave
+    kernel's launch wait for nothing on the card."""
+    read = wave.read_counters
+    reads = []
+
+    def counters(ctl):
+        torch.cuda.set_sync_debug_mode(0)
+        reads.append(1)
+        return read(ctl)
+
+    wave.read_counters = counters
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        r.step(params)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        wave.read_counters = read
+    r.block_until_ready()
+    log(f"[main] a step with synchronizing calls refused up to the wave "
+        f"kernel's read of its counters: ran, {len(reads)} read")
+    if len(reads) != 1:
+        raise AssertionError(f"{len(reads)} counter reads in a step")
 
 
 def _launched(fn) -> dict:
@@ -1533,14 +1583,18 @@ def phase_progressive(r: Renderer, arrays, params) -> dict:
         steps += 1  # one pu.step
         log(f"[progressive] unbounded frame {i + 1}: {f['ms']:.1f} ms "
             f"(snapshot {snap_ms:.1f} ms), {frame_launches} wave-kernel "
-            f"launch for {PROGRESSIVE_ROUNDS} rounds, "
-            f"spp mean {f['mean_spp']!r} min {f['min_spp']} max "
+            f"launch for {PROGRESSIVE_ROUNDS} rounds, {got['lane_init']} lane "
+            f"set-up, spp mean {f['mean_spp']!r} min {f['min_spp']} max "
             f"{f['max_spp']}, path rays {path}, shadow rays {shadow}, "
             f"{f['mrays_per_s']:.3f} Mrays/s")
         if (frame_launches != 1 or got["advances"] != 1 or got["walk"]
                 or got["service"] or pu.done()):
             raise AssertionError(f"frame {i + 1}: launches {got} for "
                                  f"{PROGRESSIVE_ROUNDS} rounds in one step")
+        if got["lane_init"] != (i in (0, PROGRESSIVE_FRAMES[0])):
+            raise AssertionError(f"frame {i + 1}: {got['lane_init']} lane "
+                                 "set-up launches: one a wave, in the first "
+                                 "frame after a reset")
         if not (cnt >= prev).all() or not cnt.sum() > prev.sum():
             raise AssertionError(f"frame {i + 1}: a count fell or none grew")
         if not np.isfinite(acc).all() or not path > 0:
@@ -1572,15 +1626,18 @@ def phase_tiled(r: Renderer, params) -> dict:
     img = r.image()
     off = int((r.image(on_device=False) != img).sum())
     log(f"[tiled] {TILES} tiles: {1e3 * dt:.1f} ms, {st['iterations']} rounds "
-        f"({launches} wave-kernel launches; step: "
+        f"({launches} wave-kernel and {got['lane_init']} lane set-up "
+        f"launches; step: "
         f"{want_stats['iterations']}), "
         f"(path, shadow, rows) {counts[1]} vs step {counts[0]}; sums equal "
         f"{equal}; image bytes off the host tonemap {off}")
     if not equal or counts[0] != counts[1]:
         raise AssertionError("step_tiled differs from step")
-    if launches != TILES:
-        raise AssertionError(f"{launches} wave-kernel launches for {TILES} "
-                             "strips: a strip's wave is one launch")
+    if launches != TILES or got["lane_init"] != TILES:
+        raise AssertionError(f"{launches} wave-kernel and "
+                             f"{got['lane_init']} lane set-up launches for "
+                             f"{TILES} strips: a strip's wave is one of "
+                             "each")
     if not np.array_equal(r.image(on_device=True), img):
         raise AssertionError("image(on_device=True) differs from image()")
     if off > MAX_BOUNDARY_SHARE * img.size:
@@ -1668,10 +1725,11 @@ COUNTED = dict(tonemap=tm.tonemap_cuda, fetch_chain=fetch.fetch_chain_cuda,
                walk=walk.quad_walk_cuda,
                threaded_walk=threaded.threaded_walk_cuda,
                service=service.service_pass_cuda,
-               wave=wave.wave_advance_cuda, advances=_Advances)
+               wave=wave.wave_advance_cuda,
+               lane_init=lane_init.lane_init_cuda, advances=_Advances)
 # The kernels among them.
 KERNELS = ("tonemap", "fetch_chain", "walk", "threaded_walk", "service",
-           "wave")
+           "wave", "lane_init")
 
 
 def _zero_counts() -> None:
@@ -1834,6 +1892,7 @@ def phase_app(arrays, tmp: str) -> dict:
                              f"{app.frames_displayed} frames displayed")
     if launches != dict(tonemap=0, fetch_chain=0, walk=0, threaded_walk=0,
                         service=0, wave=hand["wave"],
+                        lane_init=hand["lane_init"],
                         advances=hand["advances"]) or not hand["wave"]:
         raise AssertionError(f"launches {launches}; the hand-driven steps "
                              f"launched {hand}")
@@ -1900,9 +1959,10 @@ def phase_app(arrays, tmp: str) -> dict:
         f"{sum(t['rounds'] for t in ticks)} rounds in {len(ticks)} steps")
     if len(ticks) != PROGRESSIVE_TICKS or plaunches != dict(
             tonemap=0, fetch_chain=0, walk=0, threaded_walk=0, service=0,
-            wave=len(ticks), advances=len(ticks)):
+            wave=len(ticks), lane_init=2, advances=len(ticks)):
         raise AssertionError("a tick is one step, a step one wave-kernel "
-                             "launch")
+                             "launch, and the two waves (the first tick's "
+                             "and the camera move's) one lane set-up each")
     if not all(4 <= t["rounds"] <= 4096 for t in ticks) or not packs:
         raise AssertionError("budget out of [4, 4096] or nothing displayed")
     before, after = (ticks[PROGRESSIVE_MOVE - 2]["move_spp"],
@@ -2556,6 +2616,150 @@ def phase_wave(r: Renderer, features_r: Renderer, params, tmp: str,
     return out
 
 
+# -- [lane_init]: the lane set-up kernel --------------------------------------
+
+def _poison(s, skip=()) -> None:
+    """Fill a state's fields with a pattern the kernel must overwrite:
+    NaN payloads in float32 fields, 0x5A bytes in the others (fresh
+    device memory is often zero, which would hide an unwritten field)."""
+    for key, t in s.items():
+        if key in skip:
+            continue
+        if t.dtype == torch.float32:
+            t.view(torch.int32).fill_(LANE_POISON)
+        else:
+            t.view(torch.uint8).fill_(0x5A)
+
+
+def lane_state_bytes(s) -> int:
+    """Bytes the lane set-up kernel must move at least: every field it
+    writes once (pix read once instead when it is given), plus the four
+    totals and the row count."""
+    return (sum(t.numel() * t.element_size() for t in s.values())
+            + 8 * (len(service.TOTALS) + 1))
+
+
+def _lane_case(label: str, r: Renderer, cam, pixels, frame: int,
+               seed_spp: int, offset: int) -> dict:
+    """The kernel on a poisoned state against init_lane_ctx on the card,
+    field for field, bit for bit, with the wave's totals and rows."""
+    n = len(pixels)
+    fr = persistent._Frame(r.scene, r.inline, r.cfg, cam, frame, WIDTH,
+                           HEIGHT, 1, seed_spp, offset)
+    params = service.service_params(fr)
+    textured = r.inline.tex0 is not None
+    ranged = isinstance(pixels, range)
+    pix = (torch.arange(pixels.start, pixels.stop, device=r.device)
+           if ranged else pixels)
+    s = lane_init.new_lane_state(n, r.cfg.quad_regs, textured, r.device,
+                                 None if ranged else pixels)
+    _poison(s, skip=() if ranged else ("pix",))
+    totals = torch.full((len(service.TOTALS),), 0x5A5A, dtype=torch.int64,
+                        device=r.device)
+    rows = torch.full((), 0x5A5A, dtype=torch.int64, device=r.device)
+    before = lane_init.lane_init_cuda.launches
+    lane_init.lane_init_cuda(s, r.inline, params, totals, rows,
+                             pixels.start if ranged else None)
+    torch.cuda.synchronize()
+    want = persistent.init_lane_ctx(frame, seed_spp, pix, cam, WIDTH, HEIGHT,
+                                    r.cfg, with_tstash=textured,
+                                    sample_offset=offset)
+    bad = [k for k in want if k not in s or not torch.equal(_bits(s[k]),
+                                                            _bits(want[k]))]
+    err = max(float((s[k].double() - want[k].double()).abs()
+                    .nan_to_num(float("inf")).max())
+              for k in want if k in s and s[k].is_floating_point())
+    log(f"[lane_init] {label}: {n} lanes, regs {r.cfg.quad_regs}, texture "
+        f"stash {textured}, pixels {pixels if ranged else 'given'}, frame "
+        f"{frame}, seed spp {seed_spp}, sample offset {offset}: fields not "
+        f"bit-equal {bad}, max abs err {err!r}, totals {totals.tolist()}, "
+        f"rows {int(rows)}")
+    if (bad or list(s) != list(want) or err != 0.0
+            or totals.tolist() != [n, 0, 0, 0] or int(rows) != 0
+            or lane_init.lane_init_cuda.launches != before + 1):
+        raise AssertionError(f"[lane_init] {label}: the kernel differs from "
+                             "init_lane_ctx")
+    return dict(lanes=n, state=s, fr=fr, params=params, want=want,
+                max_abs_err=err)
+
+
+def phase_lane_init(r: Renderer, features_r: Renderer, params) -> dict:
+    """The lane set-up kernel (ops/lane_init.py lane_init_cuda) against
+    its plain version, init_lane_ctx, on the card, bit for bit and field
+    for field on a poisoned state (_lane_case), in six cases at
+    1200x800: the main path's 960,000 lanes (texture stash, 3 skip
+    registers), a step_tiled strip that does not start at pixel 0, a
+    sample-parallel shard (sample offset 1, seed spp 2, the second half of
+    the pixels), a thin lens (aperture 2.0), an untextured cube256 scene
+    with no skip registers, the [features] renderer, and a pixel tensor
+    read as given (reversed); the main case also against init_lane_ctx
+    run on the CPU.  Then the kernel's own time, its wrapper's, the
+    plain version's, its bound and its build, on the main case."""
+    n = WIDTH * HEIGHT
+    span = -(-n // TILES)
+    lens = CameraController()
+    lens.aperture = 2.0
+    cube = Renderer(flatten_scene(cornell_with(
+        *cube_mesh(15.0), (50.0, 20.0, 50.0), albedo=(0.75, 0.75, 0.75),
+        roughness=1.0), textures=[]), cfg=RenderConfig(
+            width=WIDTH, height=HEIGHT, spp=1, quad_regs=0,
+            quad_select="perm"))
+    if cube.inline.tex0 is not None or cube.cfg.quad_regs:
+        raise AssertionError("the cube256 case must be untextured, no regs")
+    cases = {}
+    main = _lane_case("main", r, params, range(n), 1, 1, 0)
+    for label, rr, cam, pixels, frame, seed_spp, offset in (
+            ("tiled strip 2", r, params, range(span, 2 * span), 1, 1, 0),
+            ("shard", r, params, range(n // 2, n), 3, 2, 1),
+            ("lens", r, lens.get_params(WIDTH, HEIGHT), range(n), 2, 1, 0),
+            ("cube256 untextured", cube, params, range(n), 1, 1, 0),
+            ("features", features_r, params, range(n), 1, 1, 0),
+            ("pixel tensor", r, params,
+             torch.arange(n, device=r.device).flip(0).contiguous(), 5, 1,
+             0)):
+        res = _lane_case(label, rr, cam, pixels, frame, seed_spp, offset)
+        cases[label] = dict(lanes=res["lanes"])
+        del res
+    del cube
+    # The card against the CPU at 1200x800 (camera rays included).
+    got = main["state"]
+    cpu = persistent.init_lane_ctx(1, 1, torch.arange(n), params, WIDTH,
+                                   HEIGHT, r.cfg, with_tstash=True)
+    bad = [k for k in cpu if not torch.equal(_bits(got[k].cpu()),
+                                             _bits(cpu[k]))]
+    log(f"[lane_init] main: the card's state against init_lane_ctx on the "
+        f"CPU at {WIDTH}x{HEIGHT}: fields not bit-equal {bad}")
+    if bad:
+        raise AssertionError("[lane_init] the card differs from the CPU")
+    del cpu
+    # Times on the main case.
+    fr, p, s = main["fr"], main["params"], got
+    totals = torch.empty(len(service.TOTALS), dtype=torch.int64,
+                         device=r.device)
+    rows = torch.empty((), dtype=torch.int64, device=r.device)
+    run = lambda: lane_init.lane_init_cuda(s, r.inline, p, totals, rows, 0)
+    wrapper_ms = _time_ms(run, reps=20)
+    plain_ms = _time_ms(lambda: persistent.init_lane_ctx(
+        1, 1, torch.arange(n, device=r.device), params, WIDTH, HEIGHT, r.cfg,
+        with_tstash=True), reps=5)
+    ms = _kernel_ms(run, "lane_init_kernel", reps=20)
+    n_bytes = lane_state_bytes(s)
+    b = service_bound(n_bytes, dict(sqrt=7 * n, cos=n, sin=n, pow=0,
+                                    dmul=0))
+    build = ptxas_numbers(lane_init.LIBRARY.compiler_log, "lane_init_kernel")
+    log(f"[lane_init] main: kernel's own time {ms:.5f} ms, wrapper "
+        f"{wrapper_ms:.5f} ms, plain (init_lane_ctx on the card) "
+        f"{plain_ms:.4f} ms; bound {b['bound_ms']:.5f} ms by "
+        f"{b['bound_by']} ({n_bytes} B written: {b['bytes_ms']:.5f} ms; "
+        f"FP64 {b['fp64_ms']:.5f} ms: {b['fp64_instructions']} "
+        f"instructions), own time {ms / b['bound_ms']:.2f}x; build {build}")
+    return dict(max_abs_err=main["max_abs_err"], ms=ms,
+                wrapper_ms=wrapper_ms, plain_ms=plain_ms, library_ms=None,
+                bound_bytes=n_bytes, build=build, cases=cases,
+                **{k: b[k] for k in ("bound_ms", "bound_by", "bytes_ms",
+                                     "fp64_ms", "fp64_instructions")})
+
+
 # -- [bounce]: the bounce engine ---------------------------------------------
 
 @contextlib.contextmanager
@@ -2946,7 +3150,8 @@ def phase_parallel(arrays, r: Renderer, rb: Renderer, params,
             expect = dict(tonemap=1, fetch_chain=0, walk=0,
                           threaded_walk=2 * n_iter if engine == "bounce"
                           else 0,
-                          service=0, wave=waves, advances=waves)
+                          service=0, wave=waves, lane_init=waves,
+                          advances=waves)
             got = sr.accum_host()
             rays = (int(sr.last_stats["n_traced"]),
                     int(sr.last_stats["n_shadow"]))
@@ -3067,6 +3272,9 @@ def main() -> int:
         features_run, features_r = phase_features(r, params, tmp)
         bounce_run, rb = phase_bounce(arrays, r, params, tmp)
         parallel_run = phase_parallel(arrays, r, rb, params, tmp)
+        # After every phase that times steps: its own time is the first
+        # torch.profiler session.
+        lane = phase_lane_init(r, features_r, params)
         tone = phase_tonemap()
         chain = phase_fetch(seed=0)
         walked, serviced = phase_walk(r, params)
@@ -3174,7 +3382,16 @@ def main() -> int:
                  "bound_bytes", "fp64_instructions", "rounds_bound_ms",
                  "latency_floor_ms", "longest_walks", "latency_ns", "plan",
                  "build")},
-             cases=waved["cases"])]}))
+             cases=waved["cases"]),
+        dict(name="lane_init", route="cuda",
+             source="tryraytrace_tpu_torch/csrc/lane_init.cu",
+             replaces="tryraytrace_tpu/engine/persistent.py:167; "
+                      "tryraytrace_tpu/engine/camera_rays.py:21",
+             **main_counts("lane_init"), **path_counts("lane_init"),
+             **{k: lane[k] for k in keys},
+             **{k: lane[k] for k in ("bound_bytes", "bytes_ms", "fp64_ms",
+                                     "fp64_instructions", "build")},
+             cases=lane["cases"])]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

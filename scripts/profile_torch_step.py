@@ -1,19 +1,22 @@
 """Where a step of the PyTorch port's engine spends its time on a card.
 
     python3 scripts/profile_torch_step.py [--tree DIR] [--width 1200
-        --height 800] [--steps 3]
+        --height 800] [--steps 3] [--tiles N]
 
 Imports ``tryraytrace_tpu_torch`` and ``chip_smoke`` (for the main-path
 scene) from ``DIR`` (default: this checkout), so that a commit and its
 parent can be profiled alike, each in a process of its own.  Renders
 chip_smoke.py's main-path scene (Cornell box + icosphere(5), 20,487
 triangles) once to warm up, then profiles ``--steps`` whole steps
-(``Renderer.step``, each ended by ``Renderer.block_until_ready``) with
-torch.profiler: host wall time and device kernel time per step (their
-ratio is the device's busy share), kernel launches per step, the device
-time of the engine's kernels by name (the wave kernel, or the walk and
-service kernels of a tree that runs the round loop), and the kernels
-that take the most device time.  Prints one JSON line last.  Needs a
+(``Renderer.step``, or ``Renderer.step_tiled`` with ``--tiles N``, each
+ended by ``Renderer.block_until_ready``) with torch.profiler: host wall
+time and device time per step (their ratio is the device's busy share),
+device operations per step (kernels, copies and fills), the device time
+of the engine's kernels by name (the wave kernel, or the walk and
+service kernels of a tree that runs the round loop, and the lane set-up
+kernel of a tree that has one) and the device time outside the wave
+kernel, and then every kernel, copy and fill of a step by name with its
+launches and device time per step.  Prints one JSON line last.  Needs a
 CUDA device.
 """
 
@@ -27,7 +30,7 @@ import time
 
 # The engine's kernels, by a part of their names.
 ENGINE_KERNELS = ("wave_advance_kernel", "quad_walk_kernel",
-                  "service_pass_kernel")
+                  "service_pass_kernel", "lane_init_kernel")
 
 
 def main() -> int:
@@ -37,6 +40,8 @@ def main() -> int:
     ap.add_argument("--width", type=int, default=1200)
     ap.add_argument("--height", type=int, default=800)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--tiles", type=int, default=0,
+                    help="profile step_tiled with this many strips")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -59,7 +64,9 @@ def main() -> int:
                  cfg=RenderConfig(width=w, height=h, spp=1), device="cuda")
     print(f"[profile] {tree}: scene + upload {time.perf_counter() - t0:.2f} s")
     params = CameraController().get_params(w, h)
-    r.step(params)
+    step = ((lambda: r.step_tiled(params, args.tiles)) if args.tiles
+            else (lambda: r.step(params)))
+    step()
     r.block_until_ready()
     rounds = []
     torch.cuda.synchronize()
@@ -67,32 +74,41 @@ def main() -> int:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            r.step(params)
+            step()
             r.block_until_ready()
             rounds.append(r.last_stats["iterations"])
         wall = time.perf_counter() - t0
     n = args.steps
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    dev_us = sum(e.device_time_total for e in kernels)
-    launches = sum(e.count for e in kernels)
-    engine = {name: sum(e.device_time_total for e in kernels
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.device_time_total for e in ops)
+    launches = sum(e.count for e in ops)
+    engine = {name: sum(e.device_time_total for e in ops
                         if name in e.key) / n / 1e3
               for name in ENGINE_KERNELS}
-    print(f"[profile] {torch.cuda.get_device_name(0)}; {w}x{h}; {n} steps "
-          f"of {rounds} rounds under the profiler: wall {wall / n * 1e3:.3f}"
-          f" ms/step, device kernels {dev_us / n / 1e3:.3f} ms/step, busy "
-          f"share {dev_us / 1e6 / wall:.3f}, kernel launches "
+    outside = (dev_us - sum(e.device_time_total for e in ops
+                            if "wave_advance_kernel" in e.key)) / n / 1e3
+    what = f"step_tiled({args.tiles})" if args.tiles else "step"
+    print(f"[profile] {torch.cuda.get_device_name(0)}; {w}x{h}; {n} "
+          f"{what}s of {rounds} rounds under the profiler: wall "
+          f"{wall / n * 1e3:.3f} ms/step, device {dev_us / n / 1e3:.3f} "
+          f"ms/step ({outside:.4f} ms outside the wave kernel), busy share "
+          f"{dev_us / 1e6 / wall:.3f}, device operations "
           f"{launches / n:.1f}/step; engine kernels (ms/step) {engine}")
-    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:15]:
+    listing = []
+    for e in sorted(ops, key=lambda e: -e.device_time_total):
+        listing.append(dict(name=e.key, per_step=e.count / n,
+                            us_per_step=e.device_time_total / n))
         print(f"[profile]   {e.device_time_total / n:9.1f} us/step "
-              f"{e.count / n:6.1f}/step  {e.key[:90]}")
+              f"{e.count / n:6.1f}/step  {e.key[:110]}")
     print(json.dumps({
         "tree": tree, "device": torch.cuda.get_device_name(0),
-        "steps": n, "rounds": rounds, "wall_ms_per_step": wall / n * 1e3,
+        "what": what, "steps": n, "rounds": rounds,
+        "wall_ms_per_step": wall / n * 1e3,
         "device_ms_per_step": dev_us / n / 1e3,
+        "outside_wave_ms_per_step": outside,
         "busy_share": dev_us / 1e6 / wall, "launches_per_step": launches / n,
-        "engine_ms_per_step": engine}))
+        "engine_ms_per_step": engine, "operations": listing}))
     return 0
 
 

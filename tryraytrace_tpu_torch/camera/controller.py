@@ -36,9 +36,12 @@ class CameraParams:
                             f32(lens_radius), f32(focus_dist))
 
     def to(self, device) -> "CameraParams":
-        """The same parameters as float32 tensors on ``device``."""
+        """The same parameters as float32 tensors on ``device`` (a field
+        already there is kept as it is)."""
+        as_array = lambda v: (v if isinstance(v, torch.Tensor)
+                              else np.asarray(v))
         return CameraParams(*(
-            torch.as_tensor(np.asarray(getattr(self, f.name)),
+            torch.as_tensor(as_array(getattr(self, f.name)),
                             dtype=torch.float32, device=device)
             for f in dataclasses.fields(self)))
 

@@ -19,9 +19,11 @@ TWO_PI = float(np.float32(2.0 * np.pi))
 def generate_rays(cam, width: int, height: int, seed, pixel_idx):
     """Primary rays for pixel indices ``pixel_idx`` [N] -> (o, d) [N, 3].
 
-    ``cam`` holds tensors on the pixels' device (CameraParams.to);
-    ``seed`` is the per-lane sample seed, int64 in [0, 2**32)."""
+    ``cam`` is a CameraParams, moved to the pixels' device here when it
+    is not there (CameraParams.to); ``seed`` is the per-lane sample
+    seed, int64 in [0, 2**32)."""
     i = pixel_idx
+    cam = cam.to(i.device)
     x = (i % width).to(torch.float32)
     row = i // width
     y = (height - 1 - row).to(torch.float32)  # buffer row -> "up" index

@@ -27,9 +27,12 @@ subset) run the same code as a batch frame.  On a card a
 ``Wave.advance`` is one launch of a hand-written kernel
 (ops/wave.py ``wave_advance_cuda``: the call's rounds, each the walks,
 a grid-wide barrier and the services, over the lanes still live), and
-the host reads the rounds run and the live count at its end.  On the CPU it is the round
-loop: one call of ``quad_walk`` (ops/walk.py; ``walk_plain``) runs every
-walk to its end, then ``service_plain``, the eager service block of this
+the host reads the rounds run and the live count at its end; the
+wave's fresh state is one launch of another (ops/lane_init.py
+``lane_init_cuda``), with nothing copied to the card or read back
+before the wave kernel's launch.  On the CPU it is the round loop: one
+call of ``quad_walk`` (ops/walk.py; ``walk_plain``) runs every walk to
+its end, then ``service_plain``, the eager service block of this
 module, serves every lane; ``_round_quad`` is that round, which on a
 card launches the walk and service kernels (ops/walk.py,
 ops/service.py), a route the tests and the smoke run take by passing it
@@ -71,6 +74,7 @@ from tryraytrace_tpu_torch.core import rng, vec
 from tryraytrace_tpu_torch.engine.camera_rays import generate_rays
 from tryraytrace_tpu_torch.engine.wavefront import _sanitize
 from tryraytrace_tpu_torch.ops import shade
+from tryraytrace_tpu_torch.ops.lane_init import lane_init_cuda, new_lane_state
 from tryraytrace_tpu_torch.ops.service import (LIVE, TOTALS, service_params,
                                                service_pass_cuda)
 from tryraytrace_tpu_torch.ops.texture import (TEX_ROW, TEX_TILE,
@@ -101,6 +105,12 @@ class InlineTable:
     metas: list           # per-texture tile layout (build_texture_tiles)
     walk: torch.Tensor    # the quad rows in walk order (walk_order_table)
     walk_levels: tuple    # rows per tree level of ``walk``
+    # What the service and wave kernels read besides the table
+    # (ops/service.py ServiceParams), built once per table: the lights'
+    # trimat rows [max(lights, 1), 37] f32 and the texture layout
+    # [max(textures, 1), 4] int64 (offset, tiles_x, w, h).
+    light_rows: torch.Tensor
+    meta_rows: torch.Tensor
 
 
 def build_inline_table(scene, textures) -> InlineTable:
@@ -117,7 +127,9 @@ def build_inline_table(scene, textures) -> InlineTable:
     The round loop's walks read a second copy of the quad rows, in
     breadth-first order with 16-byte rows (accel/bvh.py
     ``walk_order_table``); the service fetches and the interleaved loop
-    read the unified table."""
+    read the unified table.  The lights' trimat rows and the texture
+    layout, which the kernels' parameters point at, are built here too,
+    once per table (``Renderer.refit`` builds a new table)."""
     table = scene.quad_table
     nw = table.shape[1]
     pack = 2 if nw >= 74 else 1
@@ -138,9 +150,18 @@ def build_inline_table(scene, textures) -> InlineTable:
         tex0 = sentinel + int(packed.shape[0])
     walk, levels = walk_order_table(table.cpu().numpy(), scene.leaf_size,
                                     scene.leaf_fmt)
+    dev = table.device
+    n_lights = int(scene.num_lights)
+    if n_lights:
+        lights = scene.trimat[scene.light_indices[:n_lights]].contiguous()
+    else:
+        lights = torch.zeros((1, scene.trimat.shape[1]), device=dev)
+    meta_rows = torch.tensor(
+        [[m["offset"], m["tiles_x"], m["w"], m["h"]] for m in metas]
+        or [[0, 0, 0, 0]], dtype=torch.int64, device=dev)
     return InlineTable(torch.cat(parts, 0), sentinel, pack, tex0, metas,
-                       torch.as_tensor(walk, device=table.device),
-                       tuple(levels))
+                       torch.as_tensor(walk, device=dev), tuple(levels),
+                       lights, meta_rows)
 
 
 @dataclasses.dataclass
@@ -150,7 +171,7 @@ class _Frame:
     scene: object
     inline: InlineTable
     cfg: RenderConfig
-    cam: object
+    cam: object  # CameraParams: host arrays, or tensors for plain rounds
     frame_seed: int
     width: int
     height: int
@@ -165,7 +186,11 @@ def init_lane_ctx(frame_seed: int, seed_spp: int, pix0, cam, width: int,
                   sample_offset: int = 0) -> dict:
     """Fresh per-lane wave state: lane i renders pixel ``pix0[i]``,
     starting with its sample 0, whose seed is
-    ``sample_seed(frame_seed, seed_spp, sample_offset)``."""
+    ``sample_seed(frame_seed, seed_spp, sample_offset)``.
+
+    The plain version of the lane set-up kernel (ops/lane_init.py
+    ``lane_init_cuda``): a ``Wave`` on the CPU, or given a ``round_fn``,
+    fills its state here; a ``Wave`` on a card launches the kernel."""
     w = int(pix0.shape[0])
     dev = pix0.device
     f3 = lambda: torch.zeros((w, 3), device=dev)
@@ -214,11 +239,12 @@ def render_frame_persistent(scene, inline: InlineTable, cam, frame_seed: int,
     end, then one service pass (on a CUDA device, all of them in one
     launch of the wave kernel).
     ``inline`` is the scene's ``build_inline_table``; ``cam`` a
-    CameraParams (NumPy or tensors); ``pixels`` the pixel ids to render
-    (an int64 tensor on the scene's device; all ``width * height`` by
-    default).  The samples are numbers ``sample_offset + s``, s in [0,
-    spp), of the seed schedule with ``seed_spp`` (default ``spp``): a
-    sample-parallel shard's slice of the frame's sample set.
+    CameraParams (NumPy or tensors); ``pixels`` the pixel ids to render:
+    a ``range`` of step 1 or an int64 tensor on the scene's device (all
+    ``width * height`` by default).  The samples are numbers
+    ``sample_offset + s``, s in [0, spp), of the seed schedule with
+    ``seed_spp`` (default ``spp``): a sample-parallel shard's slice of
+    the frame's sample set.
 
     Returns (radiance sum [len(pixels), 3] in the order of ``pixels``,
     stats) with stats ``n_traced`` and ``n_shadow`` (int64 tensors: path
@@ -246,7 +272,7 @@ def _render_frame(scene, inline: InlineTable, cam, frame_seed: int,
                   seed_spp: int):
     """One wave over ``pixels`` run until every lane is DONE."""
     if pixels is None:
-        pixels = torch.arange(width * height, device=scene.quad_table.device)
+        pixels = range(width * height)
     wave = Wave(scene, inline, cam, frame_seed, width, height, cfg, pixels,
                 spp, seed_spp, round_fn, check_every, sample_offset)
     wave.advance()
@@ -257,14 +283,24 @@ class Wave:
     """A regenerating wave that lives across calls: lane i renders the
     samples of pixel ``pixels[i]`` in order (seeds
     ``sample_seed(frame_seed, seed_spp, sample_offset + sample)``) and
-    retires once the pixel has ``spp_cap`` of them.
+    retires once the pixel has ``spp_cap`` of them.  ``pixels`` is a
+    ``range`` of step 1 or an int64 tensor of pixel ids; ``cam`` a
+    CameraParams of host arrays (or of tensors, which are read back).
 
-    On a card, by default, ``advance`` is one launch of the wave kernel
+    On a card, by default, the fresh state is one launch of the lane
+    set-up kernel (ops/lane_init.py ``lane_init_cuda``) into state
+    allocated unfilled, with the kernels' parameters packed on the host
+    from ``cam`` (ops/service.py ``service_params``): the camera is not
+    copied to the card, and nothing is read back before the wave
+    kernel's launch.  ``advance`` is one launch of the wave kernel
     (ops/wave.py ``wave_advance_cuda``), which runs the rounds in place
     and adds their rays to ``totals`` (ops/service.py ``TOTALS``) and
     their rows to ``rows_fetched``; the host reads the rounds run and
-    the live count, and the state keeps every lane in its place.  A failed build or launch raises.  Otherwise (on the CPU,
-    or given a ``round_fn``) ``advance`` runs rounds of ``round_fn``
+    the live count, and the state keeps every lane in its place.  A
+    failed build or launch raises.  Otherwise (on the CPU, or given a
+    ``round_fn``) ``init_lane_ctx`` fills the state on the device, with
+    the camera moved there for the plain rounds' camera rays, and
+    ``advance`` runs rounds of ``round_fn``
     (``_round_quad``, the CPU's default: the walks, then a service pass,
     a kernel launch each on a card; or ``_step_quad``, the interleaved
     loop's step), looking for a live lane every ``check_every`` of them;
@@ -283,22 +319,42 @@ class Wave:
         check_supported(cfg)
         dev = scene.quad_table.device
         frame_seed = int(frame_seed) & rng.MASK32
-        cam = cam.to(dev)
         # None: the wave kernel, one launch an advance (the card's default).
         self._round = (round_fn if round_fn is not None
                        else _round_quad if dev.type == "cpu" else None)
+        if self._round is not None:
+            cam = cam.to(dev)
         self._check_every = check_every
         self._fr = _Frame(scene, inline, cfg, cam, frame_seed, width, height,
                           int(spp_cap), int(seed_spp), int(sample_offset))
-        n = int(pixels.shape[0])
+        ranged = isinstance(pixels, range)
+        if ranged and pixels.step != 1:
+            raise ValueError(f"pixels {pixels} is not a range of step 1")
+        n = len(pixels) if ranged else int(pixels.shape[0])
+        self.rounds = 0
+        self.done = n == 0
+        textured = inline.tex0 is not None
+        if self._round is None:
+            # The lane set-up kernel writes the state, the totals
+            # ([n, 0, 0, 0]) and the rows (0); nothing compacts here.
+            self._fr.service = service_params(self._fr)
+            self.totals = torch.empty(len(TOTALS), dtype=torch.int64,
+                                      device=dev)
+            self.rows_fetched = torch.empty((), dtype=torch.int64, device=dev)
+            self.state = new_lane_state(n, cfg.quad_regs, textured, dev,
+                                        None if ranged else pixels)
+            lane_init_cuda(self.state, inline, self._fr.service, self.totals,
+                           self.rows_fetched,
+                           pixels.start if ranged else None)
+            self._pos = self._out = self._count = None
+            return
+        if ranged:
+            pixels = torch.arange(pixels.start, pixels.stop, device=dev)
         self.totals = torch.tensor([n] + [0] * (len(TOTALS) - 1),
                                    dtype=torch.int64, device=dev)
         self.rows_fetched = torch.zeros((), dtype=torch.int64, device=dev)
-        self.rounds = 0
-        self.done = n == 0
         self.state = init_lane_ctx(frame_seed, seed_spp, pixels, cam, width,
-                                   height, cfg,
-                                   with_tstash=inline.tex0 is not None,
+                                   height, cfg, with_tstash=textured,
                                    sample_offset=int(sample_offset))
         self._pos = torch.arange(n, device=dev)  # lane -> place in pixels
         # Sums and counts of the lanes retired by compaction, by place.
@@ -313,8 +369,6 @@ class Wave:
         if self._round is None:
             if self.done or (max_rounds is not None and max_rounds < 1):
                 return self.done
-            if fr.service is None:
-                fr.service = service_params(fr)
             ran, live = wave_advance_cuda(
                 self.state, fr.inline, fr.service, self.totals,
                 self.rows_fetched, max_rounds, k=fr.scene.leaf_size,
@@ -353,6 +407,8 @@ class Wave:
         """(radiance sums [n, 3], completed samples [n] int64) of the
         wave's pixels, in the order of ``pixels``; the wave is left as
         it was."""
+        if self._pos is None:  # the wave kernel keeps every lane in place
+            return self.state["out"].clone(), self.state["sample"].clone()
         out = self._out.clone()
         out[self._pos] = self.state["out"]
         count = self._count.clone()

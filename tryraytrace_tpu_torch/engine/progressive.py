@@ -89,8 +89,7 @@ class ProgressiveRenderer:
             quad_collapse=self.cfg.quad_collapse, device=self.device,
             leaf_fmt=self.cfg.leaf_isect)
         self.inline = build_inline_table(self.scene, self.textures)
-        self._pixels = torch.arange(self.width * self.height,
-                                    device=self.device)
+        self._pixels = range(self.width * self.height)
         self.wave: Wave | None = None
 
     def reset(self) -> None:

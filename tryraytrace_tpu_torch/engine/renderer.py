@@ -100,9 +100,8 @@ class Renderer:
         span = -(-n // max(1, min(int(tiles), n)))
         parts, stats = [], []
         for start in range(0, n, span):
-            pixels = torch.arange(start, min(start + span, n),
-                                  device=self.device)
-            part, st = self._render(cam, spp, pixels)
+            part, st = self._render(cam, spp, range(start,
+                                                    min(start + span, n)))
             parts.append(part)
             stats.append(st)
         self.last_stats = {key: sum(st[key] for st in stats)

@@ -157,9 +157,10 @@ def render_frame(scene, inline, textures, cam, frame_seed: int, width: int,
                  height: int, cfg: RenderConfig, spp: int | None = None,
                  pixels=None, sample_offset: int = 0,
                  seed_spp: int | None = None):
-    """One frame's radiance sums over ``spp`` samples of ``pixels``
-    (every pixel by default) with the engine ``cfg.engine`` picks ->
-    (sums [N, 3] in the order of ``pixels``, stats).
+    """One frame's radiance sums over ``spp`` samples of ``pixels`` (a
+    ``range`` of step 1 or an int64 tensor of pixel ids; every pixel by
+    default) with the engine ``cfg.engine`` picks -> (sums [N, 3] in the
+    order of ``pixels``, stats).
 
     The seeds are ``sample_seed(frame_seed, seed_spp, sample_offset +
     s)`` for s in [0, spp), so any (frame, spp) tiling of a frame's
@@ -170,6 +171,9 @@ def render_frame(scene, inline, textures, cam, frame_seed: int, width: int,
     samples) and ``rows_fetched``."""
     spp = cfg.spp if spp is None else spp
     seed_spp = spp if seed_spp is None else seed_spp
+    if isinstance(pixels, range) and cfg.engine != "persistent":
+        pixels = torch.arange(pixels.start, pixels.stop,
+                              device=scene.trimat.device)
     if cfg.engine == "persistent":
         from tryraytrace_tpu_torch.engine.persistent import (
             render_frame_persistent)

@@ -23,8 +23,11 @@ count, fireflies clamped or not.
 The constants a pass reads (camera, raster, seed schedule, table
 layout, configuration) are packed once per wave into a
 ``ServiceParams`` (``service_params``): float32 and int64 host arrays
-the launch copies into the kernel's by-value parameters, and two small
-device arrays, the lights' trimat rows and the texture layout.
+the launch copies into the kernel's by-value parameters, packed from the
+caller's host camera with nothing read back from the card, and two small
+device arrays, the lights' trimat rows and the texture layout, which
+the unified table carries (engine/persistent.py ``InlineTable``, built
+once per table).
 
 Signed zeros: the plain block adds ``+ 0.0`` to every lane's ``rad``
 and ``out``, the kernel only to the lanes it serves, so the two are held
@@ -88,22 +91,31 @@ class ServiceParams:
     metas: torch.Tensor   # [max(textures, 1), 4] int64: offset, tiles_x, w, h
 
 
+def _host_f32(v) -> np.ndarray:
+    """A camera field as float32 host values: a NumPy array or scalar as
+    it is (CameraParams.to moves the same float32 values), a tensor read
+    back."""
+    if isinstance(v, torch.Tensor):
+        v = v.cpu()
+    return np.asarray(v, np.float32).reshape(-1)
+
+
 def service_params(fr) -> ServiceParams:
     """Pack the constants of a wave (engine/persistent.py ``_Frame``)
-    for the kernel, on the wave's device: every float is the float32 the
-    plain version computes with (a Python constant as torch rounds it
-    against a float32 tensor, the camera's tensors as they are), the
-    light rows are the scene's trimat rows of its lights and the metas
-    the texture layout of ``build_texture_tiles``."""
+    for the kernel: every float is the float32 the plain version
+    computes with (a Python constant as torch rounds it against a
+    float32 tensor, the camera's float32 values as they are, from host
+    arrays without a read of the card), the light rows are the scene's
+    trimat rows of its lights and the metas the texture layout of
+    ``build_texture_tiles``, both as the unified table carries them."""
     scene, inline, cfg, cam = fr.scene, fr.inline, fr.cfg, fr.cam
     table = inline.table
-    dev = table.device
     f32 = np.float32
-    vec3 = lambda t: [f32(v) for v in np.asarray(t.cpu(), np.float32)]
     n_lights = int(scene.num_lights)
     floats = np.array(
-        [*vec3(cam.pos), *vec3(cam.cx), *vec3(cam.cy), *vec3(cam.dir),
-         f32(float(cam.lens_radius)), f32(float(cam.focus_dist)),
+        [*_host_f32(cam.pos), *_host_f32(cam.cx), *_host_f32(cam.cy),
+         *_host_f32(cam.dir), *_host_f32(cam.lens_radius),
+         *_host_f32(cam.focus_dist),
          f32(fr.width), f32(fr.height), f32(cfg.rr_min_p),
          f32(cfg.emitter_stop_threshold), f32(cfg.shadow_eps),
          f32(cfg.refr_offset), f32(cfg.shadow_max_dist_eps),
@@ -121,14 +133,8 @@ def service_params(fr) -> ServiceParams:
          int(cfg.smooth_shading and scene.has_normals),
          int(cfg.uv_mapping and scene.has_uvs), table.shape[0],
          table.shape[1]], np.int64)
-    if n_lights:
-        lights = scene.trimat[scene.light_indices[:n_lights]].contiguous()
-    else:
-        lights = torch.zeros((1, scene.trimat.shape[1]), device=dev)
-    metas = torch.tensor(
-        [[m["offset"], m["tiles_x"], m["w"], m["h"]] for m in inline.metas]
-        or [[0, 0, 0, 0]], dtype=torch.int64, device=dev)
-    return ServiceParams(floats, ints, table, lights, metas)
+    return ServiceParams(floats, ints, table, inline.light_rows,
+                         inline.meta_rows)
 
 
 LIBRARY = KernelLibrary("service_pass", {
@@ -155,15 +161,13 @@ def state_pointers(s, inline, params: ServiceParams, totals,
     """The device pointers a service kernel takes, in its order (the
     unified table, the light rows, the texture metas, the state fields
     of ``FIELDS``, the totals), after refusing for the wrapper ``who``
-    what it cannot take: tensors off the table's CUDA device, a field
+    what it cannot take: ``params`` packed for another table, a field
     with another dtype or shape or not contiguous (``tstash`` only with
-    textures; a null pointer without), ``params`` packed for another
-    table, totals that are not ``TOTALS``' int64 [4].  Waits for nothing
-    on the device."""
+    textures; a null pointer without), totals that are not ``TOTALS``'
+    int64 [4], tensors off the table's device, and last a table off a
+    CUDA device.  Waits for nothing on the device."""
     table = inline.table
     dev = table.device
-    if dev.type != "cuda":
-        raise ValueError(f"{who} needs CUDA tensors, got {dev}")
     if table is not params.table:
         raise ValueError("params were packed for another table")
     if (table.dim() != 2 or table.dtype != torch.float32
@@ -196,6 +200,8 @@ def state_pointers(s, inline, params: ServiceParams, totals,
         raise ValueError(f"totals must be a contiguous int64 tensor of shape "
                          f"({len(TOTALS)},) on {dev}")
     ptrs.append(totals.data_ptr())
+    if dev.type != "cuda":
+        raise ValueError(f"{who} needs CUDA tensors, got {dev}")
     return ptrs
 
 

@@ -23,15 +23,17 @@ budget.  The host reads two numbers at the end.
 engine's CPU path keeps its own round loop (engine/persistent.py
 ``Wave.advance``), which compacts.
 
-Both take the wave's lane state (engine/persistent.py ``init_lane_ctx``)
-and update it in place, add the rows the walks fetch to ``rows`` and the
-path and shadow rays to ``totals`` (ops/service.py ``TOTALS``), leave the
-live count in the totals' slot of the last round's parity
-(``rounds_before`` is the wave's rounds before the call) with the other
-slot zeroed, as the round loop leaves them, and return (rounds run,
-lanes not DONE after the call).  The rounds run are the most that any lane ran:
-a lane that is live at the start of a round runs it, so that is the
-round loop's count.
+Both take the wave's lane state (on a card filled by the lane set-up
+kernel, ops/lane_init.py ``lane_init_cuda``; on the CPU and in the plain
+round loops by engine/persistent.py ``init_lane_ctx``, its plain
+version) and update it in place, add the rows the walks fetch to
+``rows`` and the path and shadow rays to ``totals`` (ops/service.py
+``TOTALS``), leave the live count in the totals' slot of the last
+round's parity (``rounds_before`` is the wave's rounds before the call)
+with the other slot zeroed, as the round loop leaves them, and return
+(rounds run, lanes not DONE after the call).  The rounds run are the most
+that any lane ran: a lane that is live at the start of a round runs it,
+so that is the round loop's count.
 
 The lanes are independent (owner schedule), so the kernel's state,
 sums, rays, rows and rounds are the round loop's bit for bit, field for
@@ -128,9 +130,10 @@ def wave_advance_cuda(s, inline, params, totals, rows, max_rounds=None, *,
     field of ``ops/service.py FIELDS`` with its engine dtype and shape,
     contiguous, fewer than 2**31 lanes; it is written in place.  Its
     TRAVERSE and SHADOW lanes stand at row 0 with an empty
-    skip-register file, as every lane of ``init_lane_ctx`` and every
-    lane the kernel stops does (a lane stops only between rounds); this
-    is not checked, since it would wait for the device.  ``inline`` is
+    skip-register file, as every fresh lane (``lane_init_cuda``,
+    ``init_lane_ctx``) and every lane the kernel stops does (a lane
+    stops only between rounds); this is not checked, since it would
+    wait for the device.  ``inline`` is
     the engine's InlineTable (the walk-order rows and their top levels,
     ``k`` triangles of format ``fmt`` a leaf; the unified table the
     service reads), ``params`` the wave's ``service.service_params``,
@@ -142,14 +145,15 @@ def wave_advance_cuda(s, inline, params, totals, rows, max_rounds=None, *,
     build).  Refuses on the host, before any library is loaded, what the
     kernel cannot take.
 
-    Returns (rounds run, lanes not DONE): the one read of the call,
-    which waits for the launch.  The launch's plan (staged rows, grid:
-    the blocks the card holds at once, as a cooperative launch needs) is
-    worked out once per table and device; it is left in
-    ``wave_advance_cuda.plan`` with ``tail_lanes``, the live lanes at or
-    below which a round ends the grid-wide rounds and the launch's
-    warps run the lanes left on their own rounds (0: never).  Its
-    scratch, two int32 lists of lanes, comes from PyTorch's allocator."""
+    Returns (rounds run, lanes not DONE): the one read of the call
+    (``read_counters``), which waits for the launch.  The launch's plan
+    (staged rows, grid: the blocks the card holds at once, as a
+    cooperative launch needs) is worked out once per table and device;
+    it is left in ``wave_advance_cuda.plan`` with ``tail_lanes``, the
+    live lanes at or below which a round ends the grid-wide rounds and
+    the launch's warps run the lanes left on their own rounds (0:
+    never).  Its scratch, two int32 lists of lanes, comes from PyTorch's
+    allocator."""
     budget = _budget(max_rounds)
     if rounds_before < 0:
         raise ValueError(f"rounds_before {rounds_before} < 0")
@@ -198,12 +202,20 @@ def wave_advance_cuda(s, inline, params, totals, rows, max_rounds=None, *,
                            f"{err}")
     wave_advance_cuda.launches += 1
     wave_advance_cuda.plan = plan
-    ran, live = ctl[-2:].tolist()
-    return ran, live
+    return read_counters(ctl)
 
 
 wave_advance_cuda.launches = 0
 wave_advance_cuda.plan = None
+
+
+def read_counters(ctl) -> tuple:
+    """(rounds run, lanes not DONE) from a launch's counters: the one
+    read of a ``wave_advance_cuda`` call, and the first point of a step
+    on the card that waits for it (chip_smoke.py runs a step up to here
+    with synchronizing calls refused)."""
+    ran, live = ctl[-2:].tolist()
+    return ran, live
 
 
 def wave_advance_plain(s, inline, fr, totals, rows, max_rounds=None, *,

@@ -97,8 +97,7 @@ def render_frame_sharded(replicas: dict, cam, frame_seed: int, width: int,
         scene, inline, textures = replicas[dev]
         acc, st = render_frame(scene, inline, textures, cam, frame_seed,
                                width, height, cfg, spp=local_spp,
-                               pixels=torch.arange(i * nb, (i + 1) * nb,
-                                                   device=dev),
+                               pixels=range(i * nb, (i + 1) * nb),
                                sample_offset=j * local_spp, seed_spp=spp)
         parts.setdefault(i, []).append(acc)
         counts += torch.stack([st["n_traced"], st["n_shadow"]]).cpu()
