@@ -94,13 +94,15 @@ byte bound, the round loop's, and the rounds' latency floor: each
 round's longest walk times [fetch]'s one-warp dependent step).
 ``[lane_init]`` holds the lane set-up kernel to its plain version
 (persistent.init_lane_ctx) on the card, every field bit for bit on a
-state poisoned first (NaN payloads, 0x5A bytes), with the wave's
-totals and rows, in seven cases at 1200x800 (the main path's 960,000
-lanes, a tiled strip, a sample-parallel shard, a thin lens, an
-untextured scene with no skip registers, the [features] renderer, a
-pixel tensor read as given), and the main case also to
-init_lane_ctx run on the CPU; it gives the kernel's own time, its
-wrapper's, the plain version's and its byte bound (it runs after every
+state poisoned first (NaN payloads, 0x5A bytes), each field a view into
+one buffer of guard bytes that must not change, with the wave's totals
+and rows, in nine cases at 1200x800 (the main path's 960,000 lanes, a
+tiled strip, a sample-parallel shard, a thin lens, an untextured scene
+with no skip registers, the [features] renderer, a pixel tensor read as
+given, the last 257 pixels, 240,000 lanes from an odd pixel), and the
+main case also to init_lane_ctx run on the CPU; it gives the kernel's
+own time, its wrapper's, the plain version's, its byte bound and its
+launch plan (grid, shared bytes, how the rays are stored) (it runs after every
 phase that times steps, and its own time is the first profiler
 session).  ``[service]`` holds the service kernel to its plain version
 (persistent.service_plain, the eager service block) on each of the walk
@@ -300,6 +302,10 @@ PROFILE_TRIES = 3
 # and float64 rates outside the tensor cores.
 MEM_BYTES_PER_S = 3.35e12
 LANE_POISON = 0x7FC05A5A       # [lane_init]: a NaN with a payload
+LANE_GUARD = 0xA5              # [lane_init]: bytes around a guarded state
+LANE_FIELD_ALIGN = 512         # where a guarded state's fields start
+LANE_GUARD_BYTES = 64          # guard bytes at least after each field
+LANE_ODD_FIRST = 240_001       # [lane_init]: a range from an odd pixel
 F32_FLOP_PER_S = 67e12
 F64_FLOP_PER_S = 34e12
 
@@ -366,6 +372,9 @@ def ptxas_numbers(compiler_log: str, kernel: str) -> dict:
                                    used.string)
             if cumulative:
                 out["cumulative_stack_bytes"] = int(cumulative.group(1))
+            smem = re.search(r"(\d+) bytes smem", used.string)
+            if smem:
+                out["shared_bytes"] = int(smem.group(1))
     return out
 
 
@@ -2631,6 +2640,40 @@ def _poison(s, skip=()) -> None:
             t.view(torch.uint8).fill_(0x5A)
 
 
+def guarded_lane_state(n: int, regs: int, textured: bool, device,
+                       pixels=None) -> tuple:
+    """A lane state as ``new_lane_state`` shapes it, every field a view
+    into one buffer of LANE_GUARD bytes: each field starts at a multiple
+    of LANE_FIELD_ALIGN bytes (the first one LANE_FIELD_ALIGN in) and has
+    at least LANE_GUARD_BYTES guard bytes after it; the fields are
+    poisoned.  ``pixels`` (a tensor) is ``pix`` as given, outside the
+    buffer.  Returns (state, buffer, each field's byte span in it)."""
+    shapes = lane_init.new_lane_state(n, regs, textured, "meta")
+    spans, at = {}, LANE_FIELD_ALIGN
+    for key, t in shapes.items():
+        if key == "pix" and pixels is not None:
+            continue
+        size = t.numel() * t.element_size()
+        spans[key] = (at, at + size)
+        at += -(-(size + LANE_GUARD_BYTES) // LANE_FIELD_ALIGN) * \
+            LANE_FIELD_ALIGN
+    buf = torch.full((at,), LANE_GUARD, dtype=torch.uint8, device=device)
+    s = {key: (pixels if key not in spans else
+               buf[spans[key][0]:spans[key][1]].view(t.dtype).view(t.shape))
+         for key, t in shapes.items()}
+    _poison(s, skip=() if pixels is None else ("pix",))
+    return s, buf, spans
+
+
+def guard_bytes_changed(buf: torch.Tensor, spans: dict) -> int:
+    """How many of ``guarded_lane_state``'s guard bytes are no longer
+    LANE_GUARD."""
+    guard = torch.ones_like(buf, dtype=torch.bool)
+    for lo, hi in spans.values():
+        guard[lo:hi] = False
+    return int((guard & (buf != LANE_GUARD)).sum())
+
+
 def lane_state_bytes(s) -> int:
     """Bytes the lane set-up kernel must move at least: every field it
     writes once (pix read once instead when it is given), plus the four
@@ -2640,9 +2683,11 @@ def lane_state_bytes(s) -> int:
 
 
 def _lane_case(label: str, r: Renderer, cam, pixels, frame: int,
-               seed_spp: int, offset: int) -> dict:
-    """The kernel on a poisoned state against init_lane_ctx on the card,
-    field for field, bit for bit, with the wave's totals and rows."""
+               seed_spp: int, offset: int, library=lane_init.LIBRARY) -> dict:
+    """The kernel (``library``'s build) on a poisoned guarded state
+    (guarded_lane_state) against init_lane_ctx on the card, field for
+    field, bit for bit, with the wave's totals and rows; no guard byte
+    around a field may change."""
     n = len(pixels)
     fr = persistent._Frame(r.scene, r.inline, r.cfg, cam, frame, WIDTH,
                            HEIGHT, 1, seed_spp, offset)
@@ -2651,15 +2696,15 @@ def _lane_case(label: str, r: Renderer, cam, pixels, frame: int,
     ranged = isinstance(pixels, range)
     pix = (torch.arange(pixels.start, pixels.stop, device=r.device)
            if ranged else pixels)
-    s = lane_init.new_lane_state(n, r.cfg.quad_regs, textured, r.device,
-                                 None if ranged else pixels)
-    _poison(s, skip=() if ranged else ("pix",))
+    s, buf, spans = guarded_lane_state(n, r.cfg.quad_regs, textured,
+                                       r.device, None if ranged else pixels)
     totals = torch.full((len(service.TOTALS),), 0x5A5A, dtype=torch.int64,
                         device=r.device)
     rows = torch.full((), 0x5A5A, dtype=torch.int64, device=r.device)
     before = lane_init.lane_init_cuda.launches
     lane_init.lane_init_cuda(s, r.inline, params, totals, rows,
-                             pixels.start if ranged else None)
+                             pixels.start if ranged else None,
+                             library=library)
     torch.cuda.synchronize()
     want = persistent.init_lane_ctx(frame, seed_spp, pix, cam, WIDTH, HEIGHT,
                                     r.cfg, with_tstash=textured,
@@ -2669,12 +2714,13 @@ def _lane_case(label: str, r: Renderer, cam, pixels, frame: int,
     err = max(float((s[k].double() - want[k].double()).abs()
                     .nan_to_num(float("inf")).max())
               for k in want if k in s and s[k].is_floating_point())
+    guards = guard_bytes_changed(buf, spans)
     log(f"[lane_init] {label}: {n} lanes, regs {r.cfg.quad_regs}, texture "
         f"stash {textured}, pixels {pixels if ranged else 'given'}, frame "
         f"{frame}, seed spp {seed_spp}, sample offset {offset}: fields not "
-        f"bit-equal {bad}, max abs err {err!r}, totals {totals.tolist()}, "
-        f"rows {int(rows)}")
-    if (bad or list(s) != list(want) or err != 0.0
+        f"bit-equal {bad}, max abs err {err!r}, guard bytes changed "
+        f"{guards}, totals {totals.tolist()}, rows {int(rows)}")
+    if (bad or list(s) != list(want) or err != 0.0 or guards
             or totals.tolist() != [n, 0, 0, 0] or int(rows) != 0
             or lane_init.lane_init_cuda.launches != before + 1):
         raise AssertionError(f"[lane_init] {label}: the kernel differs from "
@@ -2683,18 +2729,17 @@ def _lane_case(label: str, r: Renderer, cam, pixels, frame: int,
                 max_abs_err=err)
 
 
-def phase_lane_init(r: Renderer, features_r: Renderer, params) -> dict:
-    """The lane set-up kernel (ops/lane_init.py lane_init_cuda) against
-    its plain version, init_lane_ctx, on the card, bit for bit and field
-    for field on a poisoned state (_lane_case), in six cases at
-    1200x800: the main path's 960,000 lanes (texture stash, 3 skip
-    registers), a step_tiled strip that does not start at pixel 0, a
-    sample-parallel shard (sample offset 1, seed spp 2, the second half of
-    the pixels), a thin lens (aperture 2.0), an untextured cube256 scene
-    with no skip registers, the [features] renderer, and a pixel tensor
-    read as given (reversed); the main case also against init_lane_ctx
-    run on the CPU.  Then the kernel's own time, its wrapper's, the
-    plain version's, its bound and its build, on the main case."""
+def lane_cases(r: Renderer, features_r: Renderer, params) -> list:
+    """[lane_init]'s cases at 1200x800, the main path's first: (label,
+    renderer, camera, pixels, frame, seed spp, sample offset).  The main
+    path's 960,000 lanes (texture stash, 3 skip registers), a step_tiled
+    strip that does not start at pixel 0, a sample-parallel shard
+    (sample offset 1, seed spp 2, the second half of the pixels), a thin
+    lens (aperture 2.0), an untextured cube256 scene with no skip
+    registers, the [features] renderer, a pixel tensor read as given
+    (reversed), and two ragged ends of the kernel's 256-lane tiles: the
+    last 257 pixels, and 240,000 lanes of the untextured scene from an
+    odd pixel."""
     n = WIDTH * HEIGHT
     span = -(-n // TILES)
     lens = CameraController()
@@ -2703,24 +2748,40 @@ def phase_lane_init(r: Renderer, features_r: Renderer, params) -> dict:
         *cube_mesh(15.0), (50.0, 20.0, 50.0), albedo=(0.75, 0.75, 0.75),
         roughness=1.0), textures=[]), cfg=RenderConfig(
             width=WIDTH, height=HEIGHT, spp=1, quad_regs=0,
-            quad_select="perm"))
+            quad_select="perm"), device=r.device)
     if cube.inline.tex0 is not None or cube.cfg.quad_regs:
         raise AssertionError("the cube256 case must be untextured, no regs")
-    cases = {}
-    main = _lane_case("main", r, params, range(n), 1, 1, 0)
-    for label, rr, cam, pixels, frame, seed_spp, offset in (
-            ("tiled strip 2", r, params, range(span, 2 * span), 1, 1, 0),
-            ("shard", r, params, range(n // 2, n), 3, 2, 1),
-            ("lens", r, lens.get_params(WIDTH, HEIGHT), range(n), 2, 1, 0),
-            ("cube256 untextured", cube, params, range(n), 1, 1, 0),
-            ("features", features_r, params, range(n), 1, 1, 0),
-            ("pixel tensor", r, params,
-             torch.arange(n, device=r.device).flip(0).contiguous(), 5, 1,
-             0)):
-        res = _lane_case(label, rr, cam, pixels, frame, seed_spp, offset)
-        cases[label] = dict(lanes=res["lanes"])
+    return [
+        ("main", r, params, range(n), 1, 1, 0),
+        ("tiled strip 2", r, params, range(span, 2 * span), 1, 1, 0),
+        ("shard", r, params, range(n // 2, n), 3, 2, 1),
+        ("lens", r, lens.get_params(WIDTH, HEIGHT), range(n), 2, 1, 0),
+        ("cube256 untextured", cube, params, range(n), 1, 1, 0),
+        ("features", features_r, params, range(n), 1, 1, 0),
+        ("pixel tensor", r, params,
+         torch.arange(n, device=r.device).flip(0).contiguous(), 5, 1, 0),
+        ("last 257 pixels", r, params, range(n - 257, n), 6, 1, 0),
+        ("240,000 lanes untextured", cube, params,
+         range(LANE_ODD_FIRST, LANE_ODD_FIRST + span), 7, 1, 0)]
+
+
+def phase_lane_init(r: Renderer, features_r: Renderer, params) -> dict:
+    """The lane set-up kernel (ops/lane_init.py lane_init_cuda) against
+    its plain version, init_lane_ctx, on the card, bit for bit and field
+    for field on a poisoned guarded state (_lane_case), in lane_cases'
+    nine cases at 1200x800; the main case also against init_lane_ctx run
+    on the CPU.  Then the kernel's own time, its wrapper's, the plain
+    version's, its bound, its build and its launch plan, on the main
+    case."""
+    n = WIDTH * HEIGHT
+    cases, main = {}, None
+    for case in lane_cases(r, features_r, params):
+        res = _lane_case(*case)
+        if main is None:
+            main = res
+        else:
+            cases[case[0]] = dict(lanes=res["lanes"])
         del res
-    del cube
     # The card against the CPU at 1200x800 (camera rays included).
     got = main["state"]
     cpu = persistent.init_lane_ctx(1, 1, torch.arange(n), params, WIDTH,
@@ -2731,9 +2792,10 @@ def phase_lane_init(r: Renderer, features_r: Renderer, params) -> dict:
         f"CPU at {WIDTH}x{HEIGHT}: fields not bit-equal {bad}")
     if bad:
         raise AssertionError("[lane_init] the card differs from the CPU")
-    del cpu
-    # Times on the main case.
-    fr, p, s = main["fr"], main["params"], got
+    del cpu, got
+    # Times on the main case, on state as a Wave allocates it.
+    p = main["params"]
+    s = lane_init.new_lane_state(n, r.cfg.quad_regs, True, r.device)
     totals = torch.empty(len(service.TOTALS), dtype=torch.int64,
                          device=r.device)
     rows = torch.empty((), dtype=torch.int64, device=r.device)
@@ -2747,15 +2809,20 @@ def phase_lane_init(r: Renderer, features_r: Renderer, params) -> dict:
     b = service_bound(n_bytes, dict(sqrt=7 * n, cos=n, sin=n, pow=0,
                                     dmul=0))
     build = ptxas_numbers(lane_init.LIBRARY.compiler_log, "lane_init_kernel")
+    plan = lane_init.launch_plan()
     log(f"[lane_init] main: kernel's own time {ms:.5f} ms, wrapper "
         f"{wrapper_ms:.5f} ms, plain (init_lane_ctx on the card) "
         f"{plain_ms:.4f} ms; bound {b['bound_ms']:.5f} ms by "
         f"{b['bound_by']} ({n_bytes} B written: {b['bytes_ms']:.5f} ms; "
         f"FP64 {b['fp64_ms']:.5f} ms: {b['fp64_instructions']} "
-        f"instructions), own time {ms / b['bound_ms']:.2f}x; build {build}")
+        f"instructions), own time {ms / b['bound_ms']:.2f}x; build {build}; "
+        f"grid {plan['grid']} blocks ({plan['sms']} SMs x "
+        f"{plan['blocks_per_sm']}) over {-(-n // 256)} tiles of 256 lanes, "
+        f"{plan['shared_bytes']} B shared a block, rays out by "
+        f"{plan['rays_out']}")
     return dict(max_abs_err=main["max_abs_err"], ms=ms,
                 wrapper_ms=wrapper_ms, plain_ms=plain_ms, library_ms=None,
-                bound_bytes=n_bytes, build=build, cases=cases,
+                bound_bytes=n_bytes, build=build, plan=plan, cases=cases,
                 **{k: b[k] for k in ("bound_ms", "bound_by", "bytes_ms",
                                      "fp64_ms", "fp64_instructions")})
 
@@ -3390,7 +3457,7 @@ def main() -> int:
              **main_counts("lane_init"), **path_counts("lane_init"),
              **{k: lane[k] for k in keys},
              **{k: lane[k] for k in ("bound_bytes", "bytes_ms", "fp64_ms",
-                                     "fp64_instructions", "build")},
+                                     "fp64_instructions", "build", "plan")},
              cases=lane["cases"])]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

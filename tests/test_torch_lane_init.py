@@ -11,8 +11,10 @@ On the CPU:
     camera moved to the device, and the light rows and texture layout
     built once per unified table and rebuilt by ``Renderer.refit``;
   - ``lane_init_cuda``'s refusals (CPU tensors, a field's dtype or
-    shape, the skip registers, 2**31 lanes), raised before any library
-    is loaded;
+    shape, the skip registers, 2**31 lanes, a written field that does not
+    start on 16 bytes), raised before any library is loaded;
+  - chip_smoke.py's guarded state (every field a view into one buffer
+    of guard bytes) and its check of the guard bytes;
   - a CPU ``Wave`` (a ``range`` of pixels or a pixel tensor): its fresh
     state is ``init_lane_ctx``'s, and ``read()`` after the compacting
     round loop equals the plain wave loop's sums and counts.
@@ -41,6 +43,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from tryraytrace_tpu_torch.camera.controller import CameraController
 from tryraytrace_tpu_torch.config import RenderConfig
 from tryraytrace_tpu_torch.engine import persistent
@@ -210,7 +213,60 @@ def test_lane_init_cuda_refuses_before_loading(renderers, monkeypatch):
     huge = {"mode": torch.empty(2**31, dtype=torch.int64, device="meta")}
     with pytest.raises(ValueError, match="2\\*\\*31"):
         run(huge)
+    # Fields that start 4 (or 8) bytes into a larger tensor: the kernel
+    # writes every field in 16-byte stores.
+    with pytest.raises(ValueError, match="'d_min' is not 16-byte aligned"):
+        run({**s, "d_min": torch.empty(n + 1)[1:]})
+    with pytest.raises(ValueError, match="'o' is not 16-byte aligned"):
+        run({**s, "o": torch.empty(3 * n + 1)[1:].view(n, 3)})
+    with pytest.raises(ValueError, match="'reg_s' is not 16-byte aligned"):
+        run({**s, "reg_s": torch.empty(3 * n + 1, dtype=torch.int64)[1:]
+             .view(n, 3)})
+    shifted_pix = torch.empty(n + 1, dtype=torch.int64)[1:]
+    with pytest.raises(ValueError, match="'pix' is not 16-byte aligned"):
+        run({**s, "pix": shifted_pix})
+    # A pix the kernel only reads may start anywhere (here the refusal is
+    # the CPU tensors).
+    with pytest.raises(ValueError, match="needs CUDA"):
+        run({**s, "pix": shifted_pix}, first=None)
     assert lane_init.lane_init_cuda.launches == before
+
+
+def test_guarded_lane_state_layout():
+    """chip_smoke.guarded_lane_state: every field new_lane_state makes,
+    a poisoned view into one buffer, starting on a multiple of 512 bytes
+    with at least 64 guard bytes after it; a byte written past a field
+    shows in guard_bytes_changed."""
+    n = 37
+    s, buf, spans = chip_smoke.guarded_lane_state(n, 3, True, "cpu")
+    want = lane_init.new_lane_state(n, 3, True, "cpu")
+    assert list(s) == list(want) and list(spans) == list(want)
+    base = buf.data_ptr()
+    ends = sorted(spans.values())
+    for key, t in s.items():
+        lo, hi = spans[key]
+        assert t.dtype == want[key].dtype and t.shape == want[key].shape
+        assert t.is_contiguous() and t.data_ptr() == base + lo
+        assert lo % chip_smoke.LANE_FIELD_ALIGN == 0 and lo > 0
+        assert hi - lo == t.numel() * t.element_size()
+        poison = (chip_smoke.LANE_POISON if t.dtype == torch.float32
+                  else None)
+        if poison is None:
+            assert bool((t.view(torch.uint8) == 0x5A).all()), key
+        else:
+            assert bool((t.view(torch.int32) == poison).all()), key
+    for (_, hi), (lo, _) in zip(ends, ends[1:]):
+        assert lo - hi >= chip_smoke.LANE_GUARD_BYTES
+    assert buf.numel() - ends[-1][1] >= chip_smoke.LANE_GUARD_BYTES
+    assert chip_smoke.guard_bytes_changed(buf, spans) == 0
+    s["o"].fill_(1.0)
+    assert chip_smoke.guard_bytes_changed(buf, spans) == 0
+    buf[spans["o"][1]] = 0
+    buf[spans["mode"][0] - 1] = 1
+    assert chip_smoke.guard_bytes_changed(buf, spans) == 2
+    pix = torch.arange(n)
+    s, buf, spans = chip_smoke.guarded_lane_state(n, 0, False, "cpu", pix)
+    assert s["pix"] is pix and "pix" not in spans and "reg_e" not in s
 
 
 def test_new_lane_state_has_init_lane_ctx_fields(renderers):
@@ -320,6 +376,36 @@ def test_cuda_kernel_matches_init_lane_ctx(name):
     bad = [k for k in want if not torch.equal(_bits(s[k]), _bits(want[k]))]
     assert not bad
     assert totals.tolist() == [len(px), 0, 0, 0] and int(rows) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,first", [(1, 0), (31, 7), (255, 1000),
+                                         (257, 4096), (4097, 123_456),
+                                         (240_000, 240_000)])
+def test_cuda_kernel_ragged_tiles_stay_inside_their_fields(lanes, first):
+    """Lane counts off and on the kernel's 256-lane tiles, every field a
+    view at a multiple of 512 bytes into one buffer of guard bytes:
+    every field equals init_lane_ctx bit for bit, no guard byte
+    changes."""
+    _need_card()
+    w, h = chip_smoke.WIDTH, chip_smoke.HEIGHT
+    r = Renderer(_arrays(True), cfg=RenderConfig(
+        width=w, height=h, quad_regs=3, quad_select="perm"), device="cuda")
+    cam = _camera(0.0, w, h)
+    fr = persistent._Frame(r.scene, r.inline, r.cfg, cam, 4, w, h, 1, 1, 0)
+    s, buf, spans = chip_smoke.guarded_lane_state(lanes, 3, True, "cuda")
+    totals = torch.full((4,), 77, dtype=torch.int64, device="cuda")
+    rows = torch.full((), 77, dtype=torch.int64, device="cuda")
+    lane_init.lane_init_cuda(s, r.inline, service.service_params(fr), totals,
+                             rows, first)
+    want = persistent.init_lane_ctx(
+        4, 1, torch.arange(first, first + lanes, device="cuda"), cam, w, h,
+        r.cfg, with_tstash=True)
+    assert list(s) == list(want)
+    bad = [k for k in want if not torch.equal(_bits(s[k]), _bits(want[k]))]
+    assert not bad
+    assert chip_smoke.guard_bytes_changed(buf, spans) == 0
+    assert totals.tolist() == [lanes, 0, 0, 0] and int(rows) == 0
 
 
 @pytest.mark.cuda

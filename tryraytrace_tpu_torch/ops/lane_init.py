@@ -12,7 +12,9 @@ loops; ``lane_init_cuda`` (csrc/lane_init.cu) is the card's, held to it
 field for field, bit for bit (chip_smoke.py ``[lane_init]``).  On a card
 ``Wave`` allocates the state with ``new_lane_state`` and launches the
 kernel once; a failed build or launch raises, and nothing falls back to
-the plain version.
+the plain version.  The kernel writes each field a tile of 256 lanes at
+a time in 16-byte stores, so every field it writes must be 16-byte
+aligned (``new_lane_state``'s are; the wrapper refuses one that is not).
 
 The kernel takes the service kernel's packed parameters
 (ops/service.py ``service_params``, ``state_pointers``), whose camera is
@@ -37,12 +39,17 @@ MAX_LANES = 2 ** 31 - 1
 
 LIBRARY = KernelLibrary("lane_init", {
     "trt_lane_init_layout": (ctypes.c_void_p,),
+    "trt_lane_init_plan": (ctypes.c_void_p,),
     "trt_lane_init_launch": (
         # floats, ints, pointers (host arrays), reg_e, reg_s, registers,
         # first pixel (-1: read pix), lanes, rows, stream
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_void_p, ctypes.c_void_p)})
+
+# The state fields the kernel writes (every one of ops/service.py FIELDS;
+# pix only for a range of pixels) and the skip registers.
+WRITTEN = tuple(name for name, _, _ in service.FIELDS) + ("reg_e", "reg_s")
 
 _checked = set()  # libraries whose parameter layout matched the wrapper's
 
@@ -88,7 +95,23 @@ def _check_layout(lib) -> None:
                            f"{want}")
 
 
-def lane_init_cuda(s, inline, params, totals, rows, first=None) -> dict:
+def launch_plan(library=LIBRARY) -> dict:
+    """The kernel's launch plan on the current CUDA device: SMs,
+    resident blocks an SM, the grid (their product: the most blocks a
+    launch takes), its static shared bytes a block, and how the camera
+    rays leave shared memory ("16-byte stores" or "bulk copy")."""
+    out = (ctypes.c_int * 5)()
+    err = library.load().trt_lane_init_plan(ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"lane_init kernel cannot be planned: CUDA error "
+                           f"{err}")
+    sms, per_sm, grid, shared, bulk = out
+    return dict(sms=sms, blocks_per_sm=per_sm, grid=grid, shared_bytes=shared,
+                rays_out="bulk copy" if bulk else "16-byte stores")
+
+
+def lane_init_cuda(s, inline, params, totals, rows, first=None,
+                   library=LIBRARY) -> dict:
     """Launch the lane set-up kernel on the current stream: every lane of
     ``s`` gets the fresh state of engine/persistent.py ``init_lane_ctx``
     for the wave whose constants ``params`` packs (ops/service.py
@@ -103,14 +126,24 @@ def lane_init_cuda(s, inline, params, totals, rows, first=None) -> dict:
     lane i renders pixel ``first + i`` and the kernel writes ``pix``;
     without, it reads the pixels from ``s["pix"]``.  ``totals``
     (``service.TOTALS``, int64 [4]) is set to [lanes, 0, 0, 0] and
-    ``rows`` (int64, one element) to 0.  Refuses on the host, before any
-    library is loaded, what the kernel cannot take.  Waits for nothing
-    on the device; returns ``s``."""
+    ``rows`` (int64, one element) to 0.  Every field the kernel writes
+    (``WRITTEN``; ``pix`` only with ``first``) must start on 16 bytes.
+    Refuses on the host, before any library is loaded, what the kernel
+    cannot take.  ``library`` is the kernel's build (the port's, or a
+    benchmark's build of the same C interface).  Waits for nothing on
+    the device; returns ``s``."""
     n = int(s["mode"].shape[0])
     if n > MAX_LANES:
         raise ValueError(f"{n} lanes: the kernels take fewer than 2**31")
     if first is not None and int(first) < 0:
         raise ValueError(f"first pixel {first} < 0")
+    for name in WRITTEN:
+        t = s.get(name)
+        if (t is not None and t.data_ptr() % 16 != 0
+                and (name != "pix" or first is not None)):
+            raise ValueError(f"state field {name!r} is not 16-byte aligned "
+                             f"(data_ptr {t.data_ptr():#x}): the kernel "
+                             f"writes it in 16-byte stores")
     dev = inline.table.device
     regs = 0
     if "reg_e" in s or "reg_s" in s:
@@ -129,7 +162,6 @@ def lane_init_cuda(s, inline, params, totals, rows, first=None) -> dict:
                          f"tensor on {dev}")
     ptrs = service.state_pointers(s, inline, params, totals,
                                   "lane_init_cuda")
-    library = LIBRARY
     lib = library.load()
     if library not in _checked:
         _check_layout(lib)
