@@ -102,7 +102,7 @@ with no skip registers, the [features] renderer, a pixel tensor read as
 given, the last 257 pixels, 240,000 lanes from an odd pixel), and the
 main case also to init_lane_ctx run on the CPU; it gives the kernel's
 own time, its wrapper's, the plain version's, its byte bound and its
-launch plan (grid, shared bytes, how the rays are stored) (it runs after every
+launch plan (grid, shared bytes) (it runs after every
 phase that times steps, and its own time is the first profiler
 session).  ``[service]`` holds the service kernel to its plain version
 (persistent.service_plain, the eager service block) on each of the walk
@@ -2818,8 +2818,8 @@ def phase_lane_init(r: Renderer, features_r: Renderer, params) -> dict:
         f"instructions), own time {ms / b['bound_ms']:.2f}x; build {build}; "
         f"grid {plan['grid']} blocks ({plan['sms']} SMs x "
         f"{plan['blocks_per_sm']}) over {-(-n // 256)} tiles of 256 lanes, "
-        f"{plan['shared_bytes']} B shared a block, rays out by "
-        f"{plan['rays_out']}")
+        f"{plan['shared_bytes']} B shared a block (the rays' tiles), every "
+        f"field by 16-byte stores")
     return dict(max_abs_err=main["max_abs_err"], ms=ms,
                 wrapper_ms=wrapper_ms, plain_ms=plain_ms, library_ms=None,
                 bound_bytes=n_bytes, build=build, plan=plan, cases=cases,

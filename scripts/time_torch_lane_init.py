@@ -6,15 +6,14 @@
 
 Builds ``csrc/lane_init.cu`` of this checkout as the port builds it
 ("change"), the same source with extra nvcc flags for each ``--variant``
-(for example ``bulk=-DTRT_LANE_INIT_BULK_STORE=1``: the camera rays
-leave shared memory by one bulk copy a tile instead of 16-byte stores),
-and, with ``--tree``, the lane set-up kernel of the checkout DIR
-("parent", for example a ``git archive`` of the parent commit unpacked
-under ``build/parent``).  Every build is launched through
+(for example ``r32=-maxrregcount=32``, or ``-D`` of a macro in a trial
+copy of the source), and, with ``--tree``, the lane set-up kernel of
+the checkout DIR ("parent", for example a ``git archive`` of the parent
+commit unpacked under ``build/parent``).  Every build is launched through
 ``ops/lane_init.py lane_init_cuda(..., library=)``: the kernel's C
 interface is the same in each.  Prints each build's registers, shared
-memory, stack and spills (``ptxas -v``) and, where the build reports
-it, its launch plan (grid, shared bytes, how the rays are stored).
+memory, stack and spills (``ptxas -v``) and, for this checkout's
+source, its launch plan (SMs, blocks an SM, grid, shared bytes).
 
 Then, for each case of ``chip_smoke.py [lane_init]``
 (``chip_smoke.lane_cases``: the main path's 960,000 lanes, a tiled
@@ -60,10 +59,10 @@ class Build:
 
     def __init__(self, name: str, source: str, flags=()):
         self.name = name
+        self.ours = source == lane_init.LIBRARY.source
         functions = dict(lane_init.LIBRARY.functions)
-        with open(source) as f:
-            if "trt_lane_init_plan" not in f.read():
-                del functions["trt_lane_init_plan"]
+        if not self.ours:  # another tree's kernel: only its launch
+            del functions["trt_lane_init_plan"]
         self.lib = _build.KernelLibrary("lane_init", functions)
         self.lib.source = source
         self.lib.flags = (*self.lib.flags, *flags)
@@ -72,7 +71,7 @@ class Build:
     def load(self) -> None:
         self.lib.load()
         self.numbers = chip_smoke.ptxas_numbers(self.lib.compiler_log, KERNEL)
-        if "trt_lane_init_plan" in self.lib.functions:
+        if self.ours:
             self.numbers["plan"] = lane_init.launch_plan(self.lib)
 
 

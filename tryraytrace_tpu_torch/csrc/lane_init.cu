@@ -54,9 +54,8 @@
 //   - Each thread computes its lane's (o, d) with camera_ray and puts it
 //     in a 256 x 3 float tile in shared memory for each field (6 KB a
 //     block); after a barrier the block writes the tiles out as 16-byte
-//     stores, or, built with -D TRT_LANE_INIT_BULK_STORE=1, as one bulk
-//     asynchronous copy a tile (cp.async.bulk from shared memory, which
-//     thread 0 waits to have read the tile before it is reused).
+//     stores.  One bulk asynchronous copy a tile (cp.async.bulk) instead
+//     took the same time (PERF.md, PR 17) and was dropped.
 //   - The last tile of a wave whose lanes are not a multiple of 256
 //     stores up to exactly its last lane: 16-byte pieces where they fit,
 //     one scalar store a thread for the elements past them.
@@ -67,10 +66,6 @@
 // No atomics.  Launched on the caller's stream; allocates nothing.
 
 #include "service_device.cuh"
-
-#ifndef TRT_LANE_INIT_BULK_STORE
-#define TRT_LANE_INIT_BULK_STORE 0
-#endif
 
 namespace trt_service {
 
@@ -110,17 +105,6 @@ __device__ __forceinline__ void fill(T* field, int k, long long lane0,
   if (rest < count) span[rest] = value;
 }
 
-#if TRT_LANE_INIT_BULK_STORE
-__device__ __forceinline__ void bulk_store(float* to, const float* from,
-                                           int bytes) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
-          reinterpret_cast<uint64_t>(to)),
-      "r"(static_cast<uint32_t>(__cvta_generic_to_shared(from))), "r"(bytes)
-      : "memory");
-}
-#endif
-
 // The tile's camera rays, o and d of lanes [lane0, lane0 + lanes) in
 // shared memory, to their fields' spans.
 __device__ __forceinline__ void store_rays(const Params& p, long long lane0,
@@ -130,20 +114,12 @@ __device__ __forceinline__ void store_rays(const Params& p, long long lane0,
   float* const to_d = p.d + 3 * lane0;
   const int count = 3 * lanes;
   const int whole = count / 4;  // 16-byte pieces of a field's span
-#if TRT_LANE_INIT_BULK_STORE
-  if (threadIdx.x == 0 && whole > 0) {
-    bulk_store(to_o, o, 16 * whole);
-    bulk_store(to_d, d, 16 * whole);
-    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-  }
-#else
   for (int c = threadIdx.x; c < 2 * whole; c += kThreads) {
     const bool is_d = c >= whole;
     const int at = is_d ? c - whole : c;
     reinterpret_cast<float4*>(is_d ? to_d : to_o)[at] =
         reinterpret_cast<const float4*>(is_d ? d : o)[at];
   }
-#endif
   const int t = static_cast<int>(threadIdx.x);
   const int rest = 4 * whole + (t >> 1);
   if (t < 8 && rest < count) {
@@ -209,12 +185,7 @@ __global__ void __launch_bounds__(kThreads)
       fill(q.reg_e, q.regs, lane0, lanes, -1ll);
       fill(q.reg_s, q.regs, lane0, lanes, -1ll);
     }
-    // The previous tile's rays are out of shared memory (the bulk copy's
-    // reads are waited for by the thread that issued them).
-#if TRT_LANE_INIT_BULK_STORE
-    if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-#endif
-    __syncthreads();
+    __syncthreads();  // the previous tile's rays are out of shared memory
     if (mine) {
       rays[0][3 * t] = r_o.x;
       rays[0][3 * t + 1] = r_o.y;
@@ -223,15 +194,9 @@ __global__ void __launch_bounds__(kThreads)
       rays[1][3 * t + 1] = r_d.y;
       rays[1][3 * t + 2] = r_d.z;
     }
-#if TRT_LANE_INIT_BULK_STORE
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-#endif
     __syncthreads();
     store_rays(p, lane0, lanes, rays[0], rays[1]);
   }
-#if TRT_LANE_INIT_BULK_STORE
-  if (t == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-#endif
 }
 
 // The kernel's launch plan on the current device: SMs, resident blocks
@@ -281,9 +246,8 @@ extern "C" int trt_lane_init_layout(int* out) {
 }
 
 // The launch plan on the current device: out = [SMs, resident blocks an
-// SM, grid (blocks launched at most), static shared bytes a block, rays
-// stored by bulk copy (1) or 16-byte stores (0)].  Returns a CUDA error
-// (0 = done).
+// SM, grid (blocks launched at most), static shared bytes a block].
+// Returns a CUDA error (0 = done).
 extern "C" int trt_lane_init_plan(int* out) {
   using namespace trt_service;
   int sms = 0, per_sm = 0, grid = 0;
@@ -296,7 +260,6 @@ extern "C" int trt_lane_init_plan(int* out) {
   out[1] = per_sm;
   out[2] = grid;
   out[3] = static_cast<int>(attr.sharedSizeBytes);
-  out[4] = TRT_LANE_INIT_BULK_STORE;
   return 0;
 }
 

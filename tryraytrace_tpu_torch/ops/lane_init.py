@@ -98,16 +98,15 @@ def _check_layout(lib) -> None:
 def launch_plan(library=LIBRARY) -> dict:
     """The kernel's launch plan on the current CUDA device: SMs,
     resident blocks an SM, the grid (their product: the most blocks a
-    launch takes), its static shared bytes a block, and how the camera
-    rays leave shared memory ("16-byte stores" or "bulk copy")."""
-    out = (ctypes.c_int * 5)()
+    launch takes) and its static shared bytes a block (the camera rays'
+    tiles)."""
+    out = (ctypes.c_int * 4)()
     err = library.load().trt_lane_init_plan(ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"lane_init kernel cannot be planned: CUDA error "
                            f"{err}")
-    sms, per_sm, grid, shared, bulk = out
-    return dict(sms=sms, blocks_per_sm=per_sm, grid=grid, shared_bytes=shared,
-                rays_out="bulk copy" if bulk else "16-byte stores")
+    sms, per_sm, grid, shared = out
+    return dict(sms=sms, blocks_per_sm=per_sm, grid=grid, shared_bytes=shared)
 
 
 def lane_init_cuda(s, inline, params, totals, rows, first=None,
