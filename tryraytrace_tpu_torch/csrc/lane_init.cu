@@ -55,7 +55,7 @@
 //     in a 256 x 3 float tile in shared memory for each field (6 KB a
 //     block); after a barrier the block writes the tiles out as 16-byte
 //     stores.  One bulk asynchronous copy a tile (cp.async.bulk) instead
-//     took the same time (PERF.md, PR 17) and was dropped.
+//     took the same time on an H100 (PERF.md) and was dropped.
 //   - The last tile of a wave whose lanes are not a multiple of 256
 //     stores up to exactly its last lane: 16-byte pieces where they fit,
 //     one scalar store a thread for the elements past them.
