@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written CUDA kernels (tonemap, fetch_chain,
-quad_walk, threaded_walk, service_pass, wave_advance, lane_init; one
-nvcc each, side by side) from the sources
+quad_walk, threaded_walk, service_pass, wave_advance, lane_init and
+bounce's three; one nvcc a source, side by side) from the sources
 in this checkout and holds each against its plain PyTorch version on
 the card at the shapes its path gives it.  It drives the port's paths,
 each with the kernels' launch counts set to 0 just before and read just
@@ -49,8 +49,10 @@ them (on a card each is one wave-kernel launch):
     against the CPU bit for bit and against the port's NumPy oracle;
   - the bounce engine, also before any profiler session: ``[bounce]``
     steps ``Renderer(engine="bounce")`` on the main path's scene at
-    1200x800 (its closest-hit and NEE walks run in the threaded-walk
-    kernel), holds frame 1 to the persistent engine's (equal ray counts,
+    1200x800 (a sample's camera rays one bounce_rays launch; a bounce
+    its closest-hit and NEE walks in the threaded-walk kernel, one
+    bounce_shade and one bounce_nee launch; each counted), holds frame 1
+    to the persistent engine's (equal ray counts,
     sums within the JAX engine test's _ULP except at pixels whose two
     walks hit different triangles at the same t, traced walk by walk),
     the card's bounce render to the CPU's at 64x48 bit for bit, and
@@ -92,6 +94,14 @@ smooth normals, UVs, textures, 17 lights and two trimat rows a table
 row; it times the kernel on the main step and gives its bounds (the
 byte bound, the round loop's, and the rounds' latency floor: each
 round's longest walk times [fetch]'s one-warp dependent step).
+``[bounce_kernels]`` holds the bounce engine's three kernels to their
+plain versions (ops/bounce.py bounce_shade_plain, bounce_nee_plain,
+bounce_rays_plain) on the card, on copies, on the fresh, mid (bounce
+4) and late (at most 10% of the lanes alive) states of a 1200x800
+bounce frame of the main path's scene, by ops/bounce.py's contract
+(shade_contract: floats bit for bit, NaN at the same places; the
+counts exactly), and gives each one's own time, wrapper time, plain
+time and bound (bytes, and FP64 work by the branches the lanes take).
 ``[lane_init]`` holds the lane set-up kernel to its plain version
 (persistent.init_lane_ctx) on the card, every field bit for bit on a
 state poisoned first (NaN payloads, 0x5A bytes), each field a view into
@@ -119,7 +129,7 @@ the wave's four totals exactly.  It also checks the port's render on the card
 at 64x64 and 64x48.  Every phase prints its own lines; any failure
 raises and the script exits non-zero.  The last line is a JSON object
 {"ok": true, "device": {...}}, the line before it the card's name and
-power limit, and the line before that the kernel table of seven
+power limit, and the line before that the kernel table of ten
 kernels (the wave, lane set-up, walk and service kernels' entries count
 their launches on
 each path: ``launches`` on the main path, ``progressive_launches``,
@@ -140,7 +150,9 @@ counts the same way, where ``parallel_launches`` sums the sharded steps
 of every mesh, each counted from 0 around its ``step`` and ``image``
 alone, and ``parallel_mesh_launches`` gives each mesh's count; the
 threaded walk's ``launches`` are the bounce path's, and its ``states``
-and ``mt`` entries hold each state's numbers; the service kernel's
+and ``mt`` entries hold each state's numbers; so are the three bounce
+kernels' (``main_launches`` is 0, the main path's), whose ``states``
+hold each ``[bounce_kernels]`` state's numbers; the service kernel's
 ``states`` entry holds each ``[service]`` state's numbers).  Without a
 CUDA device it
 exits non-zero and prints no result.
@@ -207,7 +219,8 @@ from tryraytrace_tpu_torch.engine.state import load_checkpoint, save_checkpoint
 from tryraytrace_tpu_torch.io.ppm import load_ppm
 from tryraytrace_tpu_torch.io.snapshot import tonemap_accum
 from tryraytrace_tpu_torch.core import rng, vec
-from tryraytrace_tpu_torch.ops import _build, fetch, threaded, traverse
+from tryraytrace_tpu_torch.ops import (_build, bounce, fetch, threaded,
+                                       traverse)
 from tryraytrace_tpu_torch.ops import tonemap as tm
 from tryraytrace_tpu_torch.ops import lane_init, service, shade, walk, wave
 from tryraytrace_tpu_torch.ops.texture import TEX_ROW
@@ -286,6 +299,8 @@ BOUNCE_STEPS = 3
 ULP = dict(rtol=2e-6, atol=1e-6)
 BOUNCE_CLI_FRAMES = 2
 LATE_ACTIVE_SHARE = 0.1
+MID_DEPTH = 4                  # [bounce_kernels]: the mid state's bounce
+BOUNCE_KERNELS = ("bounce_rays", "bounce_shade", "bounce_nee")
 # [parallel]: samples a step (divisible by every mesh's sp), the meshes
 # (dp, sp) on the one card, the bound for sp > 1 (tests/test_parallel.py),
 # and how long the two processes may take.
@@ -474,7 +489,8 @@ def phase_environment() -> str:
     log(f"[env] device {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     t0 = time.perf_counter()
     libraries = [tm.LIBRARY, fetch.LIBRARY, walk.LIBRARY, threaded.LIBRARY,
-                 service.LIBRARY, wave.LIBRARY, lane_init.LIBRARY]
+                 service.LIBRARY, wave.LIBRARY, lane_init.LIBRARY,
+                 bounce.LIBRARY]
     _build.build_all(libraries)
     for lib in libraries:
         log(f"[build] {lib.path} in {lib.build_seconds:.3f} s")
@@ -486,7 +502,9 @@ def phase_environment() -> str:
     for label, nums in fetch_builds(fetch.LIBRARY).items():
         log(f"[build] fetch_chain_kernel {label}: {nums}")
     for lib, kernel in ((walk.LIBRARY, "quad_walk_kernel"),
-                        (service.LIBRARY, "service_pass_kernel")):
+                        (service.LIBRARY, "service_pass_kernel"),
+                        *((bounce.LIBRARY, f"{name}_kernel")
+                          for name in BOUNCE_KERNELS)):
         for name, nums in kernel_builds(lib, kernel).items():
             log(f"[build] {name}: {nums}")
     for name, nums in wave_builds(wave.LIBRARY).items():
@@ -1421,6 +1439,9 @@ def phase_main_path(r: Renderer, params) -> dict:
         raise AssertionError(f"{launched['lane_init']} lane set-up launches "
                              f"for {wave_launches} wave-kernel launches: a "
                              "step's wave is set up by one launch")
+    if any(launched[name] for name in BOUNCE_KERNELS):
+        raise AssertionError(f"bounce kernels launched on the main path: "
+                             f"{launched}")
     if not img.max() > 0:
         raise AssertionError("the image is all black")
     want = tm.tonemap_plain(accum.cpu(), r.spp()).numpy().reshape(img.shape)
@@ -1735,10 +1756,13 @@ COUNTED = dict(tonemap=tm.tonemap_cuda, fetch_chain=fetch.fetch_chain_cuda,
                threaded_walk=threaded.threaded_walk_cuda,
                service=service.service_pass_cuda,
                wave=wave.wave_advance_cuda,
-               lane_init=lane_init.lane_init_cuda, advances=_Advances)
+               lane_init=lane_init.lane_init_cuda,
+               bounce_rays=bounce.bounce_rays_cuda,
+               bounce_shade=bounce.bounce_shade_cuda,
+               bounce_nee=bounce.bounce_nee_cuda, advances=_Advances)
 # The kernels among them.
 KERNELS = ("tonemap", "fetch_chain", "walk", "threaded_walk", "service",
-           "wave", "lane_init")
+           "wave", "lane_init", "bounce_rays", "bounce_shade", "bounce_nee")
 
 
 def _zero_counts() -> None:
@@ -1902,6 +1926,7 @@ def phase_app(arrays, tmp: str) -> dict:
     if launches != dict(tonemap=0, fetch_chain=0, walk=0, threaded_walk=0,
                         service=0, wave=hand["wave"],
                         lane_init=hand["lane_init"],
+                        **dict.fromkeys(BOUNCE_KERNELS, 0),
                         advances=hand["advances"]) or not hand["wave"]:
         raise AssertionError(f"launches {launches}; the hand-driven steps "
                              f"launched {hand}")
@@ -1968,7 +1993,8 @@ def phase_app(arrays, tmp: str) -> dict:
         f"{sum(t['rounds'] for t in ticks)} rounds in {len(ticks)} steps")
     if len(ticks) != PROGRESSIVE_TICKS or plaunches != dict(
             tonemap=0, fetch_chain=0, walk=0, threaded_walk=0, service=0,
-            wave=len(ticks), lane_init=2, advances=len(ticks)):
+            wave=len(ticks), lane_init=2, **dict.fromkeys(BOUNCE_KERNELS, 0),
+            advances=len(ticks)):
         raise AssertionError("a tick is one step, a step one wave-kernel "
                              "launch, and the two waves (the first tick's "
                              "and the camera move's) one lane set-up each")
@@ -2876,7 +2902,9 @@ def phase_bounce(arrays, r: Renderer, params, tmp: str) -> tuple:
     """The bounce engine (engine="bounce") on the main path's scene at
     1200x800, 1 spp a step:
       - a warm-up and BOUNCE_STEPS timed steps, then Renderer.image();
-        the kernels' launches over these are the path's;
+        the kernels' launches over these are the path's: one bounce_rays
+        a sample, two threaded walks, one bounce_shade and one
+        bounce_nee a bounce, one tonemap, nothing else;
       - frame 1 against the persistent engine's frame 1 (``r``): equal
         int64 ray counts and sums within _ULP, except at pixels traced to
         exact-tie hits (``_tie_trace``), whose number is printed;
@@ -2917,20 +2945,27 @@ def phase_bounce(arrays, r: Renderer, params, tmp: str) -> tuple:
             f"{steps[-1]['mrays_per_s']:.3f} Mrays/s")
     img = rb.image()
     launches = _counts()
+    bounces = warm_bounces + sum(s["bounces"] for s in steps)
     log(f"[bounce] image mean {float(img.mean())!r}, spp {rb.spp()}; "
-        f"launches: threaded_walk {launches['threaded_walk']}, tonemap "
-        f"{launches['tonemap']}, walk {launches['walk']}, fetch_chain "
-        f"{launches['fetch_chain']}, service {launches['service']}, wave "
-        f"{launches['wave']}")
+        f"{bounces} bounces in {1 + BOUNCE_STEPS} samples; launches: "
+        f"threaded_walk {launches['threaded_walk']}, bounce_rays "
+        f"{launches['bounce_rays']}, bounce_shade "
+        f"{launches['bounce_shade']}, bounce_nee {launches['bounce_nee']}, "
+        f"tonemap {launches['tonemap']}, walk {launches['walk']}, "
+        f"fetch_chain {launches['fetch_chain']}, service "
+        f"{launches['service']}, wave {launches['wave']}, lane_init "
+        f"{launches['lane_init']}")
     if not bool(torch.isfinite(rb.state.accum).all()) or not img.max() > 0:
         raise AssertionError("non-finite sums or a black bounce image")
-    # Two walks a bounce: the closest hit and the NEE any hit.
-    walks = 2 * (warm_bounces + sum(s["bounces"] for s in steps))
-    if (launches["threaded_walk"] != walks or launches["tonemap"] != 1
-            or launches["walk"] or launches["fetch_chain"]
-            or launches["service"] or launches["wave"]):
-        raise AssertionError(f"bounce path launches {launches} for {walks} "
-                             "walks")
+    # A sample's camera rays; a bounce's two walks (the closest hit and
+    # the NEE any hit), its shade and its NEE add (the scene has lights).
+    expect = dict(launches, threaded_walk=2 * bounces,
+                  bounce_rays=1 + BOUNCE_STEPS, bounce_shade=bounces,
+                  bounce_nee=bounces, tonemap=1, walk=0, fetch_chain=0,
+                  service=0, wave=0, lane_init=0, advances=0)
+    if launches != expect:
+        raise AssertionError(f"bounce path launches {launches}, not "
+                             f"{expect}")
 
     # Frame 1 of both engines.
     rb.reset()
@@ -3000,12 +3035,17 @@ def phase_bounce(arrays, r: Renderer, params, tmp: str) -> tuple:
     log(f"[bounce] render --engine bounce, {BOUNCE_CLI_FRAMES} frames: "
         f"{1e3 * dt / BOUNCE_CLI_FRAMES:.1f} ms a frame; PPM and sums equal to"
         f" the hand-driven Renderer's {same}; launches: threaded_walk "
-        f"{res['threaded_walk']}, tonemap {res['tonemap']}, walk "
+        f"{res['threaded_walk']}, bounce_rays {res['bounce_rays']}, "
+        f"bounce_shade {res['bounce_shade']}, bounce_nee "
+        f"{res['bounce_nee']}, tonemap {res['tonemap']}, walk "
         f"{res['walk']}")
-    if not same or res["tonemap"] != 1 or res["walk"] or res["service"] or \
-            not res["threaded_walk"]:
-        raise AssertionError("render --engine bounce differs from the "
-                             "Renderer")
+    if (not same or res["tonemap"] != 1 or res["walk"] or res["service"]
+            or not res["threaded_walk"]
+            or res["bounce_rays"] != BOUNCE_CLI_FRAMES
+            or res["bounce_shade"] != res["threaded_walk"] // 2
+            or res["bounce_nee"] != res["bounce_shade"]):
+        raise AssertionError(f"render --engine bounce differs from the "
+                             f"Renderer, or launched {res}")
     ms = float(np.mean([s["ms"] for s in steps]))
     return dict(launches, steps=steps, ms_per_step=ms, setup_s=setup,
                 image_mean=float(img.mean()), tie_pixels=int(tie.sum()),
@@ -3169,6 +3209,361 @@ def phase_threaded_walk(rb: Renderer, features_r: Renderer, params,
     return out
 
 
+# -- [bounce_kernels]: the bounce engine's shade, NEE add and camera rays ----
+
+
+@contextlib.contextmanager
+def _recording_bounce(states: dict, n: int):
+    """Record ``bounce_shade``'s and ``bounce_nee``'s inputs (clones) at
+    three bounces of the sample that runs inside the block: "fresh"
+    (bounce 0), "mid" (bounce MID_DEPTH) and "late" (the first bounce that
+    starts with at most LATE_ACTIVE_SHARE of the ``n`` lanes alive), as
+    ``states[label] = dict(seed, pixels, depth, t, hit_id, s, nee)``;
+    ``nee`` is (rad, geo_ok, contrib, occluded) just before the NEE add."""
+    real_shade, real_nee = bounce.bounce_shade, bounce.bounce_nee
+    now = {}
+
+    def shade_(scene, tables, params, seed, pixels, depth, t, hit_id, s,
+               counts):
+        label = None
+        if depth == 0 and "fresh" not in states:
+            label = "fresh"
+        elif depth == MID_DEPTH and "mid" not in states:
+            label = "mid"
+        elif ("late" not in states and depth > MID_DEPTH
+              and int(s["alive"].sum()) <= LATE_ACTIVE_SHARE * n):
+            label = "late"
+        if label is not None:
+            states[label] = dict(seed=seed, pixels=pixels.clone(),
+                                 depth=depth, t=t.clone(),
+                                 hit_id=hit_id.clone(), s=_copy(s))
+        now["label"] = label
+        return real_shade(scene, tables, params, seed, pixels, depth, t,
+                          hit_id, s, counts)
+
+    def nee_(s, occluded):
+        if now.get("label") is not None:
+            states[now["label"]]["nee"] = (
+                s["rad"].clone(), s["geo_ok"].clone(), s["contrib"].clone(),
+                occluded.clone())
+        return real_nee(s, occluded)
+
+    bounce.bounce_shade, bounce.bounce_nee = shade_, nee_
+    try:
+        yield
+    finally:
+        bounce.bounce_shade, bounce.bounce_nee = real_shade, real_nee
+
+
+def bounce_kernel_states(rb: Renderer, params, width: int, height: int,
+                         frame: int = 1) -> dict:
+    """The inputs of ``bounce_shade`` and ``bounce_nee`` at three bounces
+    of one 1-spp frame of the bounce Renderer ``rb`` (_recording_bounce)
+    and of ``bounce_rays`` (its params, seed and pixels), run with the
+    Renderer's own engine.  The scene must have lights."""
+    states = {}
+    n = width * height
+    with _recording_bounce(states, n):
+        wavefront.render_frame(rb.scene, rb.inline, rb.device_textures,
+                               params, frame, width, height, rb.cfg, 1)
+    if sorted(states) != ["fresh", "late", "mid"]:
+        raise AssertionError(f"the frame gave the states {sorted(states)}")
+    tables = rb.device_textures
+    bp = bounce.bounce_params(rb.scene, tables, rb.cfg, width, height,
+                              params)
+    states["rays"] = dict(params=bp, seed=states["fresh"]["seed"],
+                          pixels=states["fresh"]["pixels"])
+    return states
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor, where=None) -> bool:
+    """Equal bit for bit where ``where`` holds (everywhere when None), a
+    NaN equal to a NaN of any payload."""
+    if where is not None:
+        a, b = a[where], b[where]
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = a.isnan(), b.isnan()
+    return torch.equal(na, nb) and torch.equal(_bits(a[~na]), _bits(b[~nb]))
+
+
+def shade_contract(got: dict, want: dict) -> list:
+    """The fields in which ``bounce_shade``'s kernel (``got``) and plain
+    version (``want``) differ by the contract of ops/bounce.py: rad, tp,
+    alive, prev_spec and geo_ok on every lane, o and d on the lanes alive
+    after the bounce, so, sd, smax and contrib where geo_ok holds; floats
+    bit for bit, NaN at the same places."""
+    alive, bad = want["alive"], []
+    geo = want.get("geo_ok")
+    for name, _, _ in bounce.STATE + (bounce.NEE if geo is not None
+                                      else ()):
+        where = (alive if name in ("o", "d")
+                 else geo if name in ("so", "sd", "smax", "contrib")
+                 else None)
+        if not _same_bits(got[name], want[name], where):
+            bad.append(name)
+    return bad
+
+
+def _max_err(got: dict, want: dict, names) -> float:
+    return max([float((got[k].double() - want[k].double()).abs()
+                      .nan_to_num(0.0).max()) for k in names
+                if got[k].is_floating_point() and got[k].numel()] or [0.0])
+
+
+def shade_work(rb_scene, tables, cfg, st, want) -> dict:
+    """The bytes a bounce's shade must move and its FP64 calls, from its
+    inputs ``st`` (a recorded state) and the plain version's outputs
+    ``want``.  Bytes: each lane's alive flag read and, with lights, its
+    geo_ok written (2 B); a lane alive at entry reads hit_id (8 B); one
+    that hit reads t, o, d, pix, tp, rad, prev_spec (69 B) and writes
+    rad and alive (13 B); one on a branch also writes o, d, tp and
+    prev_spec (37 B), one that fires a shadow ray so, sd, smax and
+    contrib (40 B).  Each distinct trimat row hit (148 B), the four
+    texels of each textured hit (48 B) and the light rows count once.
+    Calls, by the branch each lane takes (chip_smoke.service_work's
+    accounting): a face normal (1 sqrt) a hit and a smooth one where
+    smooth_normal keeps it (1), pow and a DMUL a lane past roulette, a
+    perturbed direction (2 sqrt, cos, sin) on the specular branch, total
+    internal reflection and rough refraction, a refraction (2 sqrt), a
+    light sample (3 sqrt) and a cosine-weighted direction (4 sqrt, cos,
+    sin) on the diffuse branch."""
+    s, hit_id = st["s"], st["hit_id"]
+    entry = s["alive"]
+    hit = entry & (hit_id >= 0)
+    seen = {}
+    real_surface, real_scatter = shade.surface, shade.scatter
+
+    def surface(hitrow, x_hit, d, *args, **kwargs):
+        seen["hitrow"], seen["x_hit"] = hitrow, x_hit
+        return real_surface(hitrow, x_hit, d, *args, **kwargs)
+
+    def scatter(q, d, tp, rad, alive, prev_spec, u, *args):
+        seen.update(q=q, d=d, u=u)
+        return real_scatter(q, d, tp, rad, alive, prev_spec, u, *args)
+
+    shade.surface, shade.scatter = surface, scatter
+    try:
+        bounce.bounce_shade_plain(rb_scene, tables, cfg, st["seed"],
+                                  st["pixels"], st["depth"], st["t"], hit_id,
+                                  _copy(s))
+    finally:
+        shade.surface, shade.scatter = real_surface, real_scatter
+    q, d, u = seen["q"], seen["d"], seen["u"]
+    alive = hit & ~(q["emission"] > cfg.emitter_stop_threshold).any(dim=-1)
+    p_live = torch.clamp(q["albedo"].amax(dim=-1), min=cfg.rr_min_p)
+    if st["depth"] > cfg.rr_threshold:
+        alive = alive & (u[:, rng.SLOT_RR] < p_live)
+    p_spec, p_trans, _ = shade.pbr_weights(
+        q["albedo"], q["metallic"], q["roughness"], q["transmission"],
+        q["nl"], d)
+    u_b = u[:, rng.SLOT_BRANCH]
+    m_spec = alive & (u_b < p_spec)
+    m_trans = alive & ~m_spec & (u_b < p_spec + p_trans)
+    m_diff = alive & ~m_spec & ~m_trans
+    tir = m_trans & shade.refract_branch(
+        d, q["nrm"], q["nl"], q["ior"], q["roughness"],
+        u[:, rng.SLOT_DIR_R1], u[:, rng.SLOT_DIR_R2])[1]
+    rough = q["roughness"] > 0.0
+    smooth_ok = torch.zeros_like(hit)
+    if cfg.smooth_shading and rb_scene.has_normals:
+        row, x_hit = seen["hitrow"], seen["x_hit"]
+        b1, b2, ok_den = shade.barycentric(row[:, 0:3], row[:, 3:6],
+                                           row[:, 6:9], x_hit)
+        b0 = 1.0 - b1 - b2
+        ns = (row[:, 21:24] * b0[:, None] + row[:, 24:27] * b1[:, None]
+              + row[:, 27:30] * b2[:, None])
+        smooth_ok = hit & ok_den & (vec.dot(ns, ns) > 1e-12)
+    n = lambda m: int(m.sum())
+    fired = want["geo_ok"] if "geo_ok" in want else torch.zeros_like(hit)
+    textured = torch.zeros_like(hit)
+    if len(tables):
+        tid = seen["hitrow"][:, 19].to(torch.int64)
+        textured = hit & (tid >= 0) & (tid < len(tables))
+    lights = 0 if rb_scene.num_lights == 0 else 1
+    n_bytes = (2 * entry.numel() if lights else entry.numel()) \
+        + 8 * n(entry) + 82 * n(hit) + 37 * n(alive) + 40 * n(fired) \
+        + 148 * int(torch.unique(hit_id[hit]).numel()) + 48 * n(textured) \
+        + tables.lights.numel() * 4 + tables.metas.numel() * 8
+    lanes = dict(entry=n(entry), hit=n(hit), branch=n(alive),
+                 spec=n(m_spec), tir=n(tir),
+                 trans_smooth=n(m_trans & ~tir & ~rough),
+                 trans_rough=n(m_trans & ~tir & rough), diff=n(m_diff),
+                 fired=n(fired))
+    perturbed = lanes["spec"] + lanes["tir"] + lanes["trans_rough"]
+    trans_refr = lanes["trans_smooth"] + lanes["trans_rough"]
+    trig = perturbed + lanes["diff"]
+    calls = dict(sqrt=(lanes["hit"] + n(smooth_ok) + 2 * perturbed
+                       + 2 * trans_refr + 3 * lights * lanes["diff"]
+                       + 4 * lanes["diff"]),
+                 cos=trig, sin=trig, pow=n(alive), dmul=n(alive))
+    return dict(n_bytes=n_bytes, lanes=lanes, calls=calls)
+
+
+def check_bounce_shade(label: str, rb: Renderer, params, st,
+                       timed: bool = True) -> dict:
+    """A recorded state through ``bounce_shade_cuda`` and through
+    ``bounce_shade_plain`` on the card, each on a copy: every field by
+    shade_contract, and the counts exact.  With ``timed``, the kernel's
+    own time, the wrapper's (each call on a fresh copy: the kernel
+    writes in place), the plain version's, and the bound
+    (service_bound of shade_work)."""
+    scene, tables = rb.scene, rb.device_textures
+    args = (st["seed"], st["pixels"], st["depth"], st["t"], st["hit_id"])
+    counts = torch.zeros(len(bounce.COUNTS), dtype=torch.int64,
+                         device=scene.trimat.device)
+    got = bounce.bounce_shade_cuda(scene, tables, params, *args,
+                                   _copy(st["s"]), counts)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want, fired, live = bounce.bounce_shade_plain(scene, tables, rb.cfg,
+                                                  *args, _copy(st["s"]))
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t1)
+    bad = shade_contract(got, want)
+    err = _max_err(got, want, ["rad", "tp"])
+    entry = int(st["s"]["alive"].sum())
+    log(f"[bounce_kernels] shade {label} (bounce {st['depth']}): {entry} of "
+        f"{len(st['hit_id'])} lanes alive at entry; counts (shadow, live) "
+        f"kernel {counts.tolist()} plain {[int(fired), int(live)]}; fields "
+        f"differing {bad}, max abs err {err!r}")
+    if bad or counts.tolist() != [int(fired), int(live)]:
+        raise AssertionError(f"bounce_shade kernel disagrees with its plain "
+                             f"version on the {label} state: {bad}")
+    out = dict(max_abs_err=err, depth=st["depth"], entry=entry,
+               counts=counts.tolist())
+    if not timed:
+        return out
+    work = shade_work(scene, tables, rb.cfg, st, want)
+    copies = iter([_copy(st["s"]) for _ in range(6)])
+    run = lambda s: bounce.bounce_shade_cuda(scene, tables, params, *args, s,
+                                             counts)
+    wrapper_ms = _time_ms(lambda: run(next(copies)), reps=5)
+    ms = _kernel_ms(lambda: run(_copy(st["s"])), "bounce_shade_kernel",
+                    reps=10)
+    del copies
+    out.update(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+               library_ms=None, lanes=work["lanes"], calls=work["calls"],
+               bound_bytes=work["n_bytes"],
+               **service_bound(work["n_bytes"], work["calls"]))
+    log(f"[bounce_kernels] shade {label}: lanes {work['lanes']}; double "
+        f"calls {work['calls']}")
+    log(f"[bounce_kernels] shade {label}: kernel's own time {ms:.5f} ms, "
+        f"wrapper {wrapper_ms:.5f} ms, plain {plain_ms:.2f} ms; bound "
+        f"{out['bound_ms']:.5f} ms by {out['bound_by']} ({work['n_bytes']} "
+        f"B: {out['bytes_ms']:.5f} ms; FP64 {out['fp64_ms']:.5f} ms: "
+        f"{out['fp64_instructions']} instructions); own time "
+        f"{ms / out['bound_ms']:.2f}x")
+    return out
+
+
+def check_bounce_nee(label: str, st, timed: bool = True) -> dict:
+    """A recorded NEE add (rad, geo_ok, contrib, occluded) through
+    ``bounce_nee_cuda`` and ``bounce_nee_plain`` on the card: rad bit for
+    bit on every lane, NaN at the same places.  With ``timed``, the
+    kernel's own time, the wrapper's, the plain version's and the byte
+    bound: geo_ok and occluded of every lane (2 B), and rad read and
+    written and contrib read on each lit lane (36 B)."""
+    rad, geo_ok, contrib, occluded = st["nee"]
+    state = lambda: dict(rad=rad.clone(), geo_ok=geo_ok, contrib=contrib)
+    got = bounce.bounce_nee_cuda(state(), occluded)["rad"]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want = bounce.bounce_nee_plain(rad, geo_ok, occluded, contrib)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t1)
+    lit = int((geo_ok & ~occluded).sum())
+    same = _same_bits(got, want)
+    err = _max_err(dict(r=got), dict(r=want), ["r"])
+    log(f"[bounce_kernels] nee {label}: {int(geo_ok.sum())} shadow rays, "
+        f"{lit} lit; rad equal {same}, max abs err {err!r}")
+    if not same:
+        raise AssertionError(f"bounce_nee kernel disagrees with its plain "
+                             f"version on the {label} state")
+    out = dict(max_abs_err=err, lit=lit)
+    if not timed:
+        return out
+    n_bytes = 2 * geo_ok.numel() + 36 * lit
+    copies = iter([state() for _ in range(6)])
+    wrapper_ms = _time_ms(lambda: bounce.bounce_nee_cuda(next(copies),
+                                                         occluded), reps=5)
+    ms = _kernel_ms(lambda: bounce.bounce_nee_cuda(state(), occluded),
+                    "bounce_nee_kernel", reps=10)
+    out.update(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+               library_ms=None, bound_bytes=n_bytes,
+               **bound(n_bytes, 3 * lit))
+    log(f"[bounce_kernels] nee {label}: kernel's own time {ms:.5f} ms, "
+        f"wrapper {wrapper_ms:.5f} ms, plain {plain_ms:.3f} ms; bound "
+        f"{out['bound_ms']:.5f} ms by {out['bound_by']} ({n_bytes} B); own "
+        f"time {ms / out['bound_ms']:.2f}x")
+    return out
+
+
+def check_bounce_rays(st, timed: bool = True) -> dict:
+    """``bounce_rays_cuda`` against ``bounce_rays_plain`` on the card on
+    a recorded sample's pixels: every field bit for bit.  With ``timed``,
+    the kernel's own time, the wrapper's, the plain version's and the
+    bound: the pixels read and the state written (58 B a lane), and the
+    camera ray's double calls (7 sqrt, cos, sin a lane: lane_init's
+    accounting)."""
+    bp, seed, pixels = st["params"], st["seed"], st["pixels"]
+    width = int(bp.ints[service.INTS.index("width")])
+    height = int(bp.ints[service.INTS.index("height")])
+    got = bounce.bounce_rays_cuda(bp, seed, pixels)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want = bounce.bounce_rays_plain(bp.cam, width, height, seed, pixels)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t1)
+    bad = [k for k, _, _ in bounce.STATE if not _same_bits(got[k], want[k])]
+    err = _max_err(got, want, ["o", "d"])
+    n = int(pixels.shape[0])
+    log(f"[bounce_kernels] rays: {n} lanes, seed {seed}; fields differing "
+        f"{bad}, max abs err {err!r}")
+    if bad:
+        raise AssertionError(f"bounce_rays kernel disagrees with its plain "
+                             f"version: {bad}")
+    out = dict(max_abs_err=err, lanes=n)
+    if not timed:
+        return out
+    run = lambda: bounce.bounce_rays_cuda(bp, seed, pixels)
+    wrapper_ms = _time_ms(run, reps=20)
+    ms = _kernel_ms(run, "bounce_rays_kernel", reps=10)
+    n_bytes = 58 * n
+    out.update(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+               library_ms=None, bound_bytes=n_bytes,
+               **service_bound(n_bytes, dict(sqrt=7 * n, cos=n, sin=n,
+                                             pow=0, dmul=0)))
+    log(f"[bounce_kernels] rays: kernel's own time {ms:.5f} ms, wrapper "
+        f"{wrapper_ms:.5f} ms, plain {plain_ms:.3f} ms; bound "
+        f"{out['bound_ms']:.5f} ms by {out['bound_by']} ({n_bytes} B: "
+        f"{out['bytes_ms']:.5f} ms; FP64 {out['fp64_ms']:.5f} ms); own time "
+        f"{ms / out['bound_ms']:.2f}x")
+    return out
+
+
+def phase_bounce_kernels(rb: Renderer, params) -> dict:
+    """The bounce engine's three kernels against their plain versions on
+    the card, at the main path's scene and raster (1200x800, the bounce
+    Renderer of [bounce]): bounce_shade and bounce_nee on the fresh, mid
+    and late states of frame 1 (bounce_kernel_states), bounce_rays on
+    its camera rays; each checked on copies, then timed (after every
+    phase that times steps: its own time runs torch.profiler), with its
+    registers, stack and spills."""
+    out = dict(build={k: ptxas_numbers(bounce.LIBRARY.compiler_log, k)
+                      for k in (f"{name}_kernel" for name in
+                                BOUNCE_KERNELS)})
+    log(f"[bounce_kernels] builds: {out['build']}")
+    states = bounce_kernel_states(rb, params, WIDTH, HEIGHT)
+    bp = states["rays"]["params"]
+    out["shade"] = {label: check_bounce_shade(label, rb, bp, states[label])
+                    for label in ("fresh", "mid", "late")}
+    out["nee"] = {label: check_bounce_nee(label, states[label])
+                  for label in ("fresh", "mid", "late")}
+    out["rays"] = check_bounce_rays(states["rays"])
+    return out
+
+
 # -- [parallel]: ShardedRenderer and two processes ---------------------------
 
 def phase_parallel(arrays, r: Renderer, rb: Renderer, params,
@@ -3214,10 +3609,13 @@ def phase_parallel(arrays, r: Renderer, rb: Renderer, params,
             iters = sr.last_stats["shard_iterations"]
             n_iter = sum(iters.values())
             waves = len(iters) if engine == "persistent" else 0
+            bounces = n_iter if engine == "bounce" else 0
+            # A shard renders PARALLEL_SPP / sample samples of its pixels.
+            samples = tile * PARALLEL_SPP if engine == "bounce" else 0
             expect = dict(tonemap=1, fetch_chain=0, walk=0,
-                          threaded_walk=2 * n_iter if engine == "bounce"
-                          else 0,
-                          service=0, wave=waves, lane_init=waves,
+                          threaded_walk=2 * bounces, service=0, wave=waves,
+                          lane_init=waves, bounce_rays=samples,
+                          bounce_shade=bounces, bounce_nee=bounces,
                           advances=waves)
             got = sr.accum_host()
             rays = (int(sr.last_stats["n_traced"]),
@@ -3259,7 +3657,7 @@ def phase_parallel(arrays, r: Renderer, rb: Renderer, params,
     log(f"[parallel] launches of the sharded steps and images, summed over "
         f"the meshes: {totals}")
     if (totals["wave"] < 1 or totals["threaded_walk"] < 1 or totals["walk"]
-            or totals["service"]):
+            or totals["service"] or totals["bounce_shade"] < 1):
         raise AssertionError(f"the sharded renders launched {totals}")
 
     # Two processes on the one card over gloo, against one process.
@@ -3356,6 +3754,7 @@ def main() -> int:
                            chain["latency"]["global_ns"])
     threaded_states = phase_threaded_walk(rb, features_r, params,
                                           chain["latency"]["global_ns"])
+    bounced = phase_bounce_kernels(rb, params)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     keys = ("max_abs_err", "ms", "wrapper_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
@@ -3458,7 +3857,31 @@ def main() -> int:
              **{k: lane[k] for k in keys},
              **{k: lane[k] for k in ("bound_bytes", "bytes_ms", "fp64_ms",
                                      "fp64_instructions", "build", "plan")},
-             cases=lane["cases"])]}))
+             cases=lane["cases"]),
+        *(dict(name=name, route="cuda",
+               source="tryraytrace_tpu_torch/csrc/bounce.cu",
+               replaces=replaces, launches=bounce_run[name],
+               main_launches=main_run["counts"][name],
+               **path_counts(name),
+               **{k: res[k] for k in keys}, bound_bytes=res["bound_bytes"],
+               bytes_ms=res.get("bytes_ms"), fp64_ms=res.get("fp64_ms"),
+               build=bounced["build"][f"{name}_kernel"], **more)
+          for name, replaces, res, more in (
+              ("bounce_shade", "tryraytrace_tpu/engine/wavefront.py:97; "
+               "tryraytrace_tpu/engine/wavefront.py:232",
+               bounced["shade"]["fresh"],
+               dict(states={label: {k: x[k] for k in (
+                   *keys, "depth", "entry", "counts", "lanes", "calls",
+                   "bound_bytes", "bytes_ms", "fp64_ms")}
+                   for label, x in bounced["shade"].items()})),
+              ("bounce_nee", "tryraytrace_tpu/engine/wavefront.py:232",
+               bounced["nee"]["fresh"],
+               dict(states={label: {k: x[k] for k in (*keys, "lit",
+                                                      "bound_bytes")}
+                            for label, x in bounced["nee"].items()})),
+              ("bounce_rays", "tryraytrace_tpu/engine/wavefront.py:45; "
+               "tryraytrace_tpu/engine/camera_rays.py:21",
+               bounced["rays"], dict(lanes=bounced["rays"]["lanes"]))))]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

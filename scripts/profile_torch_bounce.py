@@ -7,13 +7,15 @@ Renders chip_smoke.py's main-path scene (Cornell box + icosphere(5),
 20,487 triangles) with ``engine="bounce"``: one step to warm up,
 ``--steps`` steps timed by the host clock in a process that has started
 no profiler, then one step under torch.profiler.  Prints the unprofiled
-steps' times, then the profiled step's wall time, bounces, kernel
-launches and device kernel time, the threaded-walk kernel's launches
-and share of the device time, and the kernels that take the most device
-time.  The device's busy share is given two ways: the device kernel
-time over the median unprofiled step (the profiler slows the host, not
-the kernels), and the union of the kernels' intervals in the trace over
-the profiled step's wall time (what the profiled step itself shows).
+steps' times, then the profiled step's wall time, bounces, device
+operations and device time, each engine kernel's launches and share of
+the device time (``KERNELS``: the threaded walks, the shade, the NEE
+add, the camera rays) beside the other device operations (fills,
+copies, eager ops), and the operations that take the most device time.
+The device's busy share is given two ways: the device time over the
+median unprofiled step (the profiler slows the host, not the kernels),
+and the union of the operations' intervals in the trace over the
+profiled step's wall time (what the profiled step itself shows).
 Needs a CUDA device.
 """
 
@@ -35,6 +37,12 @@ import chip_smoke  # noqa: E402
 from tryraytrace_tpu_torch.camera.controller import CameraController  # noqa: E402
 from tryraytrace_tpu_torch.config import RenderConfig  # noqa: E402
 from tryraytrace_tpu_torch.engine.renderer import Renderer  # noqa: E402
+
+
+# The engine's kernels: a bounce's two threaded walks, its shade and NEE
+# add, a sample's camera rays (ops/threaded.py, ops/bounce.py).
+KERNELS = ("threaded_walk_kernel", "bounce_shade_kernel",
+           "bounce_nee_kernel", "bounce_rays_kernel")
 
 
 def _union_ms(ranges) -> float:
@@ -88,16 +96,23 @@ def main() -> int:
                if e.device_type == DeviceType.CUDA]
     launches = sum(e.count for e in kernels)
     device = sum(e.device_time_total for e in kernels) / 1e3
-    walk = [e for e in kernels if "threaded_walk_kernel" in e.key]
-    walk_ms = sum(e.device_time_total for e in walk) / 1e3
     busy = _union_ms([e.time_range for e in prof.events()
                       if e.device_type == DeviceType.CUDA])
     print(f"[profile] step under the profiler {wall:.1f} ms wall, "
-          f"{bounces} bounces; {launches} kernel launches "
-          f"({launches / bounces:.0f} a bounce), device kernel time "
-          f"{device:.2f} ms; threaded walk {sum(e.count for e in walk)} "
-          f"launches, {walk_ms:.3f} ms ({walk_ms / device:.3f} of the "
-          f"device time)")
+          f"{bounces} bounces; {launches} device operations (kernels, "
+          f"fills, copies; {launches / bounces:.1f} a bounce), device "
+          f"time {device:.3f} ms")
+    named = 0
+    for name in KERNELS:
+        found = [e for e in kernels if name in e.key]
+        count = sum(e.count for e in found)
+        ms = sum(e.device_time_total for e in found) / 1e3
+        named += count
+        print(f"[profile]   {name}: {count} launches "
+              f"({count / bounces:.2f} a bounce), {ms:.3f} ms "
+              f"({ms / device:.3f} of the device time)")
+    print(f"[profile]   other device operations: {launches - named} "
+          f"({(launches - named) / bounces:.2f} a bounce)")
     print(f"[profile] busy share: device kernel time over the median "
           f"unprofiled step {device / step_ms:.3f}; kernels' intervals "
           f"in the trace ({busy:.2f} ms) over the profiled step "

@@ -49,6 +49,7 @@ from tryraytrace_tpu_torch.config import RenderConfig
 from tryraytrace_tpu_torch.engine import device_scene as tdevice_scene
 from tryraytrace_tpu_torch.engine import wavefront
 from tryraytrace_tpu_torch.engine.renderer import Renderer
+from tryraytrace_tpu_torch.ops import bounce
 from tryraytrace_tpu_torch.ops import texture as ttex
 from tryraytrace_tpu_torch.ops import threaded
 from tryraytrace_tpu_torch.ops import traverse as ttrav
@@ -498,8 +499,16 @@ def test_cuda_bounce_render_equals_cpu():
                          roughness=0.1)
     cfg = RenderConfig(width=64, height=48, spp=2, engine="bounce")
     before = threaded.threaded_walk_cuda.launches
+    kernels = (bounce.bounce_rays_cuda, bounce.bounce_shade_cuda,
+               bounce.bounce_nee_cuda)
+    launched = [k.launches for k in kernels]
     card = _step(arrays, cfg, device="cuda")
     assert threaded.threaded_walk_cuda.launches > before
+    # A sample's camera rays; a bounce's shade and NEE add (one light).
+    bounces = card.last_stats["iterations"]
+    assert [k.launches - n for k, n in zip(kernels, launched)] == [
+        2, bounces, bounces]
+    assert threaded.threaded_walk_cuda.launches == before + 2 * bounces
     cpu = _step(arrays, cfg)
     assert card.accum_host().tobytes() == cpu.accum_host().tobytes()
     assert ({k: int(v) for k, v in card.last_stats.items()}

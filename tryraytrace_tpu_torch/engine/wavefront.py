@@ -4,19 +4,22 @@ dispatch over both engines.
 
 The whole wave of a sample advances bounce by bounce in lockstep:
 
-  raygen -> [closest-hit walk -> shade (+ NEE any-hit walk)] x depth
+  camera rays -> [closest-hit walk -> shade (-> NEE any-hit walk ->
+  NEE add)] x depth
 
-Each stage is masked tensor math over every lane of the wave; dead
-lanes are masked, not compacted, and the loop runs while
+Dead lanes are masked, not compacted, and the loop runs while
 ``depth < max_depth`` and any lane is alive, so the ray counts are the
-JAX engine's.  The two walks are the threaded walks of ops/threaded.py:
-the hand-written CUDA kernel on a card, its plain version on the CPU,
-both over the walk-order copy of the scene's threaded rows
-(``ops/threaded.py walk_table``; ``engine_tables`` builds it, so a
-refit rebuilds it).
-Textures are sampled from the raw texture tensors
-(``device_scene.device_textures``), not from the persistent engine's
-tile rows.
+JAX engine's.  The two walks are the threaded walks of ops/threaded.py,
+over the walk-order copy of the scene's threaded rows
+(``ops/threaded.py walk_table``); the camera rays, the shade and the NEE
+add are ops/bounce.py's ``bounce_rays``, ``bounce_shade`` and
+``bounce_nee``.  Each is a hand-written CUDA kernel on a card and its
+plain version (eager PyTorch) on the CPU, so a bounce on a card is four
+launches (and the walks' counter fills), and the loop reads one number
+a bounce: the live count the shade leaves on the device.
+``engine_tables`` builds the walk-order copy and the ``BounceTables``
+(the raw textures, which are sampled as they are, not as the persistent
+engine's tile rows; the light rows), so a refit rebuilds them.
 
 Every constant, epsilon and draw order is the reference's, and the
 arithmetic is the persistent engine's (ops/shade.py, core/rng.py,
@@ -36,12 +39,14 @@ import torch
 
 from tryraytrace_tpu_torch.config import RenderConfig, check_supported
 from tryraytrace_tpu_torch.core import rng
-from tryraytrace_tpu_torch.engine.camera_rays import generate_rays
+# generate_rays (the plain camera rays) stays importable from here for
+# callers that build a bounce's inputs by hand.
+from tryraytrace_tpu_torch.engine.camera_rays import generate_rays  # noqa: F401
 from tryraytrace_tpu_torch.engine.device_scene import device_textures
-from tryraytrace_tpu_torch.ops import shade
-from tryraytrace_tpu_torch.ops.texture import sample_textures
+from tryraytrace_tpu_torch.ops import bounce
 from tryraytrace_tpu_torch.ops.threaded import (any_hit, closest_hit,
                                                 walk_table)
+
 
 def _sanitize(rad, cfg: RenderConfig):
     """Sample sanitation before accumulation (renderer.cu:737-756):
@@ -62,13 +67,20 @@ def _sanitize(rad, cfg: RenderConfig):
 
 
 def render_sample(scene, walk, textures, cam, seed: int, width: int,
-                  height: int, cfg: RenderConfig, pixels=None):
+                  height: int, cfg: RenderConfig, pixels=None, params=None):
     """Trace one 1-spp pass for ``pixels`` (int64 [N] on the scene's
     device; every pixel by default) with sample seed ``seed`` over the
     walk-order threaded rows ``walk`` (``ops/threaded.py walk_table``) ->
     (radiance [N, 3], stats).  Streams are keyed by absolute pixel, so
-    a pixel subset renders its pixels' samples exactly.  ``cam`` holds
-    tensors on the scene's device (CameraParams.to).
+    a pixel subset renders its pixels' samples exactly.  ``textures``
+    is the engine's ``BounceTables`` (or the raw texture tensors, from
+    which they are built); ``cam`` is a CameraParams, and ``params`` the
+    frame's ``bounce_params`` (packed from ``cam`` when None).
+
+    On a card a sample is one ``bounce_rays`` launch, then per bounce the
+    closest-hit walk, ``bounce_shade``, and with lights the any-hit walk
+    and ``bounce_nee``; the loop reads one number a bounce, the live
+    count ``bounce_shade`` leaves on the device.
 
     stats: ``n_traced`` (path rays, camera rays included) and
     ``n_shadow`` (NEE shadow rays) as int64 tensors, ``iterations`` (the
@@ -78,76 +90,86 @@ def render_sample(scene, walk, textures, cam, seed: int, width: int,
     if pixels is None:
         pixels = torch.arange(width * height, device=dev)
     n = int(pixels.shape[0])
-    o, d = generate_rays(cam, width, height,
-                         torch.full((n,), seed, dtype=torch.int64,
-                                    device=dev), pixels)
-    tp = torch.ones((n, 3), device=dev)
-    rad = torch.zeros((n, 3), device=dev)
-    alive = torch.ones((n,), dtype=torch.bool, device=dev)
-    prev_spec = torch.ones((n,), dtype=torch.bool, device=dev)
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-    n_traced, n_shadow, rows = zero, zero, zero
-    depth = 0
-    while depth < cfg.max_depth and bool(alive.any()):
-        n_traced = n_traced + alive.sum()
-        o, d, tp, rad, alive, prev_spec, sh, rw = _bounce(
-            scene, walk, textures, seed, pixels, depth, o, d, tp, rad,
-            alive, prev_spec, cfg)
-        n_shadow = n_shadow + sh
-        rows = rows + rw
+    tables = bounce.bounce_tables(scene, textures)
+    if params is None:
+        params = bounce.bounce_params(scene, tables, cfg, width, height, cam)
+    s = bounce.bounce_rays(params, seed, pixels)
+    nee = bounce.new_nee_state(n, dev) if scene.num_lights > 0 else None
+    # Each bounce's [shadow rays fired, lanes alive after].
+    counts = torch.zeros((cfg.max_depth, len(bounce.COUNTS)),
+                         dtype=torch.int64, device=dev)
+    rows, live, depth = [], n, 0
+    while depth < cfg.max_depth and live > 0:
+        s, _, rw = _bounce(scene, walk, tables, seed, pixels, depth,
+                           *(s[name] for name, _, _ in bounce.STATE), cfg,
+                           params=params, nee=nee, counts=counts[depth])
+        rows += rw
+        live = int(counts[depth, 1])
         depth += 1
-    return _sanitize(rad, cfg), dict(n_traced=n_traced, n_shadow=n_shadow,
-                                     iterations=depth, rows_fetched=rows)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    # A bounce traces the lanes alive at its start: all n, then each
+    # bounce's survivors.
+    n_traced = counts[:depth - 1, 1].sum() + n if depth else zero
+    return _sanitize(s["rad"], cfg), dict(
+        n_traced=n_traced, n_shadow=counts[:depth, 0].sum(),
+        iterations=depth,
+        rows_fetched=torch.stack(rows).sum() if rows else zero)
 
 
 def _bounce(scene, walk, textures, seed: int, pixels, depth: int, o, d, tp,
-            rad, alive, prev_spec, cfg: RenderConfig):
-    """One wavefront bounce: closest-hit walk, shade (ops/shade.py
-    ``surface`` and ``scatter``, the texture sampled from the raw
-    textures), the NEE shadow rays as one any-hit walk, next-ray
-    selection.  Returns (o, d, tp, rad, alive, prev_spec, shadow rays
-    fired, rows fetched)."""
+            rad, alive, prev_spec, cfg: RenderConfig, params=None, nee=None,
+            counts=None):
+    """One wavefront bounce of the state (o, d, tp, rad, alive,
+    prev_spec): the closest-hit walk, ``bounce_shade`` (ops/bounce.py),
+    and with lights the NEE shadow rays as one any-hit walk and
+    ``bounce_nee``.  ``nee`` holds the NEE fields to write
+    (``bounce.new_nee_state``; allocated when None), ``params`` the
+    frame's ``bounce_params`` (packed without a camera when None) and
+    ``counts`` the int64 [2] that the bounce adds [shadow rays fired,
+    lanes alive after] to (zeros when None).  On a card the state's
+    tensors are written in place.  Returns (the state after: a dict of
+    ``bounce.STATE`` and, with lights, ``bounce.NEE``; counts; the rows
+    each walk fetched, int64 tensors)."""
+    tables = bounce.bounce_tables(scene, textures)
+    if params is None:
+        params = bounce.bounce_params(scene, tables, cfg)
+    dev = pixels.device
+    if counts is None:
+        counts = torch.zeros(len(bounce.COUNTS), dtype=torch.int64,
+                             device=dev)
+    s = dict(o=o, d=d, tp=tp, rad=rad, alive=alive, prev_spec=prev_spec)
+    lights = scene.num_lights > 0
+    if lights:
+        s.update(bounce.new_nee_state(int(pixels.shape[0]), dev)
+                 if nee is None else nee)
     t, hit_id, rows = closest_hit(walk, scene.leaf_size, o, d, alive,
                                   fmt=scene.leaf_fmt)
-    alive = alive & (hit_id >= 0)  # miss -> path ends (renderer.cu:427)
-    hitrow = scene.trimat[torch.clamp(hit_id, min=0)]
-    q, uv = shade.surface(hitrow, o + d * t[:, None], d, scene, cfg,
-                          textured=bool(textures))
-    if uv is not None:
-        q["albedo"] = q["albedo"] * sample_textures(
-            textures, hitrow[:, 19].to(torch.int64), *uv)
-
-    # The bounce's seven draws in one hash: slots 0..6 of this depth.
-    base = rng.CAMERA_DRAWS + depth * rng.DRAWS_PER_BOUNCE
-    slots = torch.arange(rng.SLOT_LIGHT_R2 + 1, device=pixels.device)
-    u = rng.uniform(seed, pixels[:, None], base + slots)
-    rr_on = torch.full_like(alive, depth > cfg.rr_threshold)
-    out = shade.scatter(q, d, tp, rad, alive, prev_spec, u, rr_on, scene,
-                        cfg)
-    rad = out["rad"]
-    n_shadow = torch.zeros((), dtype=torch.int64, device=pixels.device)
-    if out["nee"] is not None:
-        geo_ok, so, sd, smax, contrib = out["nee"]
-        occluded, nee_rows = any_hit(walk, scene.leaf_size, so, sd, smax,
-                                     geo_ok, fmt=scene.leaf_fmt)
-        rad = rad + torch.where((geo_ok & ~occluded)[:, None], contrib, 0.0)
-        n_shadow = geo_ok.sum()
-        rows = rows + nee_rows
-    return (out["o"], out["d"], out["tp"], rad, out["alive"],
-            out["prev_spec"], n_shadow, rows)
+    bounce.bounce_shade(scene, tables, params, seed, pixels, depth, t,
+                        hit_id, s, counts)
+    rows = [rows]
+    if lights:
+        occluded, nee_rows = any_hit(walk, scene.leaf_size, s["so"],
+                                     s["sd"], s["smax"], s["geo_ok"],
+                                     fmt=scene.leaf_fmt)
+        bounce.bounce_nee(s, occluded)
+        rows.append(nee_rows)
+    return s, counts, rows
 
 
 def engine_tables(scene, textures, cfg: RenderConfig) -> tuple:
-    """(inline, texture tensors): what ``render_frame``'s engine reads
-    besides the scene, on the scene's device.  The persistent engine
-    reads its unified table (engine/persistent.py
-    ``build_inline_table``), the bounce engine the walk-order copy of the
-    threaded rows (``ops/threaded.py walk_table``) and the raw textures;
-    ``textures`` are the upload's [H, W, 3] NumPy textures."""
+    """(inline, textures): what ``render_frame``'s engine reads besides
+    the scene, on the scene's device.  The persistent engine reads its
+    unified table (engine/persistent.py ``build_inline_table``), the
+    bounce engine the walk-order copy of the threaded rows
+    (``ops/threaded.py walk_table``) and its ``BounceTables`` (the raw
+    textures, every texture in one buffer with its layout, the lights'
+    trimat rows; ops/bounce.py ``bounce_tables``); ``textures`` are the
+    upload's [H, W, 3] NumPy textures."""
     if cfg.engine == "bounce":
         return (walk_table(scene.node_table, scene.leaf_size,
                            scene.leaf_fmt),
-                device_textures(textures, scene.trimat.device))
+                bounce.bounce_tables(scene, device_textures(
+                    textures, scene.trimat.device)))
     from tryraytrace_tpu_torch.engine.persistent import build_inline_table
 
     return build_inline_table(scene, textures), ()
@@ -184,17 +206,20 @@ def render_frame(scene, inline, textures, cam, frame_seed: int, width: int,
                                        seed_spp=seed_spp)
     check_supported(cfg)
     dev = scene.trimat.device
-    cam = cam.to(dev)
     frame_seed = int(frame_seed) & rng.MASK32
     n = width * height if pixels is None else int(pixels.shape[0])
+    tables = bounce.bounce_tables(scene, textures)
+    # Packed once a frame, from the caller's camera as it is (a host
+    # camera is not copied to the card).
+    params = bounce.bounce_params(scene, tables, cfg, width, height, cam)
     acc = torch.zeros((n, 3), device=dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     stats = dict(n_traced=zero, n_shadow=zero, iterations=0,
                  rows_fetched=zero)
     for s in range(spp):
         seed = rng.sample_seed(frame_seed, seed_spp, sample_offset + s)
-        rad, st = render_sample(scene, inline, textures, cam, seed, width,
-                                height, cfg, pixels)
+        rad, st = render_sample(scene, inline, tables, cam, seed, width,
+                                height, cfg, pixels, params)
         acc = acc + rad
         stats = {key: stats[key] + st[key] for key in stats}
     return acc, stats
