@@ -211,7 +211,6 @@ from tryraytrace_tpu_torch.display import pipeline as display_pipeline
 from tryraytrace_tpu_torch.display.app import App, ProgressiveApp
 from tryraytrace_tpu_torch.display.input import ScriptedInput
 from tryraytrace_tpu_torch.engine import persistent, wavefront
-from tryraytrace_tpu_torch.engine.device_scene import device_textures
 from tryraytrace_tpu_torch.engine.progressive import (UNBOUNDED_SPP,
                                                       ProgressiveRenderer)
 from tryraytrace_tpu_torch.engine.renderer import Renderer
@@ -2894,7 +2893,8 @@ def _tie_trace(rb: Renderer, scene_quad, params):
     with _walks(closest=closest):
         acc, _ = wavefront.render_frame(rb.scene, rb.inline,
                                         rb.device_textures, params, 1, WIDTH,
-                                        HEIGHT, rb.cfg, 1)
+                                        HEIGHT, rb.cfg, 1,
+                                        tables=rb.bounce_tables)
     return acc, tie, fault
 
 
@@ -3053,12 +3053,13 @@ def phase_bounce(arrays, r: Renderer, params, tmp: str) -> tuple:
                 cli_ms_per_frame=1e3 * dt / BOUNCE_CLI_FRAMES), rb
 
 
-def _bounce_states(scene, walk_table, textures, cfg, params) -> dict:
+def _bounce_states(scene, walk_table, tables, cfg, params) -> dict:
     """The threaded walks' inputs at three points of one full-width
     bounce frame over ``walk_table`` (the engine's walk-order copy of the
-    threaded rows): the camera rays (closest hit), the first bounce's
-    shadow rays (any hit), and the first closest-hit walk with at most
-    LATE_ACTIVE_SHARE of the lanes alive."""
+    threaded rows) and ``tables`` (its BounceTables): the camera rays
+    (closest hit), the first bounce's shadow rays (any hit), and the
+    first closest-hit walk with at most LATE_ACTIVE_SHARE of the lanes
+    alive."""
     states = {}
     n = WIDTH * HEIGHT
     real_c, real_a = threaded.closest_hit, threaded.any_hit
@@ -3078,8 +3079,8 @@ def _bounce_states(scene, walk_table, textures, cfg, params) -> dict:
         return real_a(table, k, o, d, max_dist, active, fmt=fmt)
 
     with _walks(closest, anyhit):
-        wavefront.render_frame(scene, walk_table, textures, params, 1, WIDTH,
-                               HEIGHT, cfg, 1)
+        wavefront.render_frame(scene, walk_table, tables.textures, params, 1,
+                               WIDTH, HEIGHT, cfg, 1, tables=tables)
     if sorted(states) != ["fresh", "late", "shadow"]:
         raise AssertionError(f"the frame gave the states {sorted(states)}")
     return states
@@ -3194,13 +3195,13 @@ def phase_threaded_walk(rb: Renderer, features_r: Renderer, params,
     out = {"build": threaded_builds(threaded.LIBRARY.compiler_log)}
     log(f"[bounce] threaded_walk kernel builds: {out['build']}")
     fs = features_r.scene
-    runs = (("bw", rb.scene, rb.inline, rb.device_textures, rb.cfg),
+    runs = (("bw", rb.scene, rb.inline, rb.bounce_tables, rb.cfg),
             ("mt", fs, threaded.walk_table(fs.node_table, fs.leaf_size,
                                            fs.leaf_fmt),
-             device_textures(features_r.textures, features_r.device),
+             bounce.bounce_tables(fs, features_r.textures),
              features_r.cfg.replace(engine="bounce")))
-    for fmt, scene, walk_table, textures, cfg in runs:
-        states = _bounce_states(scene, walk_table, textures, cfg, params)
+    for fmt, scene, walk_table, tables, cfg in runs:
+        states = _bounce_states(scene, walk_table, tables, cfg, params)
         res = {label: _check_threaded(label, scene, walk_table,
                                       states[label], latency_ns)
                for label in ("fresh", "shadow", "late")}
@@ -3265,10 +3266,11 @@ def bounce_kernel_states(rb: Renderer, params, width: int, height: int,
     n = width * height
     with _recording_bounce(states, n):
         wavefront.render_frame(rb.scene, rb.inline, rb.device_textures,
-                               params, frame, width, height, rb.cfg, 1)
+                               params, frame, width, height, rb.cfg, 1,
+                               tables=rb.bounce_tables)
     if sorted(states) != ["fresh", "late", "mid"]:
         raise AssertionError(f"the frame gave the states {sorted(states)}")
-    tables = rb.device_textures
+    tables = rb.bounce_tables
     bp = bounce.bounce_params(rb.scene, tables, rb.cfg, width, height,
                               params)
     states["rays"] = dict(params=bp, seed=states["fresh"]["seed"],
@@ -3311,16 +3313,27 @@ def _max_err(got: dict, want: dict, names) -> float:
                 if got[k].is_floating_point() and got[k].numel()] or [0.0])
 
 
+def texel_taps(u, v, w: int, h: int):
+    """The flat texel indices [N, 4] of the bilinear taps at (u, v) in a
+    w x h texture, by ops/texture.py sample_bilinear_wrap's arithmetic."""
+    x0 = torch.floor((u - torch.floor(u)) * w - 0.5).to(torch.int64) % w
+    y0 = torch.floor((v - torch.floor(v)) * h - 0.5).to(torch.int64) % h
+    x1, y1 = (x0 + 1) % w, (y0 + 1) % h
+    return torch.stack([y0 * w + x0, y0 * w + x1, y1 * w + x0, y1 * w + x1],
+                       dim=-1)
+
+
 def shade_work(rb_scene, tables, cfg, st, want) -> dict:
     """The bytes a bounce's shade must move and its FP64 calls, from its
     inputs ``st`` (a recorded state) and the plain version's outputs
     ``want``.  Bytes: each lane's alive flag read and, with lights, its
-    geo_ok written (2 B); a lane alive at entry reads hit_id (8 B); one
-    that hit reads t, o, d, pix, tp, rad, prev_spec (69 B) and writes
-    rad and alive (13 B); one on a branch also writes o, d, tp and
-    prev_spec (37 B), one that fires a shadow ray so, sd, smax and
-    contrib (40 B).  Each distinct trimat row hit (148 B), the four
-    texels of each textured hit (48 B) and the light rows count once.
+    geo_ok written (2 B); a lane alive at entry reads hit_id and writes
+    alive (9 B); one that hit also reads t, o, d, pix, tp, rad and
+    prev_spec (61 B) and writes rad (12 B); one on a branch also writes
+    o, d, tp and prev_spec (37 B), one that fires a shadow ray so, sd,
+    smax and contrib (40 B).  Each distinct trimat row hit (148 B), each
+    distinct texel a textured hit taps (12 B; texel_taps), the texture
+    metas and the light rows count once.
     Calls, by the branch each lane takes (chip_smoke.service_work's
     accounting): a face normal (1 sqrt) a hit and a smooth one where
     smooth_normal keeps it (1), pow and a DMUL a lane past roulette, a
@@ -3336,7 +3349,9 @@ def shade_work(rb_scene, tables, cfg, st, want) -> dict:
 
     def surface(hitrow, x_hit, d, *args, **kwargs):
         seen["hitrow"], seen["x_hit"] = hitrow, x_hit
-        return real_surface(hitrow, x_hit, d, *args, **kwargs)
+        out = real_surface(hitrow, x_hit, d, *args, **kwargs)
+        seen["uv"] = out[1]
+        return out
 
     def scatter(q, d, tp, rad, alive, prev_spec, u, *args):
         seen.update(q=q, d=d, u=u)
@@ -3376,14 +3391,18 @@ def shade_work(rb_scene, tables, cfg, st, want) -> dict:
         smooth_ok = hit & ok_den & (vec.dot(ns, ns) > 1e-12)
     n = lambda m: int(m.sum())
     fired = want["geo_ok"] if "geo_ok" in want else torch.zeros_like(hit)
-    textured = torch.zeros_like(hit)
-    if len(tables):
+    texels = 0
+    if tables.textures:
+        u_tex, v_tex = seen["uv"]
         tid = seen["hitrow"][:, 19].to(torch.int64)
-        textured = hit & (tid >= 0) & (tid < len(tables))
+        for k, (_, w, h) in enumerate(tables.metas.tolist()):
+            m = hit & (tid == k)
+            texels += int(torch.unique(texel_taps(u_tex[m], v_tex[m], w,
+                                                  h)).numel())
     lights = 0 if rb_scene.num_lights == 0 else 1
     n_bytes = (2 * entry.numel() if lights else entry.numel()) \
-        + 8 * n(entry) + 82 * n(hit) + 37 * n(alive) + 40 * n(fired) \
-        + 148 * int(torch.unique(hit_id[hit]).numel()) + 48 * n(textured) \
+        + 9 * n(entry) + 73 * n(hit) + 37 * n(alive) + 40 * n(fired) \
+        + 148 * int(torch.unique(hit_id[hit]).numel()) + 12 * texels \
         + tables.lights.numel() * 4 + tables.metas.numel() * 8
     lanes = dict(entry=n(entry), hit=n(hit), branch=n(alive),
                  spec=n(m_spec), tir=n(tir),
@@ -3397,7 +3416,7 @@ def shade_work(rb_scene, tables, cfg, st, want) -> dict:
                        + 2 * trans_refr + 3 * lights * lanes["diff"]
                        + 4 * lanes["diff"]),
                  cos=trig, sin=trig, pow=n(alive), dmul=n(alive))
-    return dict(n_bytes=n_bytes, lanes=lanes, calls=calls)
+    return dict(n_bytes=n_bytes, lanes=lanes, calls=calls, texels=texels)
 
 
 def check_bounce_shade(label: str, rb: Renderer, params, st,
@@ -3408,7 +3427,7 @@ def check_bounce_shade(label: str, rb: Renderer, params, st,
     own time, the wrapper's (each call on a fresh copy: the kernel
     writes in place), the plain version's, and the bound
     (service_bound of shade_work)."""
-    scene, tables = rb.scene, rb.device_textures
+    scene, tables = rb.scene, rb.bounce_tables
     args = (st["seed"], st["pixels"], st["depth"], st["t"], st["hit_id"])
     counts = torch.zeros(len(bounce.COUNTS), dtype=torch.int64,
                          device=scene.trimat.device)
@@ -3444,10 +3463,10 @@ def check_bounce_shade(label: str, rb: Renderer, params, st,
     del copies
     out.update(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                library_ms=None, lanes=work["lanes"], calls=work["calls"],
-               bound_bytes=work["n_bytes"],
+               texels=work["texels"], bound_bytes=work["n_bytes"],
                **service_bound(work["n_bytes"], work["calls"]))
-    log(f"[bounce_kernels] shade {label}: lanes {work['lanes']}; double "
-        f"calls {work['calls']}")
+    log(f"[bounce_kernels] shade {label}: lanes {work['lanes']}; distinct "
+        f"texels {work['texels']}; double calls {work['calls']}")
     log(f"[bounce_kernels] shade {label}: kernel's own time {ms:.5f} ms, "
         f"wrapper {wrapper_ms:.5f} ms, plain {plain_ms:.2f} ms; bound "
         f"{out['bound_ms']:.5f} ms by {out['bound_by']} ({work['n_bytes']} "

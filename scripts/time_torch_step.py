@@ -2,22 +2,32 @@
 one checkout, in a process that does nothing else.
 
     python3 scripts/time_torch_step.py [--tree DIR] [--steps 8]
-        [--profile-first] [--progressive ROUNDS] [--split] [--tiles N]
+        [--engine persistent|bounce] [--profile-first]
+        [--progressive ROUNDS] [--split] [--tiles N] [--parent DIR]
 
 Imports ``tryraytrace_tpu_torch`` and ``chip_smoke`` (for the main-path
 scene) from ``DIR`` (default: this checkout), so that a commit and its
 parent can be timed in turn in one run on one card.  Renders
 chip_smoke.py's main path (Cornell box + icosphere(5), 20,487
-triangles, 1200x800 at 1 spp): one warm-up step, then ``--steps``
+triangles, 1200x800 at 1 spp) with the engine ``--engine`` names
+(default: the persistent engine): one warm-up step, then ``--steps``
 steps, each timed on the host clock and ended by
 ``Renderer.block_until_ready``.  ``--profile-first`` runs one
 torch.profiler session around a tonemap before the warm-up, to see
 whether a profiler session slows the steps that follow it.  Prints one
-JSON line: the step times, their median and quartiles, rounds, path and
-shadow rays and rows per step, and the image mean.  ``--progressive
-ROUNDS`` times ``--steps`` frames of an unbounded ProgressiveRenderer
-(ROUNDS rounds a frame, as the app's ticks) instead.  ``--tiles N``
-times ``Renderer.step_tiled(cam, N)`` instead of ``Renderer.step``.
+JSON line: the step times, their median and quartiles, rounds (the
+bounce engine's bounces), path and shadow rays and rows per step, the
+image mean, and the launches over the timed steps of each hand-written
+kernel the tree counts (``COUNTED``).  ``--progressive ROUNDS`` times
+``--steps`` frames of an unbounded ProgressiveRenderer (ROUNDS rounds a
+frame, as the app's ticks) instead.  ``--tiles N`` times
+``Renderer.step_tiled(cam, N)`` instead of ``Renderer.step``.
+
+``--parent DIR`` runs this script with the other arguments on ``DIR``
+and on this checkout in turns, parent, this, this, parent, each in a
+process of its own (so no profiler session and no other tree's kernels
+share it), prints each run's line and then a summary line with every
+run's median and quartiles.
 
 ``--split`` also times the host side of each step's parts (``SPLIT``:
 ``Wave.__init__`` apart from what it calls, ``CameraParams.to``,
@@ -35,10 +45,14 @@ before it); ``other`` is the step less its parts.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
+import subprocess
 import sys
 import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # The parts of a step that --split times: (label, module path, owner
 # within the module or "", function name).
@@ -63,6 +77,13 @@ SPLIT = (
     ("Renderer._accumulate", "tryraytrace_tpu_torch.engine.renderer",
      "Renderer", "_accumulate"),
 )
+# The wrappers whose ``launches`` a tree may count: (module, function).
+COUNTED = (("tryraytrace_tpu_torch.ops.lane_init", "lane_init_cuda"),
+           ("tryraytrace_tpu_torch.ops.wave", "wave_advance_cuda"),
+           ("tryraytrace_tpu_torch.ops.threaded", "threaded_walk_cuda"),
+           ("tryraytrace_tpu_torch.ops.bounce", "bounce_rays_cuda"),
+           ("tryraytrace_tpu_torch.ops.bounce", "bounce_shade_cuda"),
+           ("tryraytrace_tpu_torch.ops.bounce", "bounce_nee_cuda"))
 
 
 class _Split:
@@ -89,7 +110,6 @@ class _Split:
         return timed
 
     def install(self) -> list:
-        import importlib
         found = []
         for label, module, owner, name in SPLIT:
             mod = importlib.import_module(module)
@@ -105,11 +125,51 @@ class _Split:
         return ms, calls
 
 
+def _launch_counts() -> dict:
+    """{wrapper: its launches so far} for the COUNTED wrappers the
+    imported tree has."""
+    out = {}
+    for module, name in COUNTED:
+        try:
+            out[name] = getattr(importlib.import_module(module),
+                                name).launches
+        except (ImportError, AttributeError):
+            continue
+    return out
+
+
+def _in_turns(parent: str) -> int:
+    """This script's other arguments on ``parent`` and on this checkout,
+    parent, this, this, parent, a process each; one summary line."""
+    argv, skip = [], False
+    for a in sys.argv[1:]:
+        if skip or a == "--parent" or a.startswith("--parent="):
+            skip = a == "--parent"
+            continue
+        argv.append(a)
+    runs = []
+    for label, tree in (("parent", parent), ("change", HERE),
+                        ("change", HERE), ("parent", parent)):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), *argv, "--tree",
+             tree], capture_output=True, text=True, check=True,
+            timeout=1200).stdout.strip().splitlines()[-1]
+        print(out, flush=True)
+        res = json.loads(out)
+        runs.append(dict(label=label, **{k: res.get(k) for k in (
+            "median_ms", "q1_ms", "q3_ms", "launches", "image_mean")}))
+    print(json.dumps(dict(device=res["device"], turns=runs)))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
+    ap.add_argument("--tree", default=HERE)
+    ap.add_argument("--parent", metavar="DIR",
+                    help="time DIR and this checkout in turns")
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--engine", choices=("persistent", "bounce"),
+                    default="persistent")
     ap.add_argument("--profile-first", action="store_true")
     ap.add_argument("--progressive", type=int, default=0, metavar="ROUNDS",
                     help="time progressive frames of ROUNDS rounds "
@@ -119,6 +179,10 @@ def main() -> int:
     ap.add_argument("--tiles", type=int, default=0,
                     help="time step_tiled with this many strips")
     args = ap.parse_args()
+    if args.parent:
+        return _in_turns(os.path.abspath(args.parent))
+    if args.progressive and args.engine != "persistent":
+        ap.error("--progressive runs the persistent engine")
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
     import numpy as np
@@ -141,7 +205,8 @@ def main() -> int:
     if args.progressive:
         return _progressive(args, tree, chip_smoke, params, np, torch)
     r = Renderer(chip_smoke.main_path_arrays(),
-                 cfg=RenderConfig(width=w, height=h, spp=1))
+                 cfg=RenderConfig(width=w, height=h, spp=1,
+                                  engine=args.engine))
     split = _Split()
     parts = split.install() if args.split else []
     step = ((lambda: r.step_tiled(params, args.tiles)) if args.tiles
@@ -152,9 +217,11 @@ def main() -> int:
                                  ProfilerActivity.CUDA]):
             tm.tonemap_cuda(acc, 1)
             torch.cuda.synchronize()
-    steps = []
+    steps, before = [], _launch_counts()
     for i in range(args.steps + 1):
         torch.cuda.synchronize()
+        if i == 1:
+            before = _launch_counts()
         split.take()
         t0 = time.perf_counter()
         step()
@@ -173,10 +240,13 @@ def main() -> int:
     img = r.image()
     q1, median, q3 = (float(v) for v in np.percentile(
         [s["ms"] for s in steps], (25, 50, 75)))
-    out = {"tree": tree, "profile_first": args.profile_first,
+    after = _launch_counts()
+    out = {"tree": tree, "engine": args.engine,
+           "profile_first": args.profile_first,
            "tiles": args.tiles, "ms": [s["ms"] for s in steps],
            "median_ms": median, "q1_ms": q1, "q3_ms": q3, "steps": steps,
            "image_mean": float(img.mean()),
+           "launches": {k: after[k] - before[k] for k in after},
            "device": torch.cuda.get_device_name(0)}
     if args.split:
         labels = [*parts, "other"]

@@ -138,7 +138,7 @@ def states(params, tmp: str):
         width=chip_smoke.WIDTH, height=chip_smoke.HEIGHT, spp=1,
         engine="bounce", **chip_smoke.FEATURE_CFG))
     for fmt, r in (("bw", rb), ("mt", rf)):
-        got = chip_smoke._bounce_states(r.scene, r.inline, r.device_textures,
+        got = chip_smoke._bounce_states(r.scene, r.inline, r.bounce_tables,
                                         r.cfg, params)
         for label in ("fresh", "shadow", "late"):
             yield f"{fmt} {label}", r.scene, r.inline, got[label]

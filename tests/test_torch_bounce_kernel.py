@@ -13,8 +13,11 @@ On the CPU:
   - the engine's ``_bounce`` (the dispatch) equal to that composition,
     byte for byte;
   - ``BounceTables`` byte-equal to the raw device textures and to
-    ``trimat[light_indices]``, also after ``Renderer.refit``;
+    ``trimat[light_indices]``, also after ``Renderer.refit``, and the
+    Renderer's device textures its views;
   - ``bounce_params``' layout (ops/service.py FLOATS and INTS);
+  - chip_smoke.py's ``texel_taps`` (the shade's byte bound) against
+    the texels ``sample_bilinear_wrap`` reads;
   - each ``*_cuda`` wrapper's refusals (CPU tensors, a dtype, a shape, a
     tensor that is not contiguous or not 16-byte aligned, params packed
     for other tables), raised before any library is loaded.
@@ -137,7 +140,7 @@ def _plain_bounce(r, st, seed: int, depth: int):
     t, hit_id, _ = ttrav.closest_hit_packed(r.inline, k, s["o"], s["d"],
                                             s["alive"], fmt=fmt)
     new, fired, live = bounce.bounce_shade_plain(
-        scene, r.device_textures, r.cfg, seed, st["pixels"], depth, t,
+        scene, r.bounce_tables, r.cfg, seed, st["pixels"], depth, t,
         hit_id, s)
     occluded, _ = ttrav.any_hit_packed(r.inline, k, new["so"], new["sd"],
                                        new["smax"], new["geo_ok"], fmt=fmt)
@@ -214,9 +217,14 @@ def test_engine_bounce_is_the_plain_composition(port_renderer):
     r = port_renderer
     st = _torch_state(_state(21))
     want, fired, live = _plain_bounce(r, st, SEED, 5)
-    s, counts, rows = wavefront._bounce(
-        r.scene, r.inline, r.device_textures, SEED, st["pixels"], 5,
-        *(st[name] for name, _, _ in bounce.STATE), r.cfg)
+    n = int(st["pixels"].shape[0])
+    s = {name: st[name] for name, _, _ in bounce.STATE}
+    s.update(bounce.new_nee_state(n, "cpu"))
+    counts = torch.zeros(len(bounce.COUNTS), dtype=torch.int64)
+    rows = wavefront._bounce(
+        r.scene, r.inline, r.bounce_tables,
+        bounce.bounce_params(r.scene, r.bounce_tables, r.cfg), SEED,
+        st["pixels"], 5, s, counts)
     assert counts.tolist() == [fired, live]
     assert len(rows) == 2 and all(x.dtype == torch.int64 for x in rows)
     for name, _, _ in bounce.STATE:
@@ -225,11 +233,15 @@ def test_engine_bounce_is_the_plain_composition(port_renderer):
 
 
 def _check_tables(r):
-    tables = r.device_textures
+    tables = r.bounce_tables
     raw = device_textures(r.textures, r.device)
     assert isinstance(tables, bounce.BounceTables)
-    assert len(tables) == len(raw) == 1
-    assert all(torch.equal(a, b) for a, b in zip(tables, raw))
+    # The engine's device textures are the tables' views of one buffer.
+    assert r.device_textures is tables.textures
+    assert len(tables.textures) == len(raw) == 1
+    for view, t in zip(tables.textures, raw):
+        assert view.shape == t.shape
+        assert torch.equal(chip_smoke._bits(view), chip_smoke._bits(t))
     assert torch.equal(chip_smoke._bits(tables.texels), chip_smoke._bits(
         torch.cat([t.reshape(-1) for t in raw])))
     offsets = np.cumsum([0] + [t.numel() for t in raw])[:-1]
@@ -257,17 +269,38 @@ def test_bounce_tables_follow_refit():
     r.refit(moved)
     new = _check_tables(r)
     assert new is not old and not torch.equal(new.lights, old.lights)
-    # A BounceTables passes through; raw textures are built into one.
-    assert bounce.bounce_tables(r.scene, new) is new
-    built = bounce.bounce_tables(r.scene, tuple(new))
+    built = bounce.bounce_tables(r.scene, r.textures)
     assert torch.equal(built.texels, new.texels)
     assert torch.equal(built.lights, new.lights)
+
+
+def test_texel_taps_are_the_texels_sampled():
+    """chip_smoke.texel_taps (the shade's byte bound counts each distinct
+    tap once) names exactly the texels sample_bilinear_wrap reads: the
+    sample is 1 with only the taps set to 1, and 0 with only them 0."""
+    from tryraytrace_tpu_torch.ops.texture import sample_bilinear_wrap
+
+    r = np.random.RandomState(5)
+    w, h = 7, 5
+    u = torch.from_numpy(r.uniform(-3, 3, 200).astype(np.float32))
+    v = torch.from_numpy(r.uniform(-3, 3, 200).astype(np.float32))
+    taps = chip_smoke.texel_taps(u, v, w, h)
+    assert taps.shape == (200, 4) and int(taps.min()) >= 0
+    assert int(taps.max()) < w * h
+    for k in range(200):
+        on = torch.zeros(h * w, 3)
+        on[taps[k]] = 1.0
+        one = sample_bilinear_wrap(on.view(h, w, 3), u[k:k + 1], v[k:k + 1])
+        zero = sample_bilinear_wrap((1.0 - on).view(h, w, 3), u[k:k + 1],
+                                    v[k:k + 1])
+        assert torch.allclose(one, torch.ones(1, 3), atol=1e-6)
+        assert torch.equal(zero, torch.zeros(1, 3))
 
 
 def test_bounce_params_layout(port_renderer):
     r = port_renderer
     cam = CameraController().get_params(W, H)
-    p = bounce.bounce_params(r.scene, r.device_textures, r.cfg, W, H, cam)
+    p = bounce.bounce_params(r.scene, r.bounce_tables, r.cfg, W, H, cam)
     f = dict(zip(service.FLOATS, p.floats.tolist()))
     i = dict(zip(service.INTS, p.ints.tolist()))
     assert p.floats.dtype == np.float32 and p.ints.dtype == np.int64
@@ -282,7 +315,7 @@ def test_bounce_params_layout(port_renderer):
     assert (i["smooth"], i["uv"]) == (0, 0)
     # The slots the bounce kernels do not read are 0.
     assert (i["spp_cap"], i["sentinel"], i["table_rows"]) == (0, 0, 0)
-    bare = bounce.bounce_params(r.scene, r.device_textures, r.cfg)
+    bare = bounce.bounce_params(r.scene, r.bounce_tables, r.cfg)
     assert bare.cam is None and not bare.floats[:14].any()
     assert np.array_equal(bare.floats[16:], p.floats[16:])
 
@@ -304,7 +337,7 @@ def _misaligned(t):
 def test_cuda_wrappers_refuse_before_loading(port_renderer, monkeypatch):
     monkeypatch.setattr(KernelLibrary, "load", _refuse)
     r = port_renderer
-    scene, tables = r.scene, r.device_textures
+    scene, tables = r.scene, r.bounce_tables
     params = bounce.bounce_params(scene, tables, r.cfg, W, H,
                                   CameraController().get_params(W, H))
     st = _torch_state(_state(4))
@@ -420,7 +453,7 @@ def test_cuda_bounce_kernels_match_plain(kind):
         assert res["counts"][1] <= int(st["s"]["alive"].sum())
         chip_smoke.check_bounce_nee(label, st, timed=False)
         s = chip_smoke._copy(st["s"])
-        bounce.bounce_shade_cuda(rb.scene, rb.device_textures, bp,
+        bounce.bounce_shade_cuda(rb.scene, rb.bounce_tables, bp,
                                  st["seed"], st["pixels"], st["depth"],
                                  st["t"], st["hit_id"], s,
                                  torch.zeros(2, dtype=torch.int64,
@@ -459,7 +492,7 @@ def test_cuda_wrappers_refuse_misaligned_card_tensors():
     _cuda()
     r = Renderer(_scene(), cfg=RenderConfig(width=W, height=H,
                                             engine="bounce"))
-    params = bounce.bounce_params(r.scene, r.device_textures, r.cfg, W, H,
+    params = bounce.bounce_params(r.scene, r.bounce_tables, r.cfg, W, H,
                                   CameraController().get_params(W, H))
     pix = torch.arange(LANES, device=r.device)
     shifted = torch.zeros(LANES + 1, dtype=torch.int64, device=r.device)[1:]

@@ -25,7 +25,7 @@ from tryraytrace_tpu_torch.camera.controller import CameraController
 from tryraytrace_tpu_torch.config import RenderConfig
 from tryraytrace_tpu_torch.engine import wavefront
 from tryraytrace_tpu_torch.engine.renderer import Renderer
-from tryraytrace_tpu_torch.ops import threaded
+from tryraytrace_tpu_torch.ops import bounce, threaded
 from tryraytrace_tpu_torch.ops.traverse import (any_hit_packed,
                                                 closest_hit_packed)
 from tryraytrace_tpu_torch.scene.assets import icosphere_mesh
@@ -266,18 +266,15 @@ def test_cuda_bounce_launches_two_walks_and_no_fills_for_their_outputs():
     wavefront.any_hit = traced(real_a)
     before = threaded.threaded_walk_cuda.launches
     try:
-        scene = r.scene
-        cam = params.to(scene.trimat.device)
+        scene, tables = r.scene, r.bounce_tables
         n = 64 * 48
         pixels = torch.arange(n, device=scene.trimat.device)
-        o, d = wavefront.generate_rays(
-            cam, 64, 48, torch.full((n,), 1, dtype=torch.int64,
-                                    device=pixels.device), pixels)
-        ones = torch.ones((n, 3), device=pixels.device)
-        alive = torch.ones(n, dtype=torch.bool, device=pixels.device)
-        wavefront._bounce(scene, r.inline, r.device_textures, 1, pixels, 0,
-                          o, d, ones, torch.zeros_like(ones), alive,
-                          alive.clone(), r.cfg)
+        bp = bounce.bounce_params(scene, tables, r.cfg, 64, 48, params)
+        s = bounce.bounce_rays(bp, 1, pixels)
+        s.update(bounce.new_nee_state(n, pixels.device))
+        wavefront._bounce(scene, r.inline, tables, bp, 1, pixels, 0, s,
+                          torch.zeros(2, dtype=torch.int64,
+                                      device=pixels.device))
     finally:
         wavefront.closest_hit, wavefront.any_hit = real_c, real_a
     assert threaded.threaded_walk_cuda.launches == before + 2

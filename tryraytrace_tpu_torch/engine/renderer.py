@@ -3,7 +3,8 @@ tryraytrace_tpu/engine/renderer.py).
 
   - construction = scene upload (BVH build, table packing, upload to
     ``device``) and what the engine reads besides it (the persistent
-    engine's unified inline table, the bounce engine's textures);
+    engine's unified inline table, the bounce engine's textures and
+    tables);
   - ``step(cam)`` = one progressive pass: render a frame's samples with
     the engine ``cfg.engine`` names (the persistent engine's round loop,
     or the bounce engine's lockstep bounces; the walks run in the CUDA
@@ -65,8 +66,8 @@ class Renderer:
             method=self.cfg.bvh_method,
             quad_collapse=self.cfg.quad_collapse, device=self.device,
             leaf_fmt=self.cfg.leaf_isect)
-        self.inline, self.device_textures = engine_tables(
-            self.scene, self.textures, self.cfg)
+        self.inline, self.device_textures, self.bounce_tables = (
+            engine_tables(self.scene, self.textures, self.cfg))
         self.state = RenderState.zeros(self.width * self.height, self.device)
         self.frame = 1  # gpu_frame counter parity (main.cpp:149)
         self._step_spp = None
@@ -77,7 +78,8 @@ class Renderer:
     def _render(self, cam, spp: int, pixels=None):
         return render_frame(self.scene, self.inline, self.device_textures,
                             cam, self.frame, self.width, self.height,
-                            self.cfg, spp, pixels)
+                            self.cfg, spp, pixels,
+                            tables=self.bounce_tables)
 
     def step(self, cam, spp: int | None = None) -> None:
         """One progressive pass (launch_render_kernel analogue)."""
@@ -152,8 +154,8 @@ class Renderer:
                 f"objects vs {n_orig} at upload (build a new Renderer "
                 "instead)")
         self.scene, self.bvh = refit_scene(self.scene, self.bvh, arrays)
-        self.inline, self.device_textures = engine_tables(
-            self.scene, self.textures, self.cfg)
+        self.inline, self.device_textures, self.bounce_tables = (
+            engine_tables(self.scene, self.textures, self.cfg))
         self.reset()
 
     def accum_host(self) -> np.ndarray:

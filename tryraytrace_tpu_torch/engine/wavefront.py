@@ -18,8 +18,9 @@ plain version (eager PyTorch) on the CPU, so a bounce on a card is four
 launches (and the walks' counter fills), and the loop reads one number
 a bounce: the live count the shade leaves on the device.
 ``engine_tables`` builds the walk-order copy and the ``BounceTables``
-(the raw textures, which are sampled as they are, not as the persistent
-engine's tile rows; the light rows), so a refit rebuilds them.
+(the textures in one buffer, which are sampled as they are, not as the
+persistent engine's tile rows; the light rows) once a table set, so a
+refit rebuilds them.
 
 Every constant, epsilon and draw order is the reference's, and the
 arithmetic is the persistent engine's (ops/shade.py, core/rng.py,
@@ -39,10 +40,6 @@ import torch
 
 from tryraytrace_tpu_torch.config import RenderConfig, check_supported
 from tryraytrace_tpu_torch.core import rng
-# generate_rays (the plain camera rays) stays importable from here for
-# callers that build a bounce's inputs by hand.
-from tryraytrace_tpu_torch.engine.camera_rays import generate_rays  # noqa: F401
-from tryraytrace_tpu_torch.engine.device_scene import device_textures
 from tryraytrace_tpu_torch.ops import bounce
 from tryraytrace_tpu_torch.ops.threaded import (any_hit, closest_hit,
                                                 walk_table)
@@ -66,16 +63,14 @@ def _sanitize(rad, cfg: RenderConfig):
     return rad
 
 
-def render_sample(scene, walk, textures, cam, seed: int, width: int,
-                  height: int, cfg: RenderConfig, pixels=None, params=None):
+def render_sample(scene, walk, tables, params, seed: int, pixels,
+                  cfg: RenderConfig):
     """Trace one 1-spp pass for ``pixels`` (int64 [N] on the scene's
-    device; every pixel by default) with sample seed ``seed`` over the
-    walk-order threaded rows ``walk`` (``ops/threaded.py walk_table``) ->
-    (radiance [N, 3], stats).  Streams are keyed by absolute pixel, so
-    a pixel subset renders its pixels' samples exactly.  ``textures``
-    is the engine's ``BounceTables`` (or the raw texture tensors, from
-    which they are built); ``cam`` is a CameraParams, and ``params`` the
-    frame's ``bounce_params`` (packed from ``cam`` when None).
+    device) with sample seed ``seed`` over the walk-order threaded rows
+    ``walk`` (``ops/threaded.py walk_table``) -> (radiance [N, 3],
+    stats).  Streams are keyed by absolute pixel, so a pixel subset
+    renders its pixels' samples exactly.  ``tables`` are the engine's
+    ``BounceTables`` and ``params`` the frame's ``bounce_params``.
 
     On a card a sample is one ``bounce_rays`` launch, then per bounce the
     closest-hit walk, ``bounce_shade``, and with lights the any-hit walk
@@ -86,24 +81,18 @@ def render_sample(scene, walk, textures, cam, seed: int, width: int,
     ``n_shadow`` (NEE shadow rays) as int64 tensors, ``iterations`` (the
     bounces run) and ``rows_fetched`` (int64 tensor: threaded rows both
     walks fetched)."""
-    dev = scene.trimat.device
-    if pixels is None:
-        pixels = torch.arange(width * height, device=dev)
+    dev = pixels.device
     n = int(pixels.shape[0])
-    tables = bounce.bounce_tables(scene, textures)
-    if params is None:
-        params = bounce.bounce_params(scene, tables, cfg, width, height, cam)
     s = bounce.bounce_rays(params, seed, pixels)
-    nee = bounce.new_nee_state(n, dev) if scene.num_lights > 0 else None
+    if scene.num_lights > 0:
+        s.update(bounce.new_nee_state(n, dev))
     # Each bounce's [shadow rays fired, lanes alive after].
     counts = torch.zeros((cfg.max_depth, len(bounce.COUNTS)),
                          dtype=torch.int64, device=dev)
     rows, live, depth = [], n, 0
     while depth < cfg.max_depth and live > 0:
-        s, _, rw = _bounce(scene, walk, tables, seed, pixels, depth,
-                           *(s[name] for name, _, _ in bounce.STATE), cfg,
-                           params=params, nee=nee, counts=counts[depth])
-        rows += rw
+        rows += _bounce(scene, walk, tables, params, seed, pixels, depth, s,
+                        counts[depth])
         live = int(counts[depth, 1])
         depth += 1
     zero = torch.zeros((), dtype=torch.int64, device=dev)
@@ -116,69 +105,54 @@ def render_sample(scene, walk, textures, cam, seed: int, width: int,
         rows_fetched=torch.stack(rows).sum() if rows else zero)
 
 
-def _bounce(scene, walk, textures, seed: int, pixels, depth: int, o, d, tp,
-            rad, alive, prev_spec, cfg: RenderConfig, params=None, nee=None,
-            counts=None):
-    """One wavefront bounce of the state (o, d, tp, rad, alive,
-    prev_spec): the closest-hit walk, ``bounce_shade`` (ops/bounce.py),
-    and with lights the NEE shadow rays as one any-hit walk and
-    ``bounce_nee``.  ``nee`` holds the NEE fields to write
-    (``bounce.new_nee_state``; allocated when None), ``params`` the
-    frame's ``bounce_params`` (packed without a camera when None) and
-    ``counts`` the int64 [2] that the bounce adds [shadow rays fired,
-    lanes alive after] to (zeros when None).  On a card the state's
-    tensors are written in place.  Returns (the state after: a dict of
-    ``bounce.STATE`` and, with lights, ``bounce.NEE``; counts; the rows
-    each walk fetched, int64 tensors)."""
-    tables = bounce.bounce_tables(scene, textures)
-    if params is None:
-        params = bounce.bounce_params(scene, tables, cfg)
-    dev = pixels.device
-    if counts is None:
-        counts = torch.zeros(len(bounce.COUNTS), dtype=torch.int64,
-                             device=dev)
-    s = dict(o=o, d=d, tp=tp, rad=rad, alive=alive, prev_spec=prev_spec)
-    lights = scene.num_lights > 0
-    if lights:
-        s.update(bounce.new_nee_state(int(pixels.shape[0]), dev)
-                 if nee is None else nee)
-    t, hit_id, rows = closest_hit(walk, scene.leaf_size, o, d, alive,
-                                  fmt=scene.leaf_fmt)
+def _bounce(scene, walk, tables, params, seed: int, pixels, depth: int,
+            s: dict, counts) -> list:
+    """One wavefront bounce of the state ``s`` (``bounce.STATE`` and,
+    with lights, ``bounce.NEE``, which the bounce writes): the
+    closest-hit walk, ``bounce_shade`` (ops/bounce.py), and with lights
+    the NEE shadow rays as one any-hit walk and ``bounce_nee``.
+    ``tables`` are the engine's ``BounceTables``, ``params`` the frame's
+    ``bounce_params``, and ``counts`` the int64 [2] that the bounce adds
+    [shadow rays fired, lanes alive after] to.  ``s`` is updated: on a
+    card its tensors are written in place.  Returns the rows each walk
+    fetched (int64 tensors)."""
+    t, hit_id, rows = closest_hit(walk, scene.leaf_size, s["o"], s["d"],
+                                  s["alive"], fmt=scene.leaf_fmt)
     bounce.bounce_shade(scene, tables, params, seed, pixels, depth, t,
                         hit_id, s, counts)
     rows = [rows]
-    if lights:
+    if scene.num_lights > 0:
         occluded, nee_rows = any_hit(walk, scene.leaf_size, s["so"],
                                      s["sd"], s["smax"], s["geo_ok"],
                                      fmt=scene.leaf_fmt)
         bounce.bounce_nee(s, occluded)
         rows.append(nee_rows)
-    return s, counts, rows
+    return rows
 
 
 def engine_tables(scene, textures, cfg: RenderConfig) -> tuple:
-    """(inline, textures): what ``render_frame``'s engine reads besides
-    the scene, on the scene's device.  The persistent engine reads its
-    unified table (engine/persistent.py ``build_inline_table``), the
-    bounce engine the walk-order copy of the threaded rows
-    (``ops/threaded.py walk_table``) and its ``BounceTables`` (the raw
-    textures, every texture in one buffer with its layout, the lights'
-    trimat rows; ops/bounce.py ``bounce_tables``); ``textures`` are the
-    upload's [H, W, 3] NumPy textures."""
+    """(inline, device textures, bounce tables): what ``render_frame``'s
+    engine reads besides the scene, on the scene's device.  The
+    persistent engine reads its unified table (engine/persistent.py
+    ``build_inline_table``; no textures, no bounce tables), the bounce
+    engine the walk-order copy of the threaded rows (``ops/threaded.py
+    walk_table``) and its ``BounceTables`` (every texture in one buffer
+    with its layout, the lights' trimat rows; ops/bounce.py
+    ``bounce_tables``), whose [H, W, 3] texture views are the device
+    textures; ``textures`` are the upload's [H, W, 3] NumPy textures."""
     if cfg.engine == "bounce":
+        tables = bounce.bounce_tables(scene, textures)
         return (walk_table(scene.node_table, scene.leaf_size,
-                           scene.leaf_fmt),
-                bounce.bounce_tables(scene, device_textures(
-                    textures, scene.trimat.device)))
+                           scene.leaf_fmt), tables.textures, tables)
     from tryraytrace_tpu_torch.engine.persistent import build_inline_table
 
-    return build_inline_table(scene, textures), ()
+    return build_inline_table(scene, textures), (), None
 
 
 def render_frame(scene, inline, textures, cam, frame_seed: int, width: int,
                  height: int, cfg: RenderConfig, spp: int | None = None,
                  pixels=None, sample_offset: int = 0,
-                 seed_spp: int | None = None):
+                 seed_spp: int | None = None, tables=None):
     """One frame's radiance sums over ``spp`` samples of ``pixels`` (a
     ``range`` of step 1 or an int64 tensor of pixel ids; every pixel by
     default) with the engine ``cfg.engine`` picks -> (sums [N, 3] in the
@@ -187,10 +161,12 @@ def render_frame(scene, inline, textures, cam, frame_seed: int, width: int,
     The seeds are ``sample_seed(frame_seed, seed_spp, sample_offset +
     s)`` for s in [0, spp), so any (frame, spp) tiling of a frame's
     sample set, and a sample-parallel shard of it, draws the same
-    streams.  ``inline`` and ``textures`` are ``engine_tables``; each
-    engine reads only its own.  Stats: the engine's int64 ``n_traced`` and
-    ``n_shadow``, ``iterations`` (rounds, or bounces summed over the
-    samples) and ``rows_fetched``."""
+    streams.  ``inline``, ``textures`` and ``tables`` are
+    ``engine_tables``; each engine reads only its own, and the bounce
+    engine builds its tables from ``textures`` when ``tables`` is None.
+    Stats: the engine's int64 ``n_traced`` and ``n_shadow``,
+    ``iterations`` (rounds, or bounces summed over the samples) and
+    ``rows_fetched``."""
     spp = cfg.spp if spp is None else spp
     seed_spp = spp if seed_spp is None else seed_spp
     if isinstance(pixels, range) and cfg.engine != "persistent":
@@ -207,19 +183,21 @@ def render_frame(scene, inline, textures, cam, frame_seed: int, width: int,
     check_supported(cfg)
     dev = scene.trimat.device
     frame_seed = int(frame_seed) & rng.MASK32
-    n = width * height if pixels is None else int(pixels.shape[0])
-    tables = bounce.bounce_tables(scene, textures)
+    if pixels is None:
+        pixels = torch.arange(width * height, device=dev)
+    if tables is None:
+        tables = bounce.bounce_tables(scene, textures)
     # Packed once a frame, from the caller's camera as it is (a host
     # camera is not copied to the card).
     params = bounce.bounce_params(scene, tables, cfg, width, height, cam)
-    acc = torch.zeros((n, 3), device=dev)
+    acc = torch.zeros((int(pixels.shape[0]), 3), device=dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     stats = dict(n_traced=zero, n_shadow=zero, iterations=0,
                  rows_fetched=zero)
     for s in range(spp):
         seed = rng.sample_seed(frame_seed, seed_spp, sample_offset + s)
-        rad, st = render_sample(scene, inline, tables, cam, seed, width,
-                                height, cfg, pixels, params)
+        rad, st = render_sample(scene, inline, tables, params, seed, pixels,
+                                cfg)
         acc = acc + rad
         stats = {key: stats[key] + st[key] for key in stats}
     return acc, stats

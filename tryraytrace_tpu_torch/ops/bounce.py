@@ -110,45 +110,36 @@ MAX_LANES = 2 ** 31 - 1
 @dataclasses.dataclass(frozen=True)
 class BounceTables:
     """What the bounce engine reads besides the scene, on the scene's
-    device (``bounce_tables``): the raw [H, W, 3] textures (the plain
-    version samples them), every texture in one float32 buffer with
-    int64 metas (offset in floats, w, h) per slot, and the lights'
-    trimat rows.  A sequence of the raw textures, as the engine's texture
-    tuple was before: ``len``, iteration and indexing reach them."""
+    device (``bounce_tables``): every texture in one float32 buffer with
+    int64 metas (offset in floats, w, h) per slot, the lights' trimat
+    rows, and the [H, W, 3] views of the buffer, one a texture, that the
+    plain version samples."""
 
-    textures: tuple
+    textures: tuple       # [H, W, 3] float32 views of ``texels``
     texels: torch.Tensor  # float32 [sum of h * w * 3], 16-byte aligned
     metas: torch.Tensor   # int64 [textures, 3]: offset, w, h
     lights: torch.Tensor  # float32 [lights, 37]: trimat[light_indices[:L]]
-
-    def __len__(self) -> int:
-        return len(self.textures)
-
-    def __iter__(self):
-        return iter(self.textures)
-
-    def __getitem__(self, k):
-        return self.textures[k]
 
 
 def bounce_tables(scene, textures) -> BounceTables:
     """The ``BounceTables`` of ``scene`` (a DeviceScene) and ``textures``
     (a sequence of [H, W, 3] float32 tensors or arrays), on the scene's
-    device; a ``BounceTables`` is returned as it is."""
-    if isinstance(textures, BounceTables):
-        return textures
+    device."""
     dev = scene.trimat.device
-    raw = tuple(torch.as_tensor(t, dtype=torch.float32, device=dev)
-                for t in textures)
-    metas, off = [], 0
+    raw = [torch.as_tensor(t, dtype=torch.float32, device=dev)
+           for t in textures]
+    shapes, metas, off = [], [], 0
     for t in raw:
         h, w = int(t.shape[0]), int(t.shape[1])
+        shapes.append((h, w, 3))
         metas.append((off, w, h))
         off += h * w * 3
-    texels = (torch.cat([t.reshape(-1) for t in raw]) if raw
+    texels = (torch.cat([t.reshape(-1) for t in raw]).contiguous() if raw
               else torch.zeros(0, device=dev))
+    views = tuple(texels[o:o + h * w * 3].view(h, w, c)
+                  for (o, _, _), (h, w, c) in zip(metas, shapes))
     lights = scene.trimat[scene.light_indices[:scene.num_lights]]
-    return BounceTables(raw, texels.contiguous(),
+    return BounceTables(views, texels,
                         torch.tensor(metas, dtype=torch.int64,
                                      device=dev).reshape(-1, 3),
                         lights.contiguous())
@@ -196,7 +187,7 @@ def bounce_params(scene, tables: BounceTables, cfg: RenderConfig,
         light_pick_scale=f32(n_lights - 0.001), light_count=f32(n_lights),
         two_pi=f32(TWO_PI), inv_pi=f32(INV_PI))
     ints = dict(
-        width=width, height=height, num_textures=len(tables),
+        width=width, height=height, num_textures=len(tables.textures),
         num_lights=n_lights, rr_threshold=cfg.rr_threshold,
         max_depth=cfg.max_depth,
         nee_dist_floor_enabled=int(cfg.nee_dist_floor_enabled),
@@ -392,7 +383,7 @@ def bounce_shade_cuda(scene, tables: BounceTables, params: BounceParams,
     n = _lanes(pixels)
     _check("trimat", trimat, torch.float32,
            (int(trimat.shape[0]), TRIMAT_ROW), dev)
-    n_tex, n_lights = len(tables), int(scene.num_lights)
+    n_tex, n_lights = len(tables.textures), int(scene.num_lights)
     _check("tables.texels", tables.texels, torch.float32,
            (tables.texels.numel(),), dev)
     _check("tables.metas", tables.metas, torch.int64, (n_tex, 3), dev)

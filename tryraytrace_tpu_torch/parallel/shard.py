@@ -58,9 +58,9 @@ def _sp_groups(mesh) -> dict:
 
 def replicate(scene: DeviceScene, textures, cfg: RenderConfig,
               devices) -> dict:
-    """{device: (scene, inline table, texture tensors)} on each of
-    ``devices``: the scene's tables copied there, and what the engine
-    reads besides them (wavefront.py ``engine_tables``)."""
+    """{device: (scene, inline table, texture tensors, bounce tables)}
+    on each of ``devices``: the scene's tables copied there, and what the
+    engine reads besides them (wavefront.py ``engine_tables``)."""
     out = {}
     for dev in devices:
         if dev in out:
@@ -94,11 +94,12 @@ def render_frame_sharded(replicas: dict, cam, frame_seed: int, width: int,
     parts: dict = {}
     counts = torch.zeros(2, dtype=torch.int64)
     for i, j, dev in mesh.local(distributed.process_index()):
-        scene, inline, textures = replicas[dev]
+        scene, inline, textures, tables = replicas[dev]
         acc, st = render_frame(scene, inline, textures, cam, frame_seed,
                                width, height, cfg, spp=local_spp,
                                pixels=range(i * nb, (i + 1) * nb),
-                               sample_offset=j * local_spp, seed_spp=spp)
+                               sample_offset=j * local_spp, seed_spp=spp,
+                               tables=tables)
         parts.setdefault(i, []).append(acc)
         counts += torch.stack([st["n_traced"], st["n_shadow"]]).cpu()
         if shard_iterations is not None:
