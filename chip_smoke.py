@@ -300,6 +300,17 @@ BOUNCE_CLI_FRAMES = 2
 LATE_ACTIVE_SHARE = 0.1
 MID_DEPTH = 4                  # [bounce_kernels]: the mid state's bounce
 BOUNCE_KERNELS = ("bounce_rays", "bounce_shade", "bounce_nee")
+# [bounce_kernels]: the shuffled lists' seed, and the -D builds of
+# csrc/bounce.cu checked and timed beside the port's (its compile-time
+# choices, PERF.md): a listed bounce above half the lanes alive launched
+# over every lane, the contiguous launch without the staged tile, the
+# shade's registers bound to four blocks an SM.
+BOUNCE_SHUFFLE_SEED = 19
+BOUNCE_VARIANTS = {
+    "dense_share_0.5": ("TRT_BOUNCE_DENSE_SHARE=0.5",),
+    "unstaged": ("TRT_BOUNCE_STAGED=0",),
+    "min_blocks_4": ("TRT_BOUNCE_MIN_BLOCKS=4",),
+}
 # [parallel]: samples a step (divisible by every mesh's sp), the meshes
 # (dp, sp) on the one card, the bound for sp > 1 (tests/test_parallel.py),
 # and how long the two processes may take.
@@ -326,6 +337,13 @@ F64_FLOP_PER_S = 34e12
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bounce_variant_libraries() -> dict:
+    """The BOUNCE_VARIANTS builds of csrc/bounce.cu (not built yet)."""
+    return {name: _build.KernelLibrary("bounce", bounce.FUNCTIONS,
+                                       defines=defines)
+            for name, defines in BOUNCE_VARIANTS.items()}
 
 
 def cornell_with(v0, v1, v2, offset, **material):
@@ -476,7 +494,11 @@ def fetch_builds(lib) -> dict:
     return out
 
 
-def phase_environment() -> str:
+def phase_environment(variants=()) -> str:
+    """The card, the toolkit and every kernel's build (the port's
+    libraries and ``variants``, one nvcc each, side by side), with their
+    registers, spills and machine code sizes.  Returns the card's name
+    and power limit as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -489,7 +511,7 @@ def phase_environment() -> str:
     t0 = time.perf_counter()
     libraries = [tm.LIBRARY, fetch.LIBRARY, walk.LIBRARY, threaded.LIBRARY,
                  service.LIBRARY, wave.LIBRARY, lane_init.LIBRARY,
-                 bounce.LIBRARY]
+                 bounce.LIBRARY, *variants]
     _build.build_all(libraries)
     for lib in libraries:
         log(f"[build] {lib.path} in {lib.build_seconds:.3f} s")
@@ -534,8 +556,11 @@ def _kernel_ms(fn, kernel: str, reps: int = 20) -> float:
     miss a launch's record (it did on an H100, 6 of 10 kept once), so
     the mean is over the records it kept; a session that kept none of
     them (once on an H100, for the walk after two earlier sessions) is
-    run again, at most PROFILE_TRIES times in all.  More records than
-    launches means the name matched another kernel."""
+    run again, at most PROFILE_TRIES times in all; if the last recorded
+    no CUDA operation at all, the calls are timed with CUDA events
+    instead (``_time_ms``, which counts their copies too), and a line
+    says so.  More records than launches means the name matched another
+    kernel."""
     fn()
     torch.cuda.synchronize()
     for _ in range(PROFILE_TRIES):
@@ -549,6 +574,16 @@ def _kernel_ms(fn, kernel: str, reps: int = 20) -> float:
         count = sum(e.count for e in found)
         if count:
             break
+    if not any(e.device_type == DeviceType.CUDA
+               for e in prof.key_averages()):
+        # The profiler recorded no device operation at all (seen once on
+        # an H100 in a late session): CUDA events around the calls.
+        ms = _time_ms(fn, reps)
+        log(f"[profile] torch.profiler recorded no CUDA operation in "
+            f"{PROFILE_TRIES} sessions; {kernel!r} timed with CUDA events "
+            f"around its calls instead, their other device work included: "
+            f"{ms:.5f} ms")
+        return ms
     if not 0 < count <= reps:
         seen = sorted({e.key for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA})
@@ -2912,7 +2947,11 @@ def phase_bounce(arrays, r: Renderer, params, tmp: str) -> tuple:
         bit for bit;
       - ``tpurt-torch render --engine bounce`` (cli.main) against a
         hand-driven Renderer, byte for byte.
-    Returns (its numbers, the bounce Renderer)."""
+    The same frame stepped twice gives the same sums and image bit for
+    bit (the lane lists' order may differ between runs).  The device
+    operations a bounce are counted later, under the profiler
+    (bounce_step_profile).  Returns (its numbers, the bounce
+    Renderer)."""
     _zero_counts()
     t0 = time.perf_counter()
     rb = Renderer(arrays, cfg=RenderConfig(width=WIDTH, height=HEIGHT, spp=1,
@@ -2995,6 +3034,17 @@ def phase_bounce(arrays, r: Renderer, params, tmp: str) -> tuple:
     if counts["bounce"] != counts["persistent"] and not tie.any():
         raise AssertionError(f"ray counts differ without a tie: {counts}")
     r.reset()
+    # The same step again: the lane lists' order may differ, the image
+    # may not.
+    first_img = rb.image()
+    rb.reset()
+    rb.step(params)
+    twice = (rb.state.accum.cpu().numpy().tobytes() == b.tobytes()
+             and rb.image().tobytes() == first_img.tobytes())
+    log(f"[bounce] frame 1 stepped again: sums and image equal to the "
+        f"first run {twice}")
+    if not twice:
+        raise AssertionError("two runs of one bounce step differ")
 
     # The card against the CPU at 64x48.
     small = cube256_arrays()
@@ -3219,13 +3269,15 @@ def _recording_bounce(states: dict, n: int):
     three bounces of the sample that runs inside the block: "fresh"
     (bounce 0), "mid" (bounce MID_DEPTH) and "late" (the first bounce that
     starts with at most LATE_ACTIVE_SHARE of the ``n`` lanes alive), as
-    ``states[label] = dict(seed, pixels, depth, t, hit_id, s, nee)``;
-    ``nee`` is (rad, geo_ok, contrib, occluded) just before the NEE add."""
+    ``states[label] = dict(seed, pixels, depth, t, hit_id, s, lanes,
+    n_lanes, nee)``: ``lanes`` and ``n_lanes`` the list the shade and the
+    NEE add served (None at bounce 0 and on the CPU), ``nee`` (rad,
+    geo_ok, contrib, occluded) just before the NEE add."""
     real_shade, real_nee = bounce.bounce_shade, bounce.bounce_nee
     now = {}
 
     def shade_(scene, tables, params, seed, pixels, depth, t, hit_id, s,
-               counts):
+               counts, lanes=None, n_lanes=None, next_lanes=None):
         label = None
         if depth == 0 and "fresh" not in states:
             label = "fresh"
@@ -3235,19 +3287,21 @@ def _recording_bounce(states: dict, n: int):
               and int(s["alive"].sum()) <= LATE_ACTIVE_SHARE * n):
             label = "late"
         if label is not None:
-            states[label] = dict(seed=seed, pixels=pixels.clone(),
-                                 depth=depth, t=t.clone(),
-                                 hit_id=hit_id.clone(), s=_copy(s))
+            states[label] = dict(
+                seed=seed, pixels=pixels.clone(), depth=depth, t=t.clone(),
+                hit_id=hit_id.clone(), s=_copy(s),
+                lanes=None if lanes is None else lanes.clone(),
+                n_lanes=n_lanes)
         now["label"] = label
         return real_shade(scene, tables, params, seed, pixels, depth, t,
-                          hit_id, s, counts)
+                          hit_id, s, counts, lanes, n_lanes, next_lanes)
 
-    def nee_(s, occluded):
+    def nee_(s, occluded, lanes=None, n_lanes=None):
         if now.get("label") is not None:
             states[now["label"]]["nee"] = (
                 s["rad"].clone(), s["geo_ok"].clone(), s["contrib"].clone(),
                 occluded.clone())
-        return real_nee(s, occluded)
+        return real_nee(s, occluded, lanes, n_lanes)
 
     bounce.bounce_shade, bounce.bounce_nee = shade_, nee_
     try:
@@ -3419,51 +3473,149 @@ def shade_work(rb_scene, tables, cfg, st, want) -> dict:
     return dict(n_bytes=n_bytes, lanes=lanes, calls=calls, texels=texels)
 
 
+def _shuffled(lanes, n_lanes: int):
+    """A copy of the list ``lanes`` with its first ``n_lanes`` entries in
+    a seed-made order (BOUNCE_SHUFFLE_SEED)."""
+    out = lanes.clone()
+    g = torch.Generator().manual_seed(BOUNCE_SHUFFLE_SEED)
+    perm = torch.randperm(n_lanes, generator=g).to(lanes.device)
+    out[:n_lanes] = lanes[:n_lanes][perm]
+    return out
+
+
+def _off_list(st):
+    """[N] bool: the lanes off a recorded state's list (none at bounce 0)."""
+    off = torch.ones_like(st["s"]["alive"])
+    if st["lanes"] is None:
+        return ~off
+    off[st["lanes"][:st["n_lanes"]].long()] = False
+    return off
+
+
+def _untouched(got: dict, before: dict, where) -> list:
+    """The fields of ``got`` not bit-equal to ``before`` on the lanes
+    ``where`` (NaN payloads included)."""
+    return [k for k in got if not torch.equal(_bits(got[k][where]),
+                                              _bits(before[k][where]))]
+
+
+def _shade_call(rb: Renderer, params, st, s, lanes, counts, nxt,
+                library=None) -> dict:
+    """bounce_shade_cuda on the recorded state's inputs and the state
+    ``s`` (written in place), over ``lanes`` (the recorded count), into
+    ``counts`` and the next list ``nxt``."""
+    return bounce.bounce_shade_cuda(
+        rb.scene, rb.bounce_tables, params, st["seed"], st["pixels"],
+        st["depth"], st["t"], st["hit_id"], s, counts, lanes,
+        None if lanes is None else st["n_lanes"], nxt, library=library)
+
+
+def _listed(st, library) -> bool:
+    """Whether a build launches over the recorded state's list."""
+    return st["lanes"] is not None and st["n_lanes"] <= (
+        bounce.design(library)["dense_share"] * len(st["hit_id"]))
+
+
 def check_bounce_shade(label: str, rb: Renderer, params, st,
-                       timed: bool = True) -> dict:
-    """A recorded state through ``bounce_shade_cuda`` and through
-    ``bounce_shade_plain`` on the card, each on a copy: every field by
-    shade_contract, and the counts exact.  With ``timed``, the kernel's
-    own time, the wrapper's (each call on a fresh copy: the kernel
-    writes in place), the plain version's, and the bound
-    (service_bound of shade_work)."""
+                       timed: bool = True, library=None) -> dict:
+    """A recorded state through ``bounce_shade_cuda`` (``library``'s
+    build, default the port's) and through ``bounce_shade_plain`` on the
+    card, each on a copy: the kernel over the recorded list (every lane at
+    bounce 0), every field by shade_contract, the counts exact, and the
+    next list, sorted, the lanes alive after.  Past bounce 0 also over a
+    shuffled copy of the list, on a copy whose lanes off the list carry
+    NaN payloads in o, d, so, sd, smax and contrib (fields the contract
+    does not compare there): the same checks, and every field of every
+    lane off the list bit for bit as it was.  With ``timed``, the
+    kernel's own time, the wrapper's (each call on a fresh copy: the
+    kernel writes in place), the plain version's, and the bound
+    (service_bound of shade_work: PR 18's bytes, every lane's flags;
+    ``list_bound_ms`` the bytes of the lanes served and the lists)."""
     scene, tables = rb.scene, rb.bounce_tables
+    dev = scene.trimat.device
+    n = len(st["hit_id"])
     args = (st["seed"], st["pixels"], st["depth"], st["t"], st["hit_id"])
-    counts = torch.zeros(len(bounce.COUNTS), dtype=torch.int64,
-                         device=scene.trimat.device)
-    got = bounce.bounce_shade_cuda(scene, tables, params, *args,
-                                   _copy(st["s"]), counts)
+    zeros = lambda: torch.zeros(len(bounce.COUNTS), dtype=torch.int64,
+                                device=dev)
+    counts, nxt = zeros(), torch.full((n,), -1, dtype=torch.int32,
+                                      device=dev)
+    got = _shade_call(rb, params, st, _copy(st["s"]), st["lanes"], counts,
+                      nxt, library)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     want, fired, live = bounce.bounce_shade_plain(scene, tables, rb.cfg,
                                                   *args, _copy(st["s"]))
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t1)
+    alive_after = want["alive"].nonzero().flatten()
+    next_ok = lambda nx: torch.equal(
+        nx[:int(live)].long().sort().values, alive_after)
     bad = shade_contract(got, want)
     err = _max_err(got, want, ["rad", "tp"])
     entry = int(st["s"]["alive"].sum())
+    served = n if st["lanes"] is None else st["n_lanes"]
+    off = _off_list(st)
+    ok = (not bad and counts.tolist() == [int(fired), int(live)]
+          and next_ok(nxt) and not bool((st["s"]["alive"] & off).any()))
+    shuffled = dict(fields=[], counts=[], next_ok=True, touched=[])
+    if st["lanes"] is not None:
+        poisoned = _copy(st["s"])
+        for name in ("o", "d", "so", "sd", "smax", "contrib"):
+            poisoned[name][off] = torch.tensor(LANE_POISON, dtype=torch.int32,
+                                               device=dev).view(torch.float32)
+        before = _copy(poisoned)
+        counts2, nxt2 = zeros(), torch.full_like(nxt, -1)
+        got2 = _shade_call(rb, params, st, poisoned,
+                           _shuffled(st["lanes"], served), counts2, nxt2,
+                           library)
+        shuffled = dict(fields=shade_contract(got2, want),
+                        counts=counts2.tolist(), next_ok=next_ok(nxt2),
+                        touched=(_untouched(got2, before, off)
+                                 if _listed(st, library) else []))
+        ok = (ok and not shuffled["fields"] and shuffled["next_ok"]
+              and shuffled["counts"] == counts.tolist()
+              and not shuffled["touched"])
     log(f"[bounce_kernels] shade {label} (bounce {st['depth']}): {entry} of "
-        f"{len(st['hit_id'])} lanes alive at entry; counts (shadow, live) "
+        f"{n} lanes alive at entry, {served} served; counts (shadow, live) "
         f"kernel {counts.tolist()} plain {[int(fired), int(live)]}; fields "
-        f"differing {bad}, max abs err {err!r}")
-    if bad or counts.tolist() != [int(fired), int(live)]:
+        f"differing {bad}, max abs err {err!r}; next list equal to the "
+        f"lanes alive after {next_ok(nxt)}; shuffled list: fields "
+        f"differing {shuffled['fields']}, counts {shuffled['counts']}, next "
+        f"list {shuffled['next_ok']}, off-list fields changed "
+        f"{shuffled['touched']}")
+    if not ok:
         raise AssertionError(f"bounce_shade kernel disagrees with its plain "
-                             f"version on the {label} state: {bad}")
+                             f"version on the {label} state: {bad}, "
+                             f"{shuffled}")
     out = dict(max_abs_err=err, depth=st["depth"], entry=entry,
-               counts=counts.tolist())
+               served=served, counts=counts.tolist())
     if not timed:
         return out
     work = shade_work(scene, tables, rb.cfg, st, want)
-    copies = iter([_copy(st["s"]) for _ in range(6)])
-    run = lambda s: bounce.bounce_shade_cuda(scene, tables, params, *args, s,
-                                             counts)
-    wrapper_ms = _time_ms(lambda: run(next(copies)), reps=5)
-    ms = _kernel_ms(lambda: run(_copy(st["s"])), "bounce_shade_kernel",
-                    reps=10)
-    del copies
+    flags = 2 if "geo_ok" in want else 1
+    list_bytes = (work["n_bytes"] - flags * (n - served)
+                  + 4 * (served if st["lanes"] is not None else 0)
+                  + 4 * int(live))
+    calls = [(_copy(st["s"]), zeros()) for _ in range(6)]
+    copies = iter(calls)
+
+    def run(s, c):
+        return _shade_call(rb, params, st, s, st["lanes"], c, nxt, library)
+
+    wrapper_ms = _time_ms(lambda: run(*next(copies)), reps=5)
+    del calls, copies
+
+    def fresh():
+        counts.zero_()
+        return run(_copy(st["s"]), counts)
+
+    ms = _kernel_ms(fresh, "bounce_shade_kernel", reps=10)
+    listed_bound = service_bound(list_bytes, work["calls"])
     out.update(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                library_ms=None, lanes=work["lanes"], calls=work["calls"],
                texels=work["texels"], bound_bytes=work["n_bytes"],
+               list_bound_bytes=list_bytes,
+               list_bound_ms=listed_bound["bound_ms"],
                **service_bound(work["n_bytes"], work["calls"]))
     log(f"[bounce_kernels] shade {label}: lanes {work['lanes']}; distinct "
         f"texels {work['texels']}; double calls {work['calls']}")
@@ -3472,20 +3624,31 @@ def check_bounce_shade(label: str, rb: Renderer, params, st,
         f"{out['bound_ms']:.5f} ms by {out['bound_by']} ({work['n_bytes']} "
         f"B: {out['bytes_ms']:.5f} ms; FP64 {out['fp64_ms']:.5f} ms: "
         f"{out['fp64_instructions']} instructions); own time "
-        f"{ms / out['bound_ms']:.2f}x")
+        f"{ms / out['bound_ms']:.2f}x; served lanes and lists "
+        f"{list_bytes} B, bound {listed_bound['bound_ms']:.5f} ms, own "
+        f"{ms / listed_bound['bound_ms']:.2f}x")
     return out
 
 
-def check_bounce_nee(label: str, st, timed: bool = True) -> dict:
+def check_bounce_nee(label: str, st, timed: bool = True,
+                     library=None) -> dict:
     """A recorded NEE add (rad, geo_ok, contrib, occluded) through
-    ``bounce_nee_cuda`` and ``bounce_nee_plain`` on the card: rad bit for
-    bit on every lane, NaN at the same places.  With ``timed``, the
-    kernel's own time, the wrapper's, the plain version's and the byte
-    bound: geo_ok and occluded of every lane (2 B), and rad read and
-    written and contrib read on each lit lane (36 B)."""
+    ``bounce_nee_cuda`` (``library``'s build) over the recorded list and
+    over a shuffled copy, and through ``bounce_nee_plain`` over every
+    lane, on the card: rad bit for bit on every lane, NaN at the same
+    places.  With ``timed``, the kernel's own time, the wrapper's, the
+    plain version's and the byte bound: geo_ok and occluded of every
+    lane (2 B), and rad read and written and contrib read on each lit
+    lane (36 B); ``list_bound_ms`` counts the flags and the list entry
+    (6 B) of the lanes served only."""
     rad, geo_ok, contrib, occluded = st["nee"]
+    lanes = st["lanes"]
+    served = len(geo_ok) if lanes is None else st["n_lanes"]
+    n_lanes = None if lanes is None else served
     state = lambda: dict(rad=rad.clone(), geo_ok=geo_ok, contrib=contrib)
-    got = bounce.bounce_nee_cuda(state(), occluded)["rad"]
+    run = lambda s, ls=lanes: bounce.bounce_nee_cuda(s, occluded, ls,
+                                                     n_lanes, library)
+    got = run(state())["rad"]
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     want = bounce.bounce_nee_plain(rad, geo_ok, occluded, contrib)
@@ -3493,28 +3656,36 @@ def check_bounce_nee(label: str, st, timed: bool = True) -> dict:
     plain_ms = 1e3 * (time.perf_counter() - t1)
     lit = int((geo_ok & ~occluded).sum())
     same = _same_bits(got, want)
+    shuffled = (True if lanes is None else
+                _same_bits(run(state(), _shuffled(lanes, served))["rad"],
+                           want))
     err = _max_err(dict(r=got), dict(r=want), ["r"])
     log(f"[bounce_kernels] nee {label}: {int(geo_ok.sum())} shadow rays, "
-        f"{lit} lit; rad equal {same}, max abs err {err!r}")
-    if not same:
+        f"{lit} lit, {served} lanes served; rad equal {same}, with the "
+        f"list shuffled {shuffled}; max abs err {err!r}")
+    if not same or not shuffled:
         raise AssertionError(f"bounce_nee kernel disagrees with its plain "
                              f"version on the {label} state")
-    out = dict(max_abs_err=err, lit=lit)
+    out = dict(max_abs_err=err, lit=lit, served=served)
     if not timed:
         return out
     n_bytes = 2 * geo_ok.numel() + 36 * lit
+    list_bytes = (6 if lanes is not None else 2) * served + 36 * lit
     copies = iter([state() for _ in range(6)])
-    wrapper_ms = _time_ms(lambda: bounce.bounce_nee_cuda(next(copies),
-                                                         occluded), reps=5)
-    ms = _kernel_ms(lambda: bounce.bounce_nee_cuda(state(), occluded),
-                    "bounce_nee_kernel", reps=10)
+    wrapper_ms = _time_ms(lambda: run(next(copies)), reps=5)
+    ms = _kernel_ms(lambda: run(state()), "bounce_nee_kernel", reps=10)
+    listed_bound = bound(list_bytes, 3 * lit)
     out.update(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                library_ms=None, bound_bytes=n_bytes,
+               list_bound_bytes=list_bytes,
+               list_bound_ms=listed_bound["bound_ms"],
                **bound(n_bytes, 3 * lit))
     log(f"[bounce_kernels] nee {label}: kernel's own time {ms:.5f} ms, "
         f"wrapper {wrapper_ms:.5f} ms, plain {plain_ms:.3f} ms; bound "
         f"{out['bound_ms']:.5f} ms by {out['bound_by']} ({n_bytes} B); own "
-        f"time {ms / out['bound_ms']:.2f}x")
+        f"time {ms / out['bound_ms']:.2f}x; served lanes {list_bytes} B, "
+        f"bound {listed_bound['bound_ms']:.5f} ms, own "
+        f"{ms / listed_bound['bound_ms']:.2f}x")
     return out
 
 
@@ -3561,25 +3732,88 @@ def check_bounce_rays(st, timed: bool = True) -> dict:
     return out
 
 
-def phase_bounce_kernels(rb: Renderer, params) -> dict:
+def bounce_step_profile(rb: Renderer, params) -> dict:
+    """One bounce step of ``rb`` under torch.profiler (after one
+    unprofiled step): its bounces, device operations (kernels, fills,
+    copies) and device time, and each bounce kernel's launches and
+    device time in it."""
+    rb.step(params)
+    rb.block_until_ready()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rb.step(params)
+        rb.block_until_ready()
+    bounces = rb.last_stats["iterations"]
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    ops = sum(e.count for e in device)
+    out = dict(bounces=bounces, operations=ops,
+               operations_a_bounce=ops / bounces,
+               device_ms=sum(e.device_time_total for e in device) / 1e3)
+    for name in ("threaded_walk", *BOUNCE_KERNELS):
+        found = [e for e in device if f"{name}_kernel" in e.key]
+        out[name] = dict(launches=sum(e.count for e in found),
+                         ms=sum(e.device_time_total for e in found) / 1e3)
+    # The shade's launches in order: its device ms at each bounce.
+    out["shade_ms_by_bounce"] = [
+        e.time_range.elapsed_us() / 1e3 for e in sorted(
+            (e for e in prof.events() if e.device_type == DeviceType.CUDA
+             and "bounce_shade_kernel" in e.name),
+            key=lambda e: e.time_range.start)]
+    log(f"[bounce] profiled step: {bounces} bounces, {ops} device "
+        f"operations ({ops / bounces:.2f} a bounce), device time "
+        f"{out['device_ms']:.3f} ms; " + ", ".join(
+            f"{name} {out[name]['launches']} launches {out[name]['ms']:.4f}"
+            f" ms" for name in ("threaded_walk", *BOUNCE_KERNELS)))
+    log(f"[bounce] profiled step: the shade's ms by bounce "
+        f"{[round(x, 5) for x in out['shade_ms_by_bounce']]}")
+    return out
+
+
+def phase_bounce_kernels(rb: Renderer, params, variants: dict) -> dict:
     """The bounce engine's three kernels against their plain versions on
     the card, at the main path's scene and raster (1200x800, the bounce
     Renderer of [bounce]): bounce_shade and bounce_nee on the fresh, mid
-    and late states of frame 1 (bounce_kernel_states), bounce_rays on
-    its camera rays; each checked on copies, then timed (after every
-    phase that times steps: its own time runs torch.profiler), with its
-    registers, stack and spills."""
-    out = dict(build={k: ptxas_numbers(bounce.LIBRARY.compiler_log, k)
-                      for k in (f"{name}_kernel" for name in
-                                BOUNCE_KERNELS)})
-    log(f"[bounce_kernels] builds: {out['build']}")
+    and late states of frame 1 (bounce_kernel_states) with the lists the
+    engine gave them and shuffled copies, bounce_rays on its camera rays;
+    each checked on copies, then timed (after every phase that times
+    steps: its own time runs torch.profiler), with its registers, stack
+    and spills; the same for the shade and the NEE add of each build in
+    ``variants`` (name -> a -D build of csrc/bounce.cu); and one bounce
+    step profiled (bounce_step_profile)."""
+    out = dict(build={f"{name}_kernel": (
+        kernel_builds(bounce.LIBRARY, f"{name}_kernel")
+        if name == "bounce_shade" else
+        ptxas_numbers(bounce.LIBRARY.compiler_log, f"{name}_kernel"))
+        for name in BOUNCE_KERNELS}, design=bounce.design())
+    log(f"[bounce_kernels] builds: {out['build']}; design {out['design']}")
     states = bounce_kernel_states(rb, params, WIDTH, HEIGHT)
     bp = states["rays"]["params"]
+    labels = ("fresh", "mid", "late")
     out["shade"] = {label: check_bounce_shade(label, rb, bp, states[label])
-                    for label in ("fresh", "mid", "late")}
+                    for label in labels}
     out["nee"] = {label: check_bounce_nee(label, states[label])
-                  for label in ("fresh", "mid", "late")}
+                  for label in labels}
     out["rays"] = check_bounce_rays(states["rays"])
+    out["variants"] = {}
+    for name, lib in variants.items():
+        var = dict(design=bounce.design(lib),
+                   build=kernel_builds(lib, "bounce_shade_kernel"))
+        log(f"[bounce_kernels] variant {name} "
+            f"({' '.join(lib.flags[len(_build.NVCC_FLAGS):])}): design "
+            f"{var['design']}, shade builds {var['build']}")
+        for label in labels:
+            shade_ = check_bounce_shade(f"{label} [{name}]", rb, bp,
+                                        states[label], library=lib)
+            nee_ = check_bounce_nee(f"{label} [{name}]", states[label],
+                                    library=lib)
+            var[label] = dict(
+                shade={k: shade_[k] for k in ("ms", "wrapper_ms", "bound_ms",
+                                              "list_bound_ms")},
+                nee={k: nee_[k] for k in ("ms", "wrapper_ms", "bound_ms",
+                                          "list_bound_ms")})
+        out["variants"][name] = var
+    out["step"] = bounce_step_profile(rb, params)
     return out
 
 
@@ -3729,7 +3963,8 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     count_advances()
-    smi = phase_environment()
+    variants = bounce_variant_libraries()
+    smi = phase_environment(variants.values())
     phase_cuda_vs_cpu()
     t0 = time.perf_counter()
     arrays = main_path_arrays()
@@ -3773,7 +4008,7 @@ def main() -> int:
                            chain["latency"]["global_ns"])
     threaded_states = phase_threaded_walk(rb, features_r, params,
                                           chain["latency"]["global_ns"])
-    bounced = phase_bounce_kernels(rb, params)
+    bounced = phase_bounce_kernels(rb, params, variants)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     keys = ("max_abs_err", "ms", "wrapper_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
@@ -3889,15 +4124,21 @@ def main() -> int:
               ("bounce_shade", "tryraytrace_tpu/engine/wavefront.py:97; "
                "tryraytrace_tpu/engine/wavefront.py:232",
                bounced["shade"]["fresh"],
-               dict(states={label: {k: x[k] for k in (
-                   *keys, "depth", "entry", "counts", "lanes", "calls",
-                   "bound_bytes", "bytes_ms", "fp64_ms")}
-                   for label, x in bounced["shade"].items()})),
+               dict(design=bounced["design"], step=bounced["step"],
+                    states={label: {k: x[k] for k in (
+                        *keys, "depth", "entry", "served", "counts",
+                        "lanes", "calls", "bound_bytes", "bytes_ms",
+                        "fp64_ms", "list_bound_bytes", "list_bound_ms")}
+                        for label, x in bounced["shade"].items()},
+                    variants={name: {k: v for k, v in var.items()
+                                     if k != "build"}
+                              for name, var in bounced["variants"].items()})),
               ("bounce_nee", "tryraytrace_tpu/engine/wavefront.py:232",
                bounced["nee"]["fresh"],
-               dict(states={label: {k: x[k] for k in (*keys, "lit",
-                                                      "bound_bytes")}
-                            for label, x in bounced["nee"].items()})),
+               dict(states={label: {k: x[k] for k in (
+                   *keys, "lit", "served", "bound_bytes", "list_bound_bytes",
+                   "list_bound_ms")}
+                   for label, x in bounced["nee"].items()})),
               ("bounce_rays", "tryraytrace_tpu/engine/wavefront.py:45; "
                "tryraytrace_tpu/engine/camera_rays.py:21",
                bounced["rays"], dict(lanes=bounced["rays"]["lanes"]))))]}))

@@ -21,15 +21,26 @@ On the CPU:
   - each ``*_cuda`` wrapper's refusals (CPU tensors, a dtype, a shape, a
     tensor that is not contiguous or not 16-byte aligned, params packed
     for other tables), raised before any library is loaded.
+  - the invariant the card's lane lists rest on: over every bounce of a
+    64x48 frame (cube256 with its light, and the textured scene), a
+    lane dead at a bounce's entry leaves it with rad, tp and prev_spec
+    bit-equal and alive and geo_ok false;
+  - the lane lists' refusals: a list or next list of another dtype,
+    device or shape, a count out of range or without a list, a next
+    list that overlaps the list.
 On a card (``cuda``-marked, skipped elsewhere): each kernel against its
 plain version on the fresh, mid (bounce 4) and late (at most 10% alive)
 states of a 64x48 frame, by the contract of ops/bounce.py
 (chip_smoke.py ``check_bounce_shade``, ``check_bounce_nee``,
-``check_bounce_rays``): "bw" and "mt" leaves, smooth shading with UVs,
+``check_bounce_rays``), the shade and the NEE add over the list the
+engine gave them and a shuffled copy, the lanes off the list poisoned
+and left bit for bit as they were, the next list, sorted, the lanes
+alive after: "bw" and "mt" leaves, smooth shading with UVs,
 1, 3 and 17 lights, and a material whose every branch weight is 0, so
 that its lanes take the diffuse branch with p = 0 and carry inf; and a
 bounce step's launches (one ``bounce_rays`` a sample, one
-``bounce_shade`` and one ``bounce_nee`` a bounce).
+``bounce_shade`` and one ``bounce_nee`` a bounce), the card's sums equal
+to the CPU's and to a second run's.
 
 Tolerances: against the JAX package, tests/test_torch_bounce.py's rule
 (masks and the shadow-ray count equal, floats within rtol
@@ -232,6 +243,44 @@ def test_engine_bounce_is_the_plain_composition(port_renderer):
                            chip_smoke._bits(want[name])), name
 
 
+@pytest.mark.parametrize("kind", ["cube256", "textured"])
+def test_dead_lanes_leave_a_bounce_unchanged(kind, monkeypatch):
+    """The invariant the card's lane lists rest on (ops/bounce.py): over
+    every bounce of a 64x48 bounce frame on the plain path, a lane dead
+    at the bounce's entry leaves it with rad, tp and prev_spec bit-equal
+    to their inputs and alive and geo_ok false, so a shade over the
+    lanes alive at entry may leave the others alone."""
+    arrays = chip_smoke.cube256_arrays() if kind == "cube256" else _scene()
+    r = Renderer(arrays, cfg=RenderConfig(width=CARD_W, height=CARD_H,
+                                          engine="bounce"), device="cpu")
+    assert r.scene.num_lights > 0
+    real = bounce.bounce_shade
+    seen = []
+
+    def shade(scene, tables, params, seed, pixels, depth, t, hit_id, s,
+              counts, *lists):
+        before = chip_smoke._copy(s)
+        out = real(scene, tables, params, seed, pixels, depth, t, hit_id, s,
+                   counts, *lists)
+        dead = ~before["alive"]
+        for name in ("rad", "tp", "prev_spec"):
+            assert torch.equal(chip_smoke._bits(out[name][dead]),
+                               chip_smoke._bits(before[name][dead])), \
+                (depth, name)
+        assert not (out["alive"] | out["geo_ok"])[dead].any(), depth
+        seen.append((depth, int(dead.sum())))
+        return out
+
+    monkeypatch.setattr(bounce, "bounce_shade", shade)
+    _, st = wavefront.render_frame(
+        r.scene, r.inline, r.device_textures,
+        CameraController().get_params(CARD_W, CARD_H), 1, CARD_W, CARD_H,
+        r.cfg, 1, tables=r.bounce_tables)
+    assert [d for d, _ in seen] == list(range(st["iterations"]))
+    # Lanes die along the way, so the later bounces test the invariant.
+    assert seen[0][1] == 0 and seen[-1][1] > CARD_W * CARD_H // 2
+
+
 def _check_tables(r):
     tables = r.bounce_tables
     raw = device_textures(r.textures, r.device)
@@ -348,6 +397,8 @@ def test_cuda_wrappers_refuse_before_loading(port_renderer, monkeypatch):
     counts = torch.zeros(2, dtype=torch.int64)
     s = {name: st[name] for name, _, _ in bounce.STATE}
     s.update(bounce.new_nee_state(n, "cpu"))
+    lanes = torch.arange(n, dtype=torch.int32)
+    buf = torch.zeros(n + 4, dtype=torch.int32)
 
     def shade(**kw):
         a = dict(scene=scene, tables=tables, params=params, seed=1,
@@ -389,7 +440,26 @@ def test_cuda_wrappers_refuse_before_loading(port_renderer, monkeypatch):
             params, ints=params.ints * 0)), "other tables"),
         (lambda: shade(tables=dataclasses.replace(
             tables, lights=tables.lights[:1])), "shape"),
+        (lambda: shade(lanes=pix, n_lanes=n), "int32"),
+        (lambda: shade(lanes=lanes.to("meta"), n_lanes=n), "meta"),
+        (lambda: shade(lanes=lanes[:-1], n_lanes=n - 1), "shape"),
+        (lambda: shade(lanes=lanes, n_lanes=n + 1), "out of range"),
+        (lambda: shade(lanes=lanes, n_lanes=-1), "out of range"),
+        (lambda: shade(lanes=lanes, n_lanes=None), "out of range"),
+        (lambda: shade(n_lanes=n), "without a list"),
+        (lambda: shade(lanes=lanes, n_lanes=n, next_lanes=lanes),
+         "aliases"),
+        (lambda: shade(lanes=buf[:n], n_lanes=n, next_lanes=buf[4:4 + n]),
+         "aliases"),
+        (lambda: shade(next_lanes=pix), "int32"),
+        (lambda: shade(next_lanes=lanes.to("meta")), "meta"),
+        (lambda: shade(next_lanes=_misaligned(lanes)), "16-byte aligned"),
         (lambda: nee(), "CUDA tensors"),
+        (lambda: nee(lanes=pix, n_lanes=n), "int32"),
+        (lambda: nee(lanes=lanes.to("meta"), n_lanes=n), "meta"),
+        (lambda: nee(lanes=lanes[:-1], n_lanes=1), "shape"),
+        (lambda: nee(lanes=lanes, n_lanes=n + 1), "out of range"),
+        (lambda: nee(n_lanes=1), "without a list"),
         (lambda: nee(occluded=torch.zeros(n, dtype=torch.uint8)), "bool"),
         (lambda: nee(s=dict(rad=_misaligned(s["rad"]), geo_ok=s["geo_ok"],
                             contrib=s["contrib"])), "16-byte aligned"),
@@ -447,17 +517,28 @@ def test_cuda_bounce_kernels_match_plain(kind):
     states = chip_smoke.bounce_kernel_states(rb, params, CARD_W, CARD_H)
     bp = states["rays"]["params"]
     inf_lanes = 0
+    n = CARD_W * CARD_H
+    assert states["fresh"]["lanes"] is None
     for label in ("fresh", "mid", "late"):
         st = states[label]
+        # The list the engine gave the shade and the NEE add, and a
+        # shuffled copy; the lanes off it poisoned and left alone; the
+        # next list, sorted, the lanes alive after (check_bounce_shade).
         res = chip_smoke.check_bounce_shade(label, rb, bp, st, timed=False)
         assert res["counts"][1] <= int(st["s"]["alive"].sum())
+        assert res["served"] == int(st["s"]["alive"].sum())
         chip_smoke.check_bounce_nee(label, st, timed=False)
+        if label != "fresh":
+            assert st["lanes"].dtype == torch.int32
+            assert res["served"] == st["n_lanes"] < n
+            assert not chip_smoke._off_list(st)[st["s"]["alive"]].any()
         s = chip_smoke._copy(st["s"])
         bounce.bounce_shade_cuda(rb.scene, rb.bounce_tables, bp,
                                  st["seed"], st["pixels"], st["depth"],
                                  st["t"], st["hit_id"], s,
                                  torch.zeros(2, dtype=torch.int64,
-                                             device=rb.device))
+                                             device=rb.device),
+                                 st["lanes"], st["n_lanes"])
         inf_lanes += int(torch.isinf(s["tp"]).any(dim=1).sum())
     chip_smoke.check_bounce_rays(states["rays"], timed=False)
     assert (inf_lanes > 0) == (kind == "p0")
@@ -479,6 +560,12 @@ def test_cuda_bounce_step_launches_and_equals_cpu():
                for name in chip_smoke.BOUNCE_KERNELS}
         out[dev] = (r.accum_host().tobytes(),
                     {k: int(v) for k, v in r.last_stats.items()}, got)
+        if dev == "cuda":
+            # Again from the start: the lists' order may change, the
+            # sums may not.
+            r.reset()
+            r.step(params)
+            assert r.accum_host().tobytes() == out[dev][0]
     bounces = out["cuda"][1]["iterations"]
     assert out["cuda"][2] == dict(bounce_rays=2, bounce_shade=bounces,
                                   bounce_nee=bounces)

@@ -1,6 +1,6 @@
 // The bounce engine's shading, NEE add and camera rays for Hopper
-// (sm_90a): three kernels, one thread a ray, that run between the two
-// threaded walks of a bounce (threaded_walk.cu).
+// (sm_90a): three kernels that run between the two threaded walks of a
+// bounce (threaded_walk.cu).
 //
 // What they replace.  On the TPU a bounce-engine sample is one jitted
 // lax.while_loop of XLA-fused code, not a Pallas kernel:
@@ -38,29 +38,85 @@
 //     on the diffuse branch the light sample (the pick by the float32
 //     scale L - 0.001, the dist^2 floor, l_dir from the unclamped
 //     vector) that requests a shadow ray where geo_ok holds.  geo_ok is
-//     written on every lane, the other NEE fields where it holds.
+//     written on every lane it serves, the other NEE fields where it
+//     holds.  It lists the lanes alive after the bounce for the next.
 //   - bounce_nee_kernel: rad += contrib where geo_ok holds and the
-//     any-hit walk found no occluder.
+//     any-hit walk found no occluder, over the lanes the bounce's shade
+//     served.
 //
 // What bounds them on this card.  bounce_shade moves a live lane's
 // state (o, d, tp, rad, two flags, t, hit_id, pix: ~90 B read, ~60 B
 // written, 41 B more for a shadow ray) and reads its 148-byte trimat row
-// and four texels from L2 (the table is 3 MB on the main path); a dead
-// lane costs one flag read and one write.  Its double sqrt, cos, sin and
-// pow calls (11, 13, 13 and 83 FP64 instructions each on sm_90a) are the
-// other bound, at the card's FP64 rate.  bounce_nee and bounce_rays move
-// a few bytes a lane: a launch costs about its floor.
+// and four texels from L2 (the table is 3 MB on the main path).  Its
+// double sqrt, cos, sin and pow calls (11, 13, 13 and 83 FP64
+// instructions each on sm_90a) are the other bound, at the card's FP64
+// rate.  bounce_nee and bounce_rays move a few bytes a lane: a launch
+// costs about its floor.  A late bounce of the main path has under 10%
+// of the 960,000 lanes alive; one thread a lane over the whole wave ran
+// two or three live lanes a warp, each warp paying a whole dependent
+// chain (hit, trimat row, texture metas, texels, FP64 calls) for them:
+// 16x its byte bound (PERF.md).
 //
-// What the design does about it.  One thread a ray, 256 a block, and a
-// lane computes only the branch it takes (as the service kernel does);
-// the state is written in place, so a dead lane is not copied.  The
-// counts of a bounce (shadow rays fired, lanes alive after) are summed
-// within each warp (__reduce_add_sync) and added with one 64-bit integer
-// atomic a warp each, which is exact and free of order; the host reads
-// the live count once a bounce to end the loop.  No float atomics.
-// Launched on the caller's stream; allocates nothing.
+// What the design does about it.
+//   - The live lanes are listed.  The shade sums a warp's lanes alive
+//     after the bounce (a ballot) and adds them with one 64-bit atomicAdd
+//     a warp to the bounce's live count, which starts at 0; the add's old
+//     value is the warp's offset, and each live lane writes its index
+//     (int32) at offset + its rank among the warp's live lanes into the
+//     next list (wave_advance.cu's serve_phase does the same).  The list's
+//     order is the atomics' order, which may change from run to run; it
+//     changes nothing a lane computes: each lane reads and writes only its
+//     own slots, and the counts are integer sums.  So a step's image is
+//     the same bit for bit whatever order its lists came in.
+//   - Two launch shapes.  Bounce 0 (no list: bounce_rays left every lane
+//     alive) launches over all n lanes, a block a contiguous tile of 256;
+//     a later bounce launches ceil(count / 256) blocks over the previous
+//     bounce's list, one listed lane a thread, so a late bounce costs its
+//     live lanes, not the wave.  The host already reads the live count
+//     once a bounce to end its loop, so it sizes the grid with no new
+//     read.  The NEE add of a bounce runs over the same lanes as its
+//     shade: geo_ok can hold only on them.
+//   - A lane off the list is neither read nor written.  That is sound by
+//     an invariant of the plain version (ops/bounce.py): a lane dead at a
+//     bounce's entry leaves it with rad, tp, prev_spec unchanged and
+//     alive and geo_ok false, since geo_ok is set only on the diffuse
+//     branch, whose lanes stay alive.  So geo_ok is written only on the
+//     lanes the shade serves, and a lane that leaves the list keeps the
+//     false geo_ok its last shade wrote.
+//   - On a contiguous tile (TRT_BOUNCE_STAGED) the [N, 3] fields go
+//     through the block's shared tile: o, d, tp and rad are read in, and
+//     every field's span written out, in whole 16-byte pieces
+//     (lane_init.cu's stores), the last tile to exactly its last lane; a
+//     lane that leaves a field unchanged writes back what it read, so,
+//     sd and contrib are 0 where no shadow ray is fired.  A listed lane's
+//     fields are not contiguous: there a thread loads and stores its own.
+//   - Only the branch a lane takes is computed (as the service kernel
+//     does); the state is written in place.  The shadow rays fired are
+//     summed within each warp and added with one 64-bit integer atomic a
+//     warp.  No float atomics.  Launched on the caller's stream;
+//     allocates nothing.
+//   - Compile-time choices, each measured (PERF.md, scripts/
+//     time_torch_bounce.py --variant): TRT_BOUNCE_DENSE_SHARE, a listed
+//     bounce whose count is above this share of n lanes is launched over
+//     all n lanes instead (1: never); TRT_BOUNCE_STAGED, the staged
+//     tile on a contiguous launch (0: a thread stores its own lane);
+//     TRT_BOUNCE_MIN_BLOCKS, the blocks an SM the shade's registers must
+//     allow (0: no bound).
 
 #include "service_device.cuh"
+
+#ifndef TRT_BOUNCE_DENSE_SHARE
+#define TRT_BOUNCE_DENSE_SHARE 1.0
+#endif
+#ifndef TRT_BOUNCE_STAGED
+#define TRT_BOUNCE_STAGED 1
+#endif
+#ifndef TRT_BOUNCE_MIN_BLOCKS
+#define TRT_BOUNCE_MIN_BLOCKS 0
+#endif
+#ifndef TRT_BOUNCE_BLOCK_COUNTS
+#define TRT_BOUNCE_BLOCK_COUNTS 0
+#endif
 
 namespace trt_bounce {
 
@@ -70,6 +126,15 @@ constexpr int kBlock = 256;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMetaCols = 3;  // texel offset, w, h
 constexpr long long kMaxLanes = 0x7fffffffLL;
+constexpr double kDenseShare = TRT_BOUNCE_DENSE_SHARE;
+constexpr bool kStaged = TRT_BOUNCE_STAGED != 0;
+constexpr int kMinBlocks = TRT_BOUNCE_MIN_BLOCKS;
+constexpr bool kBlockCounts = TRT_BOUNCE_BLOCK_COUNTS != 0;
+#if TRT_BOUNCE_MIN_BLOCKS > 0
+#define TRT_BOUNCE_BOUNDS __launch_bounds__(kBlock, TRT_BOUNCE_MIN_BLOCKS)
+#else
+#define TRT_BOUNCE_BOUNDS __launch_bounds__(kBlock)
+#endif
 
 // bounce_shade's pointers, in the order of ops/bounce.py SHADE_POINTERS.
 enum ShadePtr {
@@ -80,6 +145,10 @@ enum ShadePtr {
 };
 // The counts a shade adds to (ops/bounce.py COUNTS).
 enum Count { kFired = 0, kLiveAfter = 1 };
+// A lane's [N, 3] fields: the four read in, then the three a shadow
+// ray writes.
+enum Field { kFo = 0, kFd, kFtp, kFrad, kFso, kFsd, kFcontrib, kNumFields };
+constexpr int kReadFields = kFso;
 
 struct Shade {
   const float* trimat;        // [rows, 37]
@@ -89,21 +158,44 @@ struct Shade {
   const long long* pix;
   const float* t;
   const long long* hit;
-  float* o;
-  float* d;
-  float* tp;
-  float* rad;
+  float* field[kNumFields];   // Field order; the NEE ones null without lights
   unsigned char* alive;
   unsigned char* prev_spec;
-  unsigned char* geo_ok;      // the NEE fields: null without lights
-  float* so;
-  float* sd;
+  unsigned char* geo_ok;      // null without lights
   float* smax;
-  float* contrib;
   unsigned long long* counts;  // Count
+  const int* lanes;           // the lanes to serve; null: lanes [0, count)
+  int* next;                  // the lanes alive after; null: not listed
+  long long count;
   long long n;
   long long depth;
   unsigned seed;
+};
+
+// A lane's [N, 3] fields in device memory (one thread a lane).
+struct Direct {
+  const Shade& b;
+  long long i;
+  __device__ __forceinline__ V3 get(int k) const {
+    return load3(b.field[k], i);
+  }
+  __device__ __forceinline__ void set(int k, V3 v) const {
+    store3(b.field[k], i, v);
+  }
+};
+
+// A lane's [N, 3] fields in the block's shared tile, slot t.
+struct Staged {
+  float (*tile)[3 * kBlock];
+  int t;
+  __device__ __forceinline__ V3 get(int k) const {
+    return row3(tile[k], 3 * t);
+  }
+  __device__ __forceinline__ void set(int k, V3 v) const {
+    tile[k][3 * t] = v.x;
+    tile[k][3 * t + 1] = v.y;
+    tile[k][3 * t + 2] = v.z;
+  }
 };
 
 // ops/texture.py sample_bilinear_wrap for texture `tid` at (u, v).
@@ -132,22 +224,24 @@ __device__ __forceinline__ V3 texel(const Shade& b, long long tid, float u,
   return add(scale(top, 1.0f - fy), scale(bot, fy));
 }
 
-// One lane's shade (ops/bounce.py bounce_shade_plain).  Sets *live and
-// *fire: the lane is alive after the bounce, it fired a shadow ray.
-__device__ __forceinline__ void shade_lane(const Params& p, const Shade& b,
-                                           long long i, int* live,
+// One lane's shade (ops/bounce.py bounce_shade_plain), its [N, 3] fields
+// through `io`.  Returns whether the lane is alive after the bounce; sets
+// *fire where it fired a shadow ray.
+template <class Io>
+__device__ __forceinline__ bool shade_lane(const Params& p, const Shade& b,
+                                           long long i, const Io& io,
                                            int* fire) {
   if (b.geo_ok != nullptr) b.geo_ok[i] = 0;
-  if (!b.alive[i]) return;
+  if (!b.alive[i]) return false;
   const long long hit = b.hit[i];
   if (hit < 0) {  // a miss ends the path (renderer.cu:427)
     b.alive[i] = 0;
-    return;
+    return false;
   }
   const float two_pi = p.f[kTwoPi];
   const float* row = b.trimat + hit * kTrimatRow;
-  const V3 d = load3(b.d, i);
-  const V3 x_hit = add(load3(b.o, i), scale(d, b.t[i]));
+  const V3 d = io.get(kFd);
+  const V3 x_hit = add(io.get(kFo), scale(d, b.t[i]));
 
   // ops/shade.py surface: the face normal and its flip, the UVs and the
   // texture, the smooth normal.
@@ -207,13 +301,13 @@ __device__ __forceinline__ void shade_lane(const Params& p, const Shade& b,
   float u[7];
 #pragma unroll
   for (int k = 0; k < 7; ++k) u[k] = uniform(b.seed, stream, base + k);
-  V3 tp = load3(b.tp, i);
-  V3 rad = load3(b.rad, i);
+  V3 tp = io.get(kFtp);
+  V3 rad = io.get(kFrad);
   const bool prev_spec = b.prev_spec[i] != 0;
   rad = v3(rad.x + (prev_spec ? tp.x * emission.x : 0.0f),
            rad.y + (prev_spec ? tp.y * emission.y : 0.0f),
            rad.z + (prev_spec ? tp.z * emission.z : 0.0f));
-  store3(b.rad, i, rad);
+  io.set(kFrad, rad);
   const float thr = p.f[kEmitterStop];
   bool alive = !(emission.x > thr || emission.y > thr || emission.z > thr);
 
@@ -226,7 +320,7 @@ __device__ __forceinline__ void shade_lane(const Params& p, const Shade& b,
   alive = alive && (!rr_on || survive);
   if (!alive) {  // no branch: tp and prev_spec stay
     b.alive[i] = 0;
-    return;
+    return false;
   }
 
   // pbr_weights (renderer.cu:509-556).
@@ -310,10 +404,10 @@ __device__ __forceinline__ void shade_lane(const Params& p, const Shade& b,
         const V3 brdf = scale(albedo, p.f[kInvPi]);
         const V3 contrib = scale(mul(row3(lrow, 12), brdf), gp);
         b.geo_ok[i] = 1;
-        store3(b.so, i, o_off);
-        store3(b.sd, i, l_dir);
+        io.set(kFso, o_off);
+        io.set(kFsd, l_dir);
         b.smax[i] = dist - p.f[kShadowMaxDistEps];
-        store3(b.contrib, i, mul(tp, contrib));
+        io.set(kFcontrib, mul(tp, contrib));
         *fire = 1;
       }
     }
@@ -322,29 +416,152 @@ __device__ __forceinline__ void shade_lane(const Params& p, const Shade& b,
     new_tp = scale(mul(tp, scale(albedo, 1.0f - metallic)), 1.0f / p_diff);
     new_prev = false;
   }
-  store3(b.o, i, new_o);
-  store3(b.d, i, new_d);
-  store3(b.tp, i, new_tp);
+  io.set(kFo, new_o);
+  io.set(kFd, new_d);
+  io.set(kFtp, new_tp);
   b.prev_spec[i] = new_prev ? 1 : 0;
   b.alive[i] = new_alive ? 1 : 0;
-  *live = new_alive ? 1 : 0;
+  return new_alive;
 }
 
-__global__ void __launch_bounds__(kBlock)
-    bounce_shade_kernel(const Params p, const Shade b) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
-  int live = 0, fire = 0;
-  if (i < b.n) shade_lane(p, b, i, &live, &fire);
-  live = __reduce_add_sync(kFull, live);
+// The counts and the next list: lane i (any value where !live) alive
+// after the bounce takes the slot of its rank among the live lanes of its
+// warp, past the warp's offset.  With kBlockCounts a block adds its
+// warps' counts with one atomicAdd each (the live count's old value is
+// the block's offset, the warps' offsets its prefix sums); else each warp
+// adds its own.  Called by every thread of the block.
+__device__ __forceinline__ void count_and_list(const Shade& b, long long i,
+                                               bool live, int fire) {
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const unsigned keep = __ballot_sync(kFull, live);
   fire = __reduce_add_sync(kFull, fire);
-  if ((threadIdx.x & 31) == 0) {
-    if (live) {
-      atomicAdd(b.counts + kLiveAfter, static_cast<unsigned long long>(live));
+  unsigned long long at = 0;
+  if constexpr (kBlockCounts) {
+    constexpr int kWarps = kBlock / 32;
+    __shared__ unsigned long long warp_at[kWarps];
+    __shared__ int warp_fire[kWarps];
+    const int w = static_cast<int>(threadIdx.x >> 5);
+    if (lane == 0) {
+      warp_at[w] = __popc(keep);
+      warp_fire[w] = fire;
     }
-    if (fire) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned long long total = 0;
+      int fired = 0;
+      for (int k = 0; k < kWarps; ++k) {
+        const unsigned long long c = warp_at[k];
+        warp_at[k] = total;
+        total += c;
+        fired += warp_fire[k];
+      }
+      const unsigned long long base =
+          total ? atomicAdd(b.counts + kLiveAfter, total) : 0ull;
+      for (int k = 0; k < kWarps; ++k) warp_at[k] += base;
+      if (fired) {
+        atomicAdd(b.counts + kFired, static_cast<unsigned long long>(fired));
+      }
+    }
+    __syncthreads();
+    at = warp_at[w];
+  } else {
+    if (keep && lane == 0) {
+      at = atomicAdd(b.counts + kLiveAfter,
+                     static_cast<unsigned long long>(__popc(keep)));
+    }
+    at = __shfl_sync(kFull, at, 0);
+    if (lane == 0 && fire) {
       atomicAdd(b.counts + kFired, static_cast<unsigned long long>(fire));
     }
+  }
+  const unsigned long long slot =
+      at + static_cast<unsigned long long>(__popc(keep & ((1u << lane) - 1u)));
+  // A slot past n only if the live count did not start at 0: unlisted.
+  if (live && b.next != nullptr &&
+      slot < static_cast<unsigned long long>(b.n)) {
+    b.next[slot] = static_cast<int>(i);
+  }
+}
+
+// Copy the span of one [N, 3] field `dev` of the tile's `lanes` lanes
+// from lane0 between device memory and its shared row `sh`, in whole
+// 16-byte pieces and then the span's last floats.  Called by every thread
+// of the block.
+template <bool kIn>
+__device__ __forceinline__ void copy_span(float* dev, float* sh,
+                                          long long lane0, int lanes) {
+  float* const span = dev + 3 * lane0;
+  const int count = 3 * lanes;
+  const int whole = count / 4;
+  const int t = static_cast<int>(threadIdx.x);
+  float4* const dev4 = reinterpret_cast<float4*>(span);
+  float4* const sh4 = reinterpret_cast<float4*>(sh);
+  for (int c = t; c < whole; c += kBlock) {
+    if (kIn) {
+      sh4[c] = dev4[c];
+    } else {
+      dev4[c] = sh4[c];
+    }
+  }
+  const int rest = 4 * whole + t;
+  if (rest < count) {
+    if (kIn) {
+      sh[rest] = span[rest];
+    } else {
+      span[rest] = sh[rest];
+    }
+  }
+}
+
+// The shade: kTile, a contiguous tile of 256 lanes a block, its [N, 3]
+// fields staged in shared memory; else one lane a thread, lane j of the
+// list (or lane j).
+template <bool kTile>
+__global__ void TRT_BOUNCE_BOUNDS bounce_shade_kernel(const Params p,
+                                                      const Shade b) {
+  if constexpr (kTile) {
+    __shared__ __align__(16) float tile[kNumFields][3 * kBlock];
+    const long long lane0 = static_cast<long long>(blockIdx.x) * kBlock;
+    const int lanes = static_cast<int>(
+        b.n - lane0 < kBlock ? b.n - lane0 : static_cast<long long>(kBlock));
+    const int t = static_cast<int>(threadIdx.x);
+    const bool lights = b.geo_ok != nullptr;
+#pragma unroll
+    for (int k = 0; k < kReadFields; ++k) {
+      copy_span<true>(b.field[k], tile[k], lane0, lanes);
+    }
+    if (lights) {
+#pragma unroll
+      for (int k = kReadFields; k < kNumFields; ++k) {
+        tile[k][3 * t] = 0.0f;
+        tile[k][3 * t + 1] = 0.0f;
+        tile[k][3 * t + 2] = 0.0f;
+      }
+    }
+    __syncthreads();
+    const long long i = lane0 + t;
+    int fire = 0;
+    const bool live =
+        t < lanes && shade_lane(p, b, i, Staged{tile, t}, &fire);
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kNumFields; ++k) {
+      if (k < kReadFields || lights) {
+        copy_span<false>(b.field[k], tile[k], lane0, lanes);
+      }
+    }
+    count_and_list(b, i, live, fire);
+  } else {
+    const long long j =
+        static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
+    long long i = -1;
+    bool live = false;
+    int fire = 0;
+    if (j < b.count) {
+      i = b.lanes != nullptr ? b.lanes[j] : j;
+      live = shade_lane(p, b, i, Direct{b, i}, &fire);
+    }
+    count_and_list(b, i, live, fire);
   }
 }
 
@@ -367,12 +584,15 @@ __global__ void __launch_bounds__(kBlock)
 }
 
 __global__ void __launch_bounds__(kBlock)
-    bounce_nee_kernel(long long n, const unsigned char* geo_ok,
+    bounce_nee_kernel(long long count, const int* lanes,
+                      const unsigned char* geo_ok,
                       const unsigned char* occluded, const float* contrib,
                       float* rad) {
-  const long long i =
+  const long long j =
       static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
-  if (i >= n || !geo_ok[i] || occluded[i]) return;
+  if (j >= count) return;
+  const long long i = lanes != nullptr ? lanes[j] : j;
+  if (!geo_ok[i] || occluded[i]) return;
   store3(rad, i, add(load3(rad, i), load3(contrib, i)));
 }
 
@@ -391,14 +611,35 @@ unsigned blocks(long long n) {
   return static_cast<unsigned>((n + kBlock - 1) / kBlock);
 }
 
+// Whether a launch over the list `lanes` of `count` of n lanes takes the
+// list (else it runs over all n lanes): the shade and its NEE add decide
+// alike.
+bool listed(const int* lanes, long long count, long long n) {
+  return lanes != nullptr &&
+         !(static_cast<double>(count) > kDenseShare * static_cast<double>(n));
+}
+
+// The arguments of a launch over `lanes` (null: all n) of `count` lanes.
+bool lanes_ok(const int* lanes, long long count, long long n) {
+  return n <= kMaxLanes && (lanes == nullptr ? count == n
+                                             : aligned16(lanes) &&
+                                                   count >= 0 && count <= n);
+}
+
 }  // namespace trt_bounce
 
 // The sizes of the arrays the launches read, for the caller to check
-// against its own: floats, ints, bounce_shade's pointers.
+// against its own (floats, ints, bounce_shade's pointers), then the
+// build's compile-time choices: the dense share in thousandths, the
+// staged tile, the blocks an SM, the counts added a block at a time.
 extern "C" int trt_bounce_layout(int* out) {
   out[0] = trt_service::kNumFloats;
   out[1] = trt_service::kNumInts;
   out[2] = trt_bounce::kNumShadePtrs;
+  out[3] = static_cast<int>(trt_bounce::kDenseShare * 1000.0 + 0.5);
+  out[4] = trt_bounce::kStaged ? 1 : 0;
+  out[5] = trt_bounce::kMinBlocks;
+  out[6] = trt_bounce::kBlockCounts ? 1 : 0;
   return 0;
 }
 
@@ -430,23 +671,29 @@ extern "C" int trt_bounce_rays_launch(const float* floats,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One bounce's shade of n lanes at bounce `depth` with sample seed `seed`
-// on `stream`.  floats / ints are ops/service.py's layout; ptrs a host
-// array of the device pointers in ShadePtr order (texels and metas null
-// without textures, the lights and the NEE fields null without lights),
-// each 16-byte aligned.  Writes the state in place and adds the shadow
-// rays fired and the lanes alive after to counts.  Returns the CUDA error
-// of the launch (0 = launched), 1 (cudaErrorInvalidValue) for arguments
-// it does not take.
+// One bounce's shade at bounce `depth` with sample seed `seed` on
+// `stream`, of the `count` lanes listed in `lanes` (int32, each in
+// [0, n)), or of all n lanes where `lanes` is null (count = n).  floats /
+// ints are ops/service.py's layout; ptrs a host array of the device
+// pointers in ShadePtr order (texels and metas null without textures, the
+// lights and the NEE fields null without lights), each 16-byte aligned.
+// Writes the served lanes' state in place, adds the shadow rays fired and
+// the lanes alive after to counts, and, where `next` is not null (int32
+// [n], not `lanes`), lists the lanes alive after in next[0, live) if the
+// live count started at 0.  Returns the CUDA error of the launch (0 =
+// launched), 1 (cudaErrorInvalidValue) for arguments it does not take.
 extern "C" int trt_bounce_shade_launch(const float* floats,
                                        const long long* ints,
                                        void* const* ptrs, long long n,
-                                       long long seed, long long depth,
-                                       void* stream) {
+                                       const int* lanes, long long count,
+                                       int* next, long long seed,
+                                       long long depth, void* stream) {
   using namespace trt_bounce;
-  if (n <= 0) return 0;
+  if (n <= 0 || count == 0) return 0;
   Params p;
-  bool ok = unpack(floats, ints, &p) && n <= kMaxLanes && depth >= 0;
+  bool ok = unpack(floats, ints, &p) && lanes_ok(lanes, count, n) &&
+            depth >= 0 && (next == nullptr || (aligned16(next) &&
+                                               next != lanes));
   const bool textured = p.i[kNumTex] > 0;
   const bool lights = p.i[kNumLights] > 0;
   for (int k = 0; ok && k < kNumShadePtrs; ++k) {
@@ -466,42 +713,57 @@ extern "C" int trt_bounce_shade_launch(const float* floats,
   b.pix = static_cast<const long long*>(ptrs[kPtrPix]);
   b.t = static_cast<const float*>(ptrs[kPtrT]);
   b.hit = static_cast<const long long*>(ptrs[kPtrHit]);
-  b.o = static_cast<float*>(ptrs[kPtrO]);
-  b.d = static_cast<float*>(ptrs[kPtrD]);
-  b.tp = static_cast<float*>(ptrs[kPtrTp]);
-  b.rad = static_cast<float*>(ptrs[kPtrRad]);
+  b.field[kFo] = static_cast<float*>(ptrs[kPtrO]);
+  b.field[kFd] = static_cast<float*>(ptrs[kPtrD]);
+  b.field[kFtp] = static_cast<float*>(ptrs[kPtrTp]);
+  b.field[kFrad] = static_cast<float*>(ptrs[kPtrRad]);
   b.alive = static_cast<unsigned char*>(ptrs[kPtrAlive]);
   b.prev_spec = static_cast<unsigned char*>(ptrs[kPtrPrevSpec]);
   b.geo_ok = lights ? static_cast<unsigned char*>(ptrs[kPtrGeoOk]) : nullptr;
-  b.so = static_cast<float*>(ptrs[kPtrSo]);
-  b.sd = static_cast<float*>(ptrs[kPtrSd]);
-  b.smax = static_cast<float*>(ptrs[kPtrSmax]);
-  b.contrib = static_cast<float*>(ptrs[kPtrContrib]);
+  b.field[kFso] = lights ? static_cast<float*>(ptrs[kPtrSo]) : nullptr;
+  b.field[kFsd] = lights ? static_cast<float*>(ptrs[kPtrSd]) : nullptr;
+  b.smax = lights ? static_cast<float*>(ptrs[kPtrSmax]) : nullptr;
+  b.field[kFcontrib] =
+      lights ? static_cast<float*>(ptrs[kPtrContrib]) : nullptr;
   b.counts = static_cast<unsigned long long*>(ptrs[kPtrCounts]);
+  b.next = next;
   b.n = n;
   b.depth = depth;
   b.seed = static_cast<unsigned>(seed);
-  bounce_shade_kernel<<<blocks(n), kBlock, 0,
-                        static_cast<cudaStream_t>(stream)>>>(p, b);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (listed(lanes, count, n)) {
+    b.lanes = lanes;
+    b.count = count;
+    bounce_shade_kernel<false><<<blocks(count), kBlock, 0, s>>>(p, b);
+  } else {
+    b.lanes = nullptr;
+    b.count = n;
+    bounce_shade_kernel<kStaged><<<blocks(n), kBlock, 0, s>>>(p, b);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The NEE add of n lanes on `stream`: rad += contrib where geo_ok holds
-// and occluded does not.  Every pointer is 16-byte aligned.  Returns the
-// CUDA error of the launch (0 = launched), 1 (cudaErrorInvalidValue) for
-// arguments it does not take.
-extern "C" int trt_bounce_nee_launch(long long n, const unsigned char* geo_ok,
+// The NEE add on `stream` of the `count` lanes listed in `lanes` (null:
+// all n lanes, count = n), the lanes the bounce's shade served: rad +=
+// contrib where geo_ok holds and occluded does not.  Every pointer is
+// 16-byte aligned.  Returns the CUDA error of the launch (0 = launched),
+// 1 (cudaErrorInvalidValue) for arguments it does not take.
+extern "C" int trt_bounce_nee_launch(long long n, const int* lanes,
+                                     long long count,
+                                     const unsigned char* geo_ok,
                                      const unsigned char* occluded,
                                      const float* contrib, float* rad,
                                      void* stream) {
   using namespace trt_bounce;
-  if (n <= 0) return 0;
+  if (n <= 0 || count == 0) return 0;
   const void* ptrs[] = {geo_ok, occluded, contrib, rad};
-  bool ok = n <= kMaxLanes;
+  bool ok = lanes_ok(lanes, count, n);
   for (const void* ptr : ptrs) ok = ok && ptr != nullptr && aligned16(ptr);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  bounce_nee_kernel<<<blocks(n), kBlock, 0,
+  const bool list = listed(lanes, count, n);
+  const long long m = list ? count : n;
+  bounce_nee_kernel<<<blocks(m), kBlock, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      n, geo_ok, occluded, contrib, rad);
+      m, list ? lanes : nullptr, geo_ok, occluded, contrib, rad);
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,7 +16,11 @@ add are ops/bounce.py's ``bounce_rays``, ``bounce_shade`` and
 ``bounce_nee``.  Each is a hand-written CUDA kernel on a card and its
 plain version (eager PyTorch) on the CPU, so a bounce on a card is four
 launches (and the walks' counter fills), and the loop reads one number
-a bounce: the live count the shade leaves on the device.
+a bounce: the live count the shade leaves on the device.  On a card the
+shade lists the lanes it leaves alive, and the next bounce's shade and
+NEE add serve only that list (a grid sized by the count just read), so
+a late bounce's kernels cost its live lanes; the walks still run over
+the whole wave, dead lanes masked.
 ``engine_tables`` builds the walk-order copy and the ``BounceTables``
 (the textures in one buffer, which are sampled as they are, not as the
 persistent engine's tile rows; the light rows) once a table set, so a
@@ -75,7 +79,8 @@ def render_sample(scene, walk, tables, params, seed: int, pixels,
     On a card a sample is one ``bounce_rays`` launch, then per bounce the
     closest-hit walk, ``bounce_shade``, and with lights the any-hit walk
     and ``bounce_nee``; the loop reads one number a bounce, the live
-    count ``bounce_shade`` leaves on the device.
+    count ``bounce_shade`` leaves on the device, which also sizes the
+    next bounce's launches over the lanes the shade listed.
 
     stats: ``n_traced`` (path rays, camera rays included) and
     ``n_shadow`` (NEE shadow rays) as int64 tensors, ``iterations`` (the
@@ -89,11 +94,15 @@ def render_sample(scene, walk, tables, params, seed: int, pixels,
     # Each bounce's [shadow rays fired, lanes alive after].
     counts = torch.zeros((cfg.max_depth, len(bounce.COUNTS)),
                          dtype=torch.int64, device=dev)
-    rows, live, depth = [], n, 0
+    # Bounce k serves the lanes bounce k - 1 listed (all at bounce 0) and
+    # lists its own survivors in the other list (None, None on the CPU).
+    lists = bounce.new_lane_lists(n, dev)
+    rows, live, depth, lanes = [], n, 0, None
     while depth < cfg.max_depth and live > 0:
         rows += _bounce(scene, walk, tables, params, seed, pixels, depth, s,
-                        counts[depth])
+                        counts[depth], lanes, live, lists[depth % 2])
         live = int(counts[depth, 1])
+        lanes = lists[depth % 2]
         depth += 1
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     # A bounce traces the lanes alive at its start: all n, then each
@@ -106,26 +115,30 @@ def render_sample(scene, walk, tables, params, seed: int, pixels,
 
 
 def _bounce(scene, walk, tables, params, seed: int, pixels, depth: int,
-            s: dict, counts) -> list:
+            s: dict, counts, lanes=None, live=None, next_lanes=None) -> list:
     """One wavefront bounce of the state ``s`` (``bounce.STATE`` and,
     with lights, ``bounce.NEE``, which the bounce writes): the
     closest-hit walk, ``bounce_shade`` (ops/bounce.py), and with lights
     the NEE shadow rays as one any-hit walk and ``bounce_nee``.
     ``tables`` are the engine's ``BounceTables``, ``params`` the frame's
     ``bounce_params``, and ``counts`` the int64 [2] that the bounce adds
-    [shadow rays fired, lanes alive after] to.  ``s`` is updated: on a
-    card its tensors are written in place.  Returns the rows each walk
+    [shadow rays fired, lanes alive after] to.  On a card the shade and
+    the NEE add serve the ``live`` lanes listed in ``lanes`` (every lane
+    where None) and the shade lists its survivors in ``next_lanes``; the
+    CPU's plain versions serve every lane.  ``s`` is updated: on a card
+    its tensors are written in place.  Returns the rows each walk
     fetched (int64 tensors)."""
+    n_lanes = None if lanes is None else live
     t, hit_id, rows = closest_hit(walk, scene.leaf_size, s["o"], s["d"],
                                   s["alive"], fmt=scene.leaf_fmt)
     bounce.bounce_shade(scene, tables, params, seed, pixels, depth, t,
-                        hit_id, s, counts)
+                        hit_id, s, counts, lanes, n_lanes, next_lanes)
     rows = [rows]
     if scene.num_lights > 0:
         occluded, nee_rows = any_hit(walk, scene.leaf_size, s["so"],
                                      s["sd"], s["smax"], s["geo_ok"],
                                      fmt=scene.leaf_fmt)
-        bounce.bounce_nee(s, occluded)
+        bounce.bounce_nee(s, occluded, lanes, n_lanes)
         rows.append(nee_rows)
     return rows
 

@@ -33,12 +33,43 @@ replace its entries.  What the kernels write, by lane:
     (``hit_id >= 0``); a lane that misses is marked dead.  It writes rad,
     alive and, for a lane on a branch, o, d, tp and prev_spec; a lane on
     no branch keeps its tp and prev_spec.  The NEE fields are written
-    where geo_ok holds; geo_ok on every lane.  The eager block also
-    writes a dead lane's o and d from a garbage hit; the next walk reads
-    a dead lane as inactive, so only the lanes alive after the bounce
-    carry o and d.
+    where geo_ok holds, geo_ok on every lane served.  The eager block
+    also writes a dead lane's o and d from a garbage hit; the next walk
+    reads a dead lane as inactive, so only the lanes alive after the
+    bounce carry o and d.  What is compared, kernel against plain
+    version: rad, tp, alive, prev_spec and geo_ok on every lane, o and d
+    on the lanes alive after, so, sd, smax and contrib where geo_ok
+    holds.
   - ``bounce_nee`` adds contrib to rad where geo_ok holds and the shadow
     ray is not occluded.
+
+The lists of live lanes.  On a card a bounce serves only the lanes alive
+at its entry: bounce 0 every lane (``bounce_rays`` left them all alive),
+a later bounce the list the shade of the bounce before wrote, one thread
+a listed lane, in a grid sized by its count (the live count the engine's
+loop reads anyway).  The shade lists the lanes alive after it (one
+atomic add a warp on the live count gives the warp's offset), so the
+lists' order is the atomics' and may change from run to run; no lane
+reads another's slots and the counts are integer sums, so the results
+do not depend on it.  The NEE add runs over the lanes its bounce's shade
+served.  The plain versions run over every lane and read no list.
+
+Why a lane off the list may be left alone: the invariant of the plain
+version that a lane dead at a bounce's entry leaves it with rad, tp and
+prev_spec bit-equal to their inputs and alive and geo_ok false (geo_ok
+is set only on the diffuse branch, whose lanes stay alive, so a lane
+that dies leaves with geo_ok false; its o, d and the other NEE fields
+are not compared).  tests/test_torch_bounce_kernel.py holds the plain
+path to it on every bounce of two small frames.
+
+The kernel's two launch shapes (csrc/bounce.cu): over a list, one lane
+a thread; over every lane (bounce 0), a block a contiguous tile of 256
+lanes whose [N, 3] fields pass through shared memory and are stored in
+whole 16-byte pieces, where a lane that keeps a field writes back what
+it read and so, sd and contrib are 0 where no shadow ray is fired (not
+compared).  Its compile-time choices (``design``) were measured against
+the dropped ones (PERF.md): a dense bounce on the contiguous launch,
+and a thread storing its own lane there.
 
 Signed zeros: the eager blocks add ``+ 0.0`` to every lane's rad, the
 kernels only to the lanes they serve; rad starts at +0.0 and a sum of
@@ -82,7 +113,9 @@ NEE = (("geo_ok", torch.bool, 1), ("so", torch.float32, 3),
 COUNTS = ("shadow", "live")
 TRIMAT_ROW = 37  # accel/bvh.py pack_trimat_table
 
-LIBRARY = KernelLibrary("bounce", {
+# The entry points' argument types (ctypes: c_void_p for every pointer
+# and the stream).
+FUNCTIONS = {
     "trt_bounce_layout": (ctypes.c_void_p,),
     "trt_bounce_rays_launch": (
         # floats, ints (host arrays), pix, lanes, seed,
@@ -92,13 +125,18 @@ LIBRARY = KernelLibrary("bounce", {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p),
     "trt_bounce_shade_launch": (
-        # floats, ints, pointers (host arrays), lanes, seed, depth, stream
+        # floats, ints, pointers (host arrays), lanes, the list and its
+        # count, the next list, seed, depth, stream
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p),
     "trt_bounce_nee_launch": (
-        # lanes, geo_ok, occluded, contrib, rad, stream
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p)})
+        # lanes, the list and its count, geo_ok, occluded, contrib, rad,
+        # stream
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p)}
+LIBRARY = KernelLibrary("bounce", FUNCTIONS)
 
 # bounce_shade's device pointers, in csrc/bounce.cu's ShadePtr order.
 SHADE_POINTERS = ("trimat", "texels", "metas", "lights", "pix", "t",
@@ -202,8 +240,8 @@ def bounce_params(scene, tables: BounceTables, cfg: RenderConfig,
 
 def new_nee_state(n: int, device) -> dict:
     """The NEE fields for ``n`` lanes on ``device``, allocated and not
-    filled: ``bounce_shade`` writes geo_ok on every lane and the rest
-    where geo_ok holds."""
+    filled: bounce 0's ``bounce_shade`` writes geo_ok on every lane (each
+    later one on the lanes it serves) and the rest where geo_ok holds."""
     return {name: torch.empty((n,) if cols == 1 else (n, cols), dtype=dtype,
                               device=device) for name, dtype, cols in NEE}
 
@@ -308,20 +346,40 @@ def _host(params: BounceParams):
 
 
 _checked = set()  # libraries whose parameter layout matched the wrapper's
+# The design entries trt_bounce_layout gives after the layout.
+DESIGN = ("dense_share", "staged", "min_blocks", "block_counts")
 
 
-def _load():
-    lib = LIBRARY.load()
-    if LIBRARY not in _checked:
-        layout = (ctypes.c_int * 3)()
-        lib.trt_bounce_layout(ctypes.addressof(layout))
+def _layout(lib) -> tuple:
+    layout = (ctypes.c_int * (3 + len(DESIGN)))()
+    lib.trt_bounce_layout(ctypes.addressof(layout))
+    return tuple(layout)
+
+
+def _load(library=None):
+    """The loaded ``library`` (default ``LIBRARY``; a benchmark may pass a
+    ``-D`` build of the same source), its layout checked once."""
+    library = LIBRARY if library is None else library
+    lib = library.load()
+    if library not in _checked:
         want = (len(service.FLOATS), len(service.INTS), len(SHADE_POINTERS))
-        if tuple(layout) != want:
-            raise RuntimeError(f"bounce kernels take {tuple(layout)} "
+        if _layout(lib)[:3] != want:
+            raise RuntimeError(f"bounce kernels take {_layout(lib)[:3]} "
                                f"(floats, ints, shade pointers), the "
                                f"wrapper packs {want}")
-        _checked.add(LIBRARY)
+        _checked.add(library)
     return lib
+
+
+def design(library=None) -> dict:
+    """The compile-time choices of a build of csrc/bounce.cu: the live
+    share above which a listed bounce runs over every lane (1: never), the
+    staged tile on a contiguous launch, the blocks an SM the shade's
+    registers must allow (0: no bound), the counts and the list's offsets
+    added one atomic a block (else one a warp)."""
+    layout = _layout(_load(library))[3:]
+    return dict(dense_share=layout[0] / 1000, staged=bool(layout[1]),
+                min_blocks=layout[2], block_counts=bool(layout[3]))
 
 
 def _launch(dev, name: str, fn, *args) -> None:
@@ -331,6 +389,39 @@ def _launch(dev, name: str, fn, *args) -> None:
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def new_lane_lists(n: int, device) -> tuple:
+    """The two lists of live lanes a sample's bounces take turns with (the
+    shade of bounce k reads list (k - 1) % 2 and writes list k % 2): two
+    int32 [n] tensors on a CUDA ``device``, allocated and not filled; on
+    the CPU (None, None), since the plain versions run over every lane."""
+    if torch.device(device).type == "cpu":
+        return None, None
+    return tuple(torch.empty(n, dtype=torch.int32, device=device)
+                 for _ in range(2))
+
+
+def _lane_list(lanes, n_lanes, n: int, dev) -> int:
+    """Refuse a list the kernels cannot take; return the lanes to serve
+    (n where ``lanes`` is None)."""
+    if lanes is None:
+        if n_lanes is not None:
+            raise ValueError("a count of listed lanes without a list")
+        return n
+    _check("lanes", lanes, torch.int32, (n,), dev)
+    if isinstance(n_lanes, bool) \
+            or not isinstance(n_lanes, (int, np.integer)) \
+            or not 0 <= n_lanes <= n:
+        raise ValueError(f"listed lanes {n_lanes!r} out of range [0, {n}]")
+    return int(n_lanes)
+
+
+def _overlap(a, b) -> bool:
+    lo = max(a.data_ptr(), b.data_ptr())
+    hi = min(a.data_ptr() + a.numel() * a.element_size(),
+             b.data_ptr() + b.numel() * b.element_size())
+    return lo < hi
 
 
 def bounce_rays_cuda(params: BounceParams, seed: int, pixels) -> dict:
@@ -366,18 +457,26 @@ bounce_rays_cuda.launches = 0
 
 def bounce_shade_cuda(scene, tables: BounceTables, params: BounceParams,
                       seed: int, pixels, depth: int, t, hit_id, s: dict,
-                      counts) -> dict:
+                      counts, lanes=None, n_lanes=None, next_lanes=None,
+                      library=None) -> dict:
     """Launch the shading kernel on the current stream: one bounce's
     shading after its closest-hit walk (``t`` [N] float32, ``hit_id`` [N]
     int64) on the state ``s`` for ``pixels`` (int64 [N]) with sample seed
-    ``seed`` at bounce ``depth``, bit for bit ``bounce_shade_plain`` on
-    the lanes the module docstring names.  Writes ``s`` in place
-    (``STATE``, and ``NEE`` with lights, which ``s`` must then hold) and
-    adds the shadow rays fired and the lanes alive after to ``counts``
-    (int64 [2]).  Every tensor lies on the scene's CUDA device,
-    contiguous and 16-byte aligned, with its dtype and shape; ``params``
-    is packed for ``tables``.  Refuses on the host, before any library
-    is loaded, what the kernel cannot take."""
+    ``seed`` at bounce ``depth``, bit for bit ``bounce_shade_plain`` by
+    the module docstring's contract.  Serves the first ``n_lanes`` lanes
+    listed in ``lanes`` (int32 [N], each lane at most once, every lane
+    alive at entry on it; 0 <= n_lanes <= N), or every lane where
+    ``lanes`` is None; a lane off the list is neither read nor written.
+    Writes ``s`` in place (``STATE``, and ``NEE`` with lights, which ``s``
+    must then hold) and adds the shadow rays fired and the lanes alive
+    after to ``counts`` (int64 [2]); where ``next_lanes`` (int32 [N], not
+    overlapping ``lanes``) is given and the live count starts at 0, lists
+    the lanes alive after in ``next_lanes[:live]``, in an order that may
+    change from run to run.  Every tensor lies on the scene's CUDA
+    device, contiguous and 16-byte aligned, with its dtype and shape;
+    ``params`` is packed for ``tables``; ``library`` is the kernels' build
+    (default ``LIBRARY``).  Refuses on the host, before any library is
+    loaded, what the kernel cannot take."""
     trimat = scene.trimat
     dev = trimat.device
     n = _lanes(pixels)
@@ -400,6 +499,11 @@ def bounce_shade_cuda(scene, tables: BounceTables, params: BounceParams,
     _check("hit_id", hit_id, torch.int64, (n,), dev)
     _check_fields(s, STATE + (NEE if n_lights else ()), n, dev)
     _check("counts", counts, torch.int64, (len(COUNTS),), dev)
+    served = _lane_list(lanes, n_lanes, n, dev)
+    if next_lanes is not None:
+        _check("next_lanes", next_lanes, torch.int32, (n,), dev)
+        if lanes is not None and n and _overlap(lanes, next_lanes):
+            raise ValueError("next_lanes aliases lanes")
     _on_card(dev, "bounce_shade_cuda")
     given = dict(trimat=trimat, texels=tables.texels, metas=tables.metas,
                  lights=tables.lights, pix=pixels, t=t, hit_id=hit_id,
@@ -409,11 +513,13 @@ def bounce_shade_cuda(scene, tables: BounceTables, params: BounceParams,
     ptrs = (ctypes.c_void_p * len(SHADE_POINTERS))(*(
         None if name in absent else given[name].data_ptr()
         for name in SHADE_POINTERS))
-    if n > 0:
-        lib = _load()
+    if served > 0:
+        lib = _load(library)
         _launch(dev, "bounce_shade", lib.trt_bounce_shade_launch,
                 floats.ctypes.data, ints.ctypes.data, ctypes.addressof(ptrs),
-                n, int(seed) & rng.MASK32, int(depth))
+                n, None if lanes is None else lanes.data_ptr(), served,
+                None if next_lanes is None else next_lanes.data_ptr(),
+                int(seed) & rng.MASK32, int(depth))
         bounce_shade_cuda.launches += 1
     return s
 
@@ -421,22 +527,27 @@ def bounce_shade_cuda(scene, tables: BounceTables, params: BounceParams,
 bounce_shade_cuda.launches = 0
 
 
-def bounce_nee_cuda(s: dict, occluded) -> dict:
+def bounce_nee_cuda(s: dict, occluded, lanes=None, n_lanes=None,
+                    library=None) -> dict:
     """Launch the NEE-add kernel on the current stream: ``s["rad"] +=
     s["contrib"]`` where ``s["geo_ok"]`` holds and ``occluded`` (bool [N])
-    does not, in place, bit for bit ``bounce_nee_plain``.  The tensors
-    lie on one CUDA device, contiguous and 16-byte aligned.  Refuses on
-    the host, before any library is loaded, what the kernel cannot
-    take."""
+    does not, in place, bit for bit ``bounce_nee_plain``, over the first
+    ``n_lanes`` lanes listed in ``lanes`` (int32 [N]: the lanes the
+    bounce's shade served, the only ones where geo_ok can hold), or every
+    lane where ``lanes`` is None.  The tensors lie on one CUDA device,
+    contiguous and 16-byte aligned.  Refuses on the host, before any
+    library is loaded, what the kernel cannot take."""
     dev = occluded.device
     n = _lanes(occluded)
     _check("occluded", occluded, torch.bool, (n,), dev)
     _check_fields(s, tuple(f for f in STATE + NEE
                            if f[0] in ("rad", "geo_ok", "contrib")), n, dev)
+    served = _lane_list(lanes, n_lanes, n, dev)
     _on_card(dev, "bounce_nee_cuda")
-    if n > 0:
-        lib = _load()
+    if served > 0:
+        lib = _load(library)
         _launch(dev, "bounce_nee", lib.trt_bounce_nee_launch, n,
+                None if lanes is None else lanes.data_ptr(), served,
                 s["geo_ok"].data_ptr(), occluded.data_ptr(),
                 s["contrib"].data_ptr(), s["rad"].data_ptr())
         bounce_nee_cuda.launches += 1
@@ -460,10 +571,13 @@ def bounce_rays(params: BounceParams, seed: int, pixels) -> dict:
 
 def bounce_shade(scene, tables: BounceTables, params: BounceParams,
                  seed: int, pixels, depth: int, t, hit_id, s: dict,
-                 counts) -> dict:
+                 counts, lanes=None, n_lanes=None, next_lanes=None) -> dict:
     """One bounce's shading on the state ``s`` (updated and returned),
     adding [shadow rays fired, lanes alive after] to ``counts``: the
-    plain version for CPU tensors, the kernel for CUDA tensors."""
+    plain version for CPU tensors, over every lane (the lists are not
+    read); the kernel for CUDA tensors, over the first ``n_lanes`` of
+    ``lanes`` (every lane where None), listing the lanes alive after in
+    ``next_lanes``."""
     if scene.trimat.device.type == "cpu":
         new, fired, live = bounce_shade_plain(scene, tables, params.cfg,
                                               seed, pixels, depth, t, hit_id,
@@ -472,14 +586,16 @@ def bounce_shade(scene, tables: BounceTables, params: BounceParams,
         counts += torch.stack([fired, live])
         return s
     return bounce_shade_cuda(scene, tables, params, seed, pixels, depth, t,
-                             hit_id, s, counts)
+                             hit_id, s, counts, lanes, n_lanes, next_lanes)
 
 
-def bounce_nee(s: dict, occluded) -> dict:
+def bounce_nee(s: dict, occluded, lanes=None, n_lanes=None) -> dict:
     """The NEE add on the state ``s`` (updated and returned): the plain
-    version for CPU tensors, the kernel for CUDA tensors."""
+    version for CPU tensors, over every lane; the kernel for CUDA
+    tensors, over the first ``n_lanes`` of ``lanes`` (every lane where
+    None)."""
     if occluded.device.type == "cpu":
         s["rad"] = bounce_nee_plain(s["rad"], s["geo_ok"], occluded,
                                     s["contrib"])
         return s
-    return bounce_nee_cuda(s, occluded)
+    return bounce_nee_cuda(s, occluded, lanes, n_lanes)
