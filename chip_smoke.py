@@ -301,15 +301,12 @@ LATE_ACTIVE_SHARE = 0.1
 MID_DEPTH = 4                  # [bounce_kernels]: the mid state's bounce
 BOUNCE_KERNELS = ("bounce_rays", "bounce_shade", "bounce_nee")
 # [bounce_kernels]: the shuffled lists' seed, and the -D builds of
-# csrc/bounce.cu checked and timed beside the port's (its compile-time
-# choices, PERF.md): a listed bounce above half the lanes alive launched
-# over every lane, the contiguous launch without the staged tile, the
-# shade's registers bound to four blocks an SM.
+# csrc/bounce.cu checked and timed beside the port's (PERF.md): every
+# bounce after 0 launched over its list, and none (PR 18's launch shape).
 BOUNCE_SHUFFLE_SEED = 19
 BOUNCE_VARIANTS = {
-    "dense_share_0.5": ("TRT_BOUNCE_DENSE_SHARE=0.5",),
-    "unstaged": ("TRT_BOUNCE_STAGED=0",),
-    "min_blocks_4": ("TRT_BOUNCE_MIN_BLOCKS=4",),
+    "list_every_bounce": ("TRT_BOUNCE_DENSE_SHARE=1",),
+    "no_list": ("TRT_BOUNCE_DENSE_SHARE=0",),
 }
 # [parallel]: samples a step (divisible by every mesh's sp), the meshes
 # (dp, sp) on the one card, the bound for sp > 1 (tests/test_parallel.py),
@@ -3513,7 +3510,7 @@ def _shade_call(rb: Renderer, params, st, s, lanes, counts, nxt,
 def _listed(st, library) -> bool:
     """Whether a build launches over the recorded state's list."""
     return st["lanes"] is not None and st["n_lanes"] <= (
-        bounce.design(library)["dense_share"] * len(st["hit_id"]))
+        bounce.dense_share(library) * len(st["hit_id"]))
 
 
 def check_bounce_shade(label: str, rb: Renderer, params, st,
@@ -3530,7 +3527,8 @@ def check_bounce_shade(label: str, rb: Renderer, params, st,
     kernel's own time, the wrapper's (each call on a fresh copy: the
     kernel writes in place), the plain version's, and the bound
     (service_bound of shade_work: PR 18's bytes, every lane's flags;
-    ``list_bound_ms`` the bytes of the lanes served and the lists)."""
+    ``list_bound_ms`` the bytes of this build's launch: the next list,
+    and over a list its entries and only the listed lanes' flags)."""
     scene, tables = rb.scene, rb.bounce_tables
     dev = scene.trimat.device
     n = len(st["hit_id"])
@@ -3576,7 +3574,8 @@ def check_bounce_shade(label: str, rb: Renderer, params, st,
               and shuffled["counts"] == counts.tolist()
               and not shuffled["touched"])
     log(f"[bounce_kernels] shade {label} (bounce {st['depth']}): {entry} of "
-        f"{n} lanes alive at entry, {served} served; counts (shadow, live) "
+        f"{n} lanes alive at entry, {served} served (over the list "
+        f"{_listed(st, library)}); counts (shadow, live) "
         f"kernel {counts.tolist()} plain {[int(fired), int(live)]}; fields "
         f"differing {bad}, max abs err {err!r}; next list equal to the "
         f"lanes alive after {next_ok(nxt)}; shuffled list: fields "
@@ -3588,14 +3587,16 @@ def check_bounce_shade(label: str, rb: Renderer, params, st,
                              f"version on the {label} state: {bad}, "
                              f"{shuffled}")
     out = dict(max_abs_err=err, depth=st["depth"], entry=entry,
-               served=served, counts=counts.tolist())
+               served=served, listed=_listed(st, library),
+               counts=counts.tolist())
     if not timed:
         return out
     work = shade_work(scene, tables, rb.cfg, st, want)
+    # The bytes of this build's launch: PR 18's count and the next list,
+    # and over a list its entries, less the flags of the lanes off it.
     flags = 2 if "geo_ok" in want else 1
-    list_bytes = (work["n_bytes"] - flags * (n - served)
-                  + 4 * (served if st["lanes"] is not None else 0)
-                  + 4 * int(live))
+    list_bytes = work["n_bytes"] + 4 * int(live) + (
+        4 * served - flags * (n - served) if _listed(st, library) else 0)
     calls = [(_copy(st["s"]), zeros()) for _ in range(6)]
     copies = iter(calls)
 
@@ -3624,7 +3625,7 @@ def check_bounce_shade(label: str, rb: Renderer, params, st,
         f"{out['bound_ms']:.5f} ms by {out['bound_by']} ({work['n_bytes']} "
         f"B: {out['bytes_ms']:.5f} ms; FP64 {out['fp64_ms']:.5f} ms: "
         f"{out['fp64_instructions']} instructions); own time "
-        f"{ms / out['bound_ms']:.2f}x; served lanes and lists "
+        f"{ms / out['bound_ms']:.2f}x; this launch's bytes "
         f"{list_bytes} B, bound {listed_bound['bound_ms']:.5f} ms, own "
         f"{ms / listed_bound['bound_ms']:.2f}x")
     return out
@@ -3639,8 +3640,8 @@ def check_bounce_nee(label: str, st, timed: bool = True,
     places.  With ``timed``, the kernel's own time, the wrapper's, the
     plain version's and the byte bound: geo_ok and occluded of every
     lane (2 B), and rad read and written and contrib read on each lit
-    lane (36 B); ``list_bound_ms`` counts the flags and the list entry
-    (6 B) of the lanes served only."""
+    lane (36 B); ``list_bound_ms`` counts, where the build runs over the
+    list, the flags and the list entry (6 B) of the listed lanes only."""
     rad, geo_ok, contrib, occluded = st["nee"]
     lanes = st["lanes"]
     served = len(geo_ok) if lanes is None else st["n_lanes"]
@@ -3661,16 +3662,18 @@ def check_bounce_nee(label: str, st, timed: bool = True,
                            want))
     err = _max_err(dict(r=got), dict(r=want), ["r"])
     log(f"[bounce_kernels] nee {label}: {int(geo_ok.sum())} shadow rays, "
-        f"{lit} lit, {served} lanes served; rad equal {same}, with the "
+        f"{lit} lit, {served} lanes served (over the list "
+        f"{_listed(st, library)}); rad equal {same}, with the "
         f"list shuffled {shuffled}; max abs err {err!r}")
     if not same or not shuffled:
         raise AssertionError(f"bounce_nee kernel disagrees with its plain "
                              f"version on the {label} state")
-    out = dict(max_abs_err=err, lit=lit, served=served)
+    out = dict(max_abs_err=err, lit=lit, served=served,
+               listed=_listed(st, library))
     if not timed:
         return out
     n_bytes = 2 * geo_ok.numel() + 36 * lit
-    list_bytes = (6 if lanes is not None else 2) * served + 36 * lit
+    list_bytes = 6 * served + 36 * lit if _listed(st, library) else n_bytes
     copies = iter([state() for _ in range(6)])
     wrapper_ms = _time_ms(lambda: run(next(copies)), reps=5)
     ms = _kernel_ms(lambda: run(state()), "bounce_nee_kernel", reps=10)
@@ -3683,7 +3686,8 @@ def check_bounce_nee(label: str, st, timed: bool = True,
     log(f"[bounce_kernels] nee {label}: kernel's own time {ms:.5f} ms, "
         f"wrapper {wrapper_ms:.5f} ms, plain {plain_ms:.3f} ms; bound "
         f"{out['bound_ms']:.5f} ms by {out['bound_by']} ({n_bytes} B); own "
-        f"time {ms / out['bound_ms']:.2f}x; served lanes {list_bytes} B, "
+        f"time {ms / out['bound_ms']:.2f}x; this launch's bytes "
+        f"{list_bytes} B, "
         f"bound {listed_bound['bound_ms']:.5f} ms, own "
         f"{ms / listed_bound['bound_ms']:.2f}x")
     return out
@@ -3735,20 +3739,31 @@ def check_bounce_rays(st, timed: bool = True) -> dict:
 def bounce_step_profile(rb: Renderer, params) -> dict:
     """One bounce step of ``rb`` under torch.profiler (after one
     unprofiled step): its bounces, device operations (kernels, fills,
-    copies) and device time, and each bounce kernel's launches and
-    device time in it."""
+    copies) and device time, each bounce kernel's launches and device
+    time in it, and the shade's device time and lanes alive at entry at
+    each bounce."""
     rb.step(params)
     rb.block_until_ready()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        rb.step(params)
-        rb.block_until_ready()
+    served, real = [], bounce.bounce_shade
+
+    def shade_(*args):
+        served.append(len(args[4]) if args[11] is None else args[11])
+        return real(*args)
+
+    bounce.bounce_shade = shade_
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rb.step(params)
+            rb.block_until_ready()
+    finally:
+        bounce.bounce_shade = real
     bounces = rb.last_stats["iterations"]
     device = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     ops = sum(e.count for e in device)
     out = dict(bounces=bounces, operations=ops,
-               operations_a_bounce=ops / bounces,
+               operations_a_bounce=ops / bounces, served_by_bounce=served,
                device_ms=sum(e.device_time_total for e in device) / 1e3)
     for name in ("threaded_walk", *BOUNCE_KERNELS):
         found = [e for e in device if f"{name}_kernel" in e.key]
@@ -3766,7 +3781,8 @@ def bounce_step_profile(rb: Renderer, params) -> dict:
             f"{name} {out[name]['launches']} launches {out[name]['ms']:.4f}"
             f" ms" for name in ("threaded_walk", *BOUNCE_KERNELS)))
     log(f"[bounce] profiled step: the shade's ms by bounce "
-        f"{[round(x, 5) for x in out['shade_ms_by_bounce']]}")
+        f"{[round(x, 5) for x in out['shade_ms_by_bounce']]}, lanes "
+        f"served {served}")
     return out
 
 
@@ -3781,12 +3797,12 @@ def phase_bounce_kernels(rb: Renderer, params, variants: dict) -> dict:
     and spills; the same for the shade and the NEE add of each build in
     ``variants`` (name -> a -D build of csrc/bounce.cu); and one bounce
     step profiled (bounce_step_profile)."""
-    out = dict(build={f"{name}_kernel": (
-        kernel_builds(bounce.LIBRARY, f"{name}_kernel")
-        if name == "bounce_shade" else
-        ptxas_numbers(bounce.LIBRARY.compiler_log, f"{name}_kernel"))
-        for name in BOUNCE_KERNELS}, design=bounce.design())
-    log(f"[bounce_kernels] builds: {out['build']}; design {out['design']}")
+    out = dict(build={k: ptxas_numbers(bounce.LIBRARY.compiler_log, k)
+                      for k in (f"{name}_kernel" for name in
+                                BOUNCE_KERNELS)},
+               dense_share=bounce.dense_share())
+    log(f"[bounce_kernels] builds: {out['build']}; dense share "
+        f"{out['dense_share']}")
     states = bounce_kernel_states(rb, params, WIDTH, HEIGHT)
     bp = states["rays"]["params"]
     labels = ("fresh", "mid", "late")
@@ -3797,11 +3813,12 @@ def phase_bounce_kernels(rb: Renderer, params, variants: dict) -> dict:
     out["rays"] = check_bounce_rays(states["rays"])
     out["variants"] = {}
     for name, lib in variants.items():
-        var = dict(design=bounce.design(lib),
-                   build=kernel_builds(lib, "bounce_shade_kernel"))
+        var = dict(dense_share=bounce.dense_share(lib),
+                   build=ptxas_numbers(lib.compiler_log,
+                                       "bounce_shade_kernel"))
         log(f"[bounce_kernels] variant {name} "
-            f"({' '.join(lib.flags[len(_build.NVCC_FLAGS):])}): design "
-            f"{var['design']}, shade builds {var['build']}")
+            f"({' '.join(lib.flags[len(_build.NVCC_FLAGS):])}): dense share "
+            f"{var['dense_share']}, shade build {var['build']}")
         for label in labels:
             shade_ = check_bounce_shade(f"{label} [{name}]", rb, bp,
                                         states[label], library=lib)
@@ -4124,9 +4141,9 @@ def main() -> int:
               ("bounce_shade", "tryraytrace_tpu/engine/wavefront.py:97; "
                "tryraytrace_tpu/engine/wavefront.py:232",
                bounced["shade"]["fresh"],
-               dict(design=bounced["design"], step=bounced["step"],
+               dict(dense_share=bounced["dense_share"], step=bounced["step"],
                     states={label: {k: x[k] for k in (
-                        *keys, "depth", "entry", "served", "counts",
+                        *keys, "depth", "entry", "served", "listed", "counts",
                         "lanes", "calls", "bound_bytes", "bytes_ms",
                         "fp64_ms", "list_bound_bytes", "list_bound_ms")}
                         for label, x in bounced["shade"].items()},
@@ -4136,8 +4153,8 @@ def main() -> int:
               ("bounce_nee", "tryraytrace_tpu/engine/wavefront.py:232",
                bounced["nee"]["fresh"],
                dict(states={label: {k: x[k] for k in (
-                   *keys, "lit", "served", "bound_bytes", "list_bound_bytes",
-                   "list_bound_ms")}
+                   *keys, "lit", "served", "listed", "bound_bytes",
+                   "list_bound_bytes", "list_bound_ms")}
                    for label, x in bounced["nee"].items()})),
               ("bounce_rays", "tryraytrace_tpu/engine/wavefront.py:45; "
                "tryraytrace_tpu/engine/camera_rays.py:21",

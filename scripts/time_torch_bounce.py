@@ -3,10 +3,12 @@ NEE-add kernels (csrc/bounce.cu), in one process on one card.
 
     python3 scripts/time_torch_bounce.py [--variant NAME=FLAGS ...]
         [--steps 6] [--rounds 2] [--profiled 3] [--out FILE]
+    python3 scripts/time_torch_bounce.py --parent DIR [--rounds 2]
+        [--profiled 3]
 
 Builds this checkout's ``csrc/bounce.cu`` as the port builds it
 ("change") and the same source with extra nvcc flags for each
-``--variant`` (for example ``unstaged=-DTRT_BOUNCE_STAGED=0``), one nvcc
+``--variant`` (for example ``s09=-DTRT_BOUNCE_DENSE_SHARE=0.9``), one nvcc
 each, side by side.  Renders chip_smoke.py's main path (Cornell box +
 icosphere(5), 20,487 triangles, 1200x800 at 1 spp) with
 ``engine="bounce"``, each build swapped in as ``ops/bounce.py
@@ -21,8 +23,21 @@ fresh, mid and late states of frame 1 (chip_smoke.py
 versions, then timed), the builds in order and then in reverse; then
 ``--profiled`` steps a build under torch.profiler: device operations a
 bounce, the shade's and the NEE add's launches and device time over a
-step (medians), the shade's device time at each bounce.  Prints one line a build and a JSON
-summary (also written to ``--out``).  Needs a CUDA device.
+step (medians), the shade's device time at each bounce.  The late
+state is also timed with its live lanes gathered into a dense state of
+their own (``gathered``), the change's kernel over it with no list.
+Prints one line a build and a JSON summary (also written to ``--out``).
+
+``--parent DIR`` instead times the kernels of two trees, ``DIR`` and
+this checkout, in turns (parent, this, this, parent), each in a process
+of its own that imports ``tryraytrace_tpu_torch`` and ``chip_smoke``
+from its tree (``--tree``) and builds that tree's ``csrc/bounce.cu`` as
+its port does: the shade and the NEE add alone on the fresh, mid and
+late states of frame 1 (the tree's own ``bounce_kernel_states``,
+``check_bounce_shade`` and ``check_bounce_nee``, ``--rounds`` times
+each), then ``--profiled`` steps under torch.profiler, the device time
+of each kernel over a step and at each bounce; one JSON line a run and
+a summary line.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,20 +46,113 @@ import argparse
 import json
 import os
 import statistics
+import subprocess
 import sys
 import time
 
-import torch
-
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import chip_smoke  # noqa: E402
-from tryraytrace_tpu_torch.camera.controller import CameraController  # noqa: E402
-from tryraytrace_tpu_torch.config import RenderConfig  # noqa: E402
-from tryraytrace_tpu_torch.engine.renderer import Renderer  # noqa: E402
-from tryraytrace_tpu_torch.ops import _build, bounce  # noqa: E402
-
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LABELS = ("fresh", "mid", "late")
+KERNELS = ("bounce_shade_kernel", "bounce_nee_kernel")
+
+
+def _import(tree: str):
+    """chip_smoke and the port from ``tree`` (checked), and torch."""
+    sys.path.insert(0, tree)
+    global torch, chip_smoke, CameraController, RenderConfig, Renderer
+    global _build, bounce
+    import torch
+
+    import chip_smoke
+    from tryraytrace_tpu_torch.camera.controller import CameraController
+    from tryraytrace_tpu_torch.config import RenderConfig
+    from tryraytrace_tpu_torch.engine.renderer import Renderer
+    from tryraytrace_tpu_torch.ops import _build, bounce
+    for mod in (chip_smoke, bounce):
+        if not mod.__file__.startswith(tree):
+            raise RuntimeError(f"imported {mod.__file__}, not from {tree}")
+
+
+def _step_profile(r, params) -> dict:
+    """One step of ``r`` under torch.profiler: each of KERNELS' launches
+    and device ms over the step, and its device ms at each launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        r.step(params)
+        r.block_until_ready()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    out = {}
+    for name in KERNELS:
+        ms = [e.time_range.elapsed_us() / 1e3 for e in events
+              if name in e.name]
+        out[name] = dict(launches=len(ms), ms=sum(ms), by_launch=ms)
+    return out
+
+
+def _kernels(tree: str, rounds: int, profiled: int) -> int:
+    """The shade and the NEE add of ``tree`` (imported) alone on the
+    three states, then over ``profiled`` steps; one JSON line."""
+    w, h = chip_smoke.WIDTH, chip_smoke.HEIGHT
+    params = CameraController().get_params(w, h)
+    r = Renderer(chip_smoke.main_path_arrays(),
+                 cfg=RenderConfig(width=w, height=h, spp=1, engine="bounce"))
+    states = chip_smoke.bounce_kernel_states(r, params, w, h)
+    bp = states["rays"]["params"]
+    out = {label: dict(shade_ms=[], nee_ms=[]) for label in LABELS}
+    for _ in range(rounds):
+        for label in LABELS:
+            out[label]["shade_ms"].append(chip_smoke.check_bounce_shade(
+                label, r, bp, states[label])["ms"])
+            out[label]["nee_ms"].append(chip_smoke.check_bounce_nee(
+                label, states[label])["ms"])
+    del states
+    r.step(params)
+    r.block_until_ready()
+    profs = [_step_profile(r, params) for _ in range(profiled)]
+    steps = {name: dict(
+        launches=[p[name]["launches"] for p in profs],
+        median_ms=statistics.median(p[name]["ms"] for p in profs),
+        by_launch=profs[0][name]["by_launch"]) for name in KERNELS}
+    print(json.dumps(dict(tree=tree, device=torch.cuda.get_device_name(0),
+                          states=out, steps=steps)))
+    return 0
+
+
+def _in_turns(parent: str, rounds: int, profiled: int) -> int:
+    """``_kernels`` of ``parent`` and of this checkout, parent, this,
+    this, parent, a process each; one summary line."""
+    runs = []
+    for label, tree in (("parent", parent), ("change", HERE),
+                        ("change", HERE), ("parent", parent)):
+        line = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--tree", tree,
+             "--rounds", str(rounds), "--profiled", str(profiled)],
+            capture_output=True, text=True, check=True,
+            timeout=1200).stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        res = json.loads(line)
+        runs.append(dict(label=label, states={
+            k: {f: min(v[f]) for f in v} for k, v in res["states"].items()},
+            steps={k: v["median_ms"] for k, v in res["steps"].items()}))
+    print(json.dumps(dict(device=res["device"], turns=runs)))
+    return 0
+
+
+def gathered(st) -> dict:
+    """A recorded bounce state (chip_smoke.bounce_kernel_states) with its
+    listed lanes gathered, in lane order, into tensors of their own: a
+    dense state of those lanes alone, served with no list."""
+    idx = st["lanes"][:st["n_lanes"]].long().sort().values
+    take = lambda x: x[idx].contiguous()
+    return dict(st, pixels=take(st["pixels"]), t=take(st["t"]),
+                hit_id=take(st["hit_id"]),
+                s={k: take(v) for k, v in st["s"].items()},
+                nee=tuple(take(x) for x in st["nee"]), lanes=None,
+                n_lanes=None)
 
 
 def main() -> int:
@@ -54,10 +162,20 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--profiled", type=int, default=3)
     ap.add_argument("--out")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="time DIR's kernels and this checkout's in turns")
+    ap.add_argument("--tree", help="time this tree's kernels alone")
     args = ap.parse_args()
+    if args.parent:
+        return _in_turns(os.path.abspath(args.parent), args.rounds,
+                         args.profiled)
+    tree = os.path.abspath(args.tree or HERE)
+    _import(tree)
     if not torch.cuda.is_available():
         print("time_torch_bounce: no CUDA device", file=sys.stderr)
         return 2
+    if args.tree:
+        return _kernels(tree, args.rounds, args.profiled)
     builds = {"change": bounce.LIBRARY}
     for spec in args.variant:
         name, flags = spec.split("=", 1)
@@ -75,13 +193,13 @@ def main() -> int:
         r.reset()
         r.step(params)
         sums = r.accum_host().tobytes()
-        out[name] = dict(design=bounce.design(lib),
-                         build=chip_smoke.kernel_builds(
-                             lib, "bounce_shade_kernel"),
+        out[name] = dict(dense_share=bounce.dense_share(lib),
+                         build=chip_smoke.ptxas_numbers(
+                             lib.compiler_log, "bounce_shade_kernel"),
                          same_frame=sums == out.get("change", {}).get(
                              "_sums", sums), _sums=sums, ms=[])
         print(f"[time_bounce] {name}: {list(lib.flags[len(_build.NVCC_FLAGS):])}"
-              f" design {out[name]['design']}, shade builds "
+              f" dense share {out[name]['dense_share']}, shade build "
               f"{out[name]['build']}, frame 1 equal to the change's "
               f"{out[name]['same_frame']}", flush=True)
     order = list(builds)
@@ -117,7 +235,20 @@ def main() -> int:
                            shade_list_bound_ms=shade["list_bound_ms"],
                            nee_bound_ms=nee["bound_ms"],
                            nee_list_bound_ms=nee["list_bound_ms"])
-    del states
+    # The late state's lanes gathered into a dense state of their own
+    # (the same lanes, inputs and arithmetic; no list): the change's
+    # kernel on it, against its time on the wave's scattered lanes.
+    late = gathered(states["late"])
+    for k in range(2):
+        shade = chip_smoke.check_bounce_shade("late gathered", r, bp, late)
+        nee = chip_smoke.check_bounce_nee("late gathered", late)
+        out["change"].setdefault("late_gathered", dict(
+            lanes=len(late["hit_id"]), shade_ms=[], nee_ms=[]))
+        out["change"]["late_gathered"]["shade_ms"].append(shade["ms"])
+        out["change"]["late_gathered"]["nee_ms"].append(nee["ms"])
+    print(f"[time_bounce] change: late state gathered "
+          f"{out['change']['late_gathered']}", flush=True)
+    del states, late
     for name, lib in builds.items():
         bounce.LIBRARY = lib
         profs = [chip_smoke.bounce_step_profile(r, params)

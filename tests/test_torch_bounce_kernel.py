@@ -545,6 +545,31 @@ def test_cuda_bounce_kernels_match_plain(kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(chip_smoke.BOUNCE_VARIANTS))
+def test_cuda_bounce_variants_match_plain(variant):
+    """chip_smoke.BOUNCE_VARIANTS' -D builds (every bounce after 0 over
+    its list; none) by the same checks, so that the mid state's list is
+    held to the plain version too."""
+    _cuda()
+    lib = chip_smoke.bounce_variant_libraries()[variant]
+    with _card_arrays("smooth_uv_lights17") as (arrays, fields):
+        rb = Renderer(arrays, cfg=RenderConfig(
+            width=CARD_W, height=CARD_H, spp=1, engine="bounce", **fields))
+    params = CameraController().get_params(CARD_W, CARD_H)
+    states = chip_smoke.bounce_kernel_states(rb, params, CARD_W, CARD_H)
+    bp = states["rays"]["params"]
+    listed = []
+    for label in ("fresh", "mid", "late"):
+        chip_smoke.check_bounce_shade(label, rb, bp, states[label],
+                                      timed=False, library=lib)
+        chip_smoke.check_bounce_nee(label, states[label], timed=False,
+                                    library=lib)
+        listed.append(chip_smoke._listed(states[label], lib))
+    assert listed == ([False, True, True] if variant == "list_every_bounce"
+                      else [False, False, False])
+
+
+@pytest.mark.cuda
 def test_cuda_bounce_step_launches_and_equals_cpu():
     _cuda()
     cfg = RenderConfig(width=CARD_W, height=CARD_H, spp=2, engine="bounce")

@@ -51,31 +51,42 @@
 // double sqrt, cos, sin and pow calls (11, 13, 13 and 83 FP64
 // instructions each on sm_90a) are the other bound, at the card's FP64
 // rate.  bounce_nee and bounce_rays move a few bytes a lane: a launch
-// costs about its floor.  A late bounce of the main path has under 10%
-// of the 960,000 lanes alive; one thread a lane over the whole wave ran
-// two or three live lanes a warp, each warp paying a whole dependent
-// chain (hit, trimat row, texture metas, texels, FP64 calls) for them:
-// 16x its byte bound (PERF.md).
+// costs about its floor.  On a sparse bounce the live lanes lie scattered
+// over the 960,000-lane wave, so a live lane's every field sits in a
+// 32-byte sector of its own: the main path's late bounce (79,603 live
+// lanes) took 4.7x as long on the wave's lanes as on the same lanes
+// gathered into a dense state of their own (PERF.md).  That is the
+// state's layout, which this kernel does not change; and a bounce with
+// very few lanes costs one lane's dependent chain (list, state, trimat
+// row, texture, FP64 calls, the block's atomic), ~0.01 ms.
 //
 // What the design does about it.
-//   - The live lanes are listed.  The shade sums a warp's lanes alive
-//     after the bounce (a ballot) and adds them with one 64-bit atomicAdd
-//     a warp to the bounce's live count, which starts at 0; the add's old
-//     value is the warp's offset, and each live lane writes its index
-//     (int32) at offset + its rank among the warp's live lanes into the
-//     next list (wave_advance.cu's serve_phase does the same).  The list's
-//     order is the atomics' order, which may change from run to run; it
-//     changes nothing a lane computes: each lane reads and writes only its
-//     own slots, and the counts are integer sums.  So a step's image is
-//     the same bit for bit whatever order its lists came in.
+//   - The live lanes are listed.  A block sums its warps' lanes alive
+//     after the bounce (a ballot a warp, a prefix in shared memory) and
+//     adds them with one 64-bit atomicAdd to the bounce's live count,
+//     which starts at 0; the add's old value is the block's offset, and
+//     each live lane writes its index (int32) at that offset + its rank
+//     among the block's live lanes into the next list (wave_advance.cu's
+//     serve_phase lists a warp at a time).  The list's order is the
+//     atomics' order, which may change from run to run; it changes
+//     nothing a lane computes: each lane reads and writes only its own
+//     slots, and the counts are integer sums.  So a step's image is the
+//     same bit for bit whatever order its lists came in.  The shadow rays
+//     fired are added the same way, one atomic a block: on the fresh
+//     state one atomic a warp for each count took 0.0914 ms against
+//     0.0744 (same-address atomics queue in L2).
 //   - Two launch shapes.  Bounce 0 (no list: bounce_rays left every lane
-//     alive) launches over all n lanes, a block a contiguous tile of 256;
-//     a later bounce launches ceil(count / 256) blocks over the previous
-//     bounce's list, one listed lane a thread, so a late bounce costs its
-//     live lanes, not the wave.  The host already reads the live count
-//     once a bounce to end its loop, so it sizes the grid with no new
-//     read.  The NEE add of a bounce runs over the same lanes as its
-//     shade: geo_ok can hold only on them.
+//     alive), and a bounce whose live lanes are more than
+//     TRT_BOUNCE_DENSE_SHARE of the wave, launch over all n lanes, one
+//     lane a thread in lane order; below that share a bounce launches
+//     ceil(count / 256) blocks over the previous bounce's list, one
+//     listed lane a thread, so a sparse bounce costs its live lanes, not
+//     the wave.  The host already reads the live count once a bounce to
+//     end its loop, so it sizes the grid with no new read.  The NEE add
+//     of a bounce runs over the same lanes as its shade: geo_ok can hold
+//     only on them.  On the main path a list cost 7% at 98-99% of the
+//     lanes alive (one more dependent load a lane) and saved 10% at 70%
+//     and more below, so the share is 0.9 (PERF.md).
 //   - A lane off the list is neither read nor written.  That is sound by
 //     an invariant of the plain version (ops/bounce.py): a lane dead at a
 //     bounce's entry leaves it with rad, tp, prev_spec unchanged and
@@ -83,39 +94,22 @@
 //     branch, whose lanes stay alive.  So geo_ok is written only on the
 //     lanes the shade serves, and a lane that leaves the list keeps the
 //     false geo_ok its last shade wrote.
-//   - On a contiguous tile (TRT_BOUNCE_STAGED) the [N, 3] fields go
-//     through the block's shared tile: o, d, tp and rad are read in, and
-//     every field's span written out, in whole 16-byte pieces
-//     (lane_init.cu's stores), the last tile to exactly its last lane; a
-//     lane that leaves a field unchanged writes back what it read, so,
-//     sd and contrib are 0 where no shadow ray is fired.  A listed lane's
-//     fields are not contiguous: there a thread loads and stores its own.
 //   - Only the branch a lane takes is computed (as the service kernel
-//     does); the state is written in place.  The shadow rays fired are
-//     summed within each warp and added with one 64-bit integer atomic a
-//     warp.  No float atomics.  Launched on the caller's stream;
-//     allocates nothing.
-//   - Compile-time choices, each measured (PERF.md, scripts/
-//     time_torch_bounce.py --variant): TRT_BOUNCE_DENSE_SHARE, a listed
-//     bounce whose count is above this share of n lanes is launched over
-//     all n lanes instead (1: never); TRT_BOUNCE_STAGED, the staged
-//     tile on a contiguous launch (0: a thread stores its own lane);
-//     TRT_BOUNCE_MIN_BLOCKS, the blocks an SM the shade's registers must
-//     allow (0: no bound).
+//     does); the state is written in place.  No float atomics.  Launched
+//     on the caller's stream; allocates nothing.
+//   - Measured and dropped (PERF.md; commit d82af87 builds them with -D
+//     flags): the [N, 3] fields of a contiguous tile staged through
+//     shared memory and stored in whole 16-byte pieces (lane_init.cu's
+//     stores; 72 registers, three blocks an SM: 0.117 ms fresh against
+//     0.091 unstaged, 0.103 at 64 registers with spills), and one atomic
+//     a warp for the counts.
 
 #include "service_device.cuh"
 
+// A bounce whose lanes alive at entry are more than this share of the
+// wave is launched over every lane; at most this share, over its list.
 #ifndef TRT_BOUNCE_DENSE_SHARE
-#define TRT_BOUNCE_DENSE_SHARE 1.0
-#endif
-#ifndef TRT_BOUNCE_STAGED
-#define TRT_BOUNCE_STAGED 1
-#endif
-#ifndef TRT_BOUNCE_MIN_BLOCKS
-#define TRT_BOUNCE_MIN_BLOCKS 0
-#endif
-#ifndef TRT_BOUNCE_BLOCK_COUNTS
-#define TRT_BOUNCE_BLOCK_COUNTS 0
+#define TRT_BOUNCE_DENSE_SHARE 0.9
 #endif
 
 namespace trt_bounce {
@@ -123,18 +117,11 @@ namespace trt_bounce {
 using namespace trt_service;
 
 constexpr int kBlock = 256;
+constexpr int kWarps = kBlock / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMetaCols = 3;  // texel offset, w, h
 constexpr long long kMaxLanes = 0x7fffffffLL;
 constexpr double kDenseShare = TRT_BOUNCE_DENSE_SHARE;
-constexpr bool kStaged = TRT_BOUNCE_STAGED != 0;
-constexpr int kMinBlocks = TRT_BOUNCE_MIN_BLOCKS;
-constexpr bool kBlockCounts = TRT_BOUNCE_BLOCK_COUNTS != 0;
-#if TRT_BOUNCE_MIN_BLOCKS > 0
-#define TRT_BOUNCE_BOUNDS __launch_bounds__(kBlock, TRT_BOUNCE_MIN_BLOCKS)
-#else
-#define TRT_BOUNCE_BOUNDS __launch_bounds__(kBlock)
-#endif
 
 // bounce_shade's pointers, in the order of ops/bounce.py SHADE_POINTERS.
 enum ShadePtr {
@@ -145,11 +132,6 @@ enum ShadePtr {
 };
 // The counts a shade adds to (ops/bounce.py COUNTS).
 enum Count { kFired = 0, kLiveAfter = 1 };
-// A lane's [N, 3] fields: the four read in, then the three a shadow
-// ray writes.
-enum Field { kFo = 0, kFd, kFtp, kFrad, kFso, kFsd, kFcontrib, kNumFields };
-constexpr int kReadFields = kFso;
-
 struct Shade {
   const float* trimat;        // [rows, 37]
   const float* texels;        // every texture, [h, w, 3] one after another
@@ -158,11 +140,17 @@ struct Shade {
   const long long* pix;
   const float* t;
   const long long* hit;
-  float* field[kNumFields];   // Field order; the NEE ones null without lights
+  float* o;
+  float* d;
+  float* tp;
+  float* rad;
   unsigned char* alive;
   unsigned char* prev_spec;
-  unsigned char* geo_ok;      // null without lights
+  unsigned char* geo_ok;      // the NEE fields: null without lights
+  float* so;
+  float* sd;
   float* smax;
+  float* contrib;
   unsigned long long* counts;  // Count
   const int* lanes;           // the lanes to serve; null: lanes [0, count)
   int* next;                  // the lanes alive after; null: not listed
@@ -170,32 +158,6 @@ struct Shade {
   long long n;
   long long depth;
   unsigned seed;
-};
-
-// A lane's [N, 3] fields in device memory (one thread a lane).
-struct Direct {
-  const Shade& b;
-  long long i;
-  __device__ __forceinline__ V3 get(int k) const {
-    return load3(b.field[k], i);
-  }
-  __device__ __forceinline__ void set(int k, V3 v) const {
-    store3(b.field[k], i, v);
-  }
-};
-
-// A lane's [N, 3] fields in the block's shared tile, slot t.
-struct Staged {
-  float (*tile)[3 * kBlock];
-  int t;
-  __device__ __forceinline__ V3 get(int k) const {
-    return row3(tile[k], 3 * t);
-  }
-  __device__ __forceinline__ void set(int k, V3 v) const {
-    tile[k][3 * t] = v.x;
-    tile[k][3 * t + 1] = v.y;
-    tile[k][3 * t + 2] = v.z;
-  }
 };
 
 // ops/texture.py sample_bilinear_wrap for texture `tid` at (u, v).
@@ -224,13 +186,11 @@ __device__ __forceinline__ V3 texel(const Shade& b, long long tid, float u,
   return add(scale(top, 1.0f - fy), scale(bot, fy));
 }
 
-// One lane's shade (ops/bounce.py bounce_shade_plain), its [N, 3] fields
-// through `io`.  Returns whether the lane is alive after the bounce; sets
-// *fire where it fired a shadow ray.
-template <class Io>
+// One lane's shade (ops/bounce.py bounce_shade_plain).  Returns whether
+// the lane is alive after the bounce; sets *fire where it fired a shadow
+// ray.
 __device__ __forceinline__ bool shade_lane(const Params& p, const Shade& b,
-                                           long long i, const Io& io,
-                                           int* fire) {
+                                           long long i, int* fire) {
   if (b.geo_ok != nullptr) b.geo_ok[i] = 0;
   if (!b.alive[i]) return false;
   const long long hit = b.hit[i];
@@ -240,8 +200,8 @@ __device__ __forceinline__ bool shade_lane(const Params& p, const Shade& b,
   }
   const float two_pi = p.f[kTwoPi];
   const float* row = b.trimat + hit * kTrimatRow;
-  const V3 d = io.get(kFd);
-  const V3 x_hit = add(io.get(kFo), scale(d, b.t[i]));
+  const V3 d = load3(b.d, i);
+  const V3 x_hit = add(load3(b.o, i), scale(d, b.t[i]));
 
   // ops/shade.py surface: the face normal and its flip, the UVs and the
   // texture, the smooth normal.
@@ -301,13 +261,13 @@ __device__ __forceinline__ bool shade_lane(const Params& p, const Shade& b,
   float u[7];
 #pragma unroll
   for (int k = 0; k < 7; ++k) u[k] = uniform(b.seed, stream, base + k);
-  V3 tp = io.get(kFtp);
-  V3 rad = io.get(kFrad);
+  V3 tp = load3(b.tp, i);
+  V3 rad = load3(b.rad, i);
   const bool prev_spec = b.prev_spec[i] != 0;
   rad = v3(rad.x + (prev_spec ? tp.x * emission.x : 0.0f),
            rad.y + (prev_spec ? tp.y * emission.y : 0.0f),
            rad.z + (prev_spec ? tp.z * emission.z : 0.0f));
-  io.set(kFrad, rad);
+  store3(b.rad, i, rad);
   const float thr = p.f[kEmitterStop];
   bool alive = !(emission.x > thr || emission.y > thr || emission.z > thr);
 
@@ -404,10 +364,10 @@ __device__ __forceinline__ bool shade_lane(const Params& p, const Shade& b,
         const V3 brdf = scale(albedo, p.f[kInvPi]);
         const V3 contrib = scale(mul(row3(lrow, 12), brdf), gp);
         b.geo_ok[i] = 1;
-        io.set(kFso, o_off);
-        io.set(kFsd, l_dir);
+        store3(b.so, i, o_off);
+        store3(b.sd, i, l_dir);
         b.smax[i] = dist - p.f[kShadowMaxDistEps];
-        io.set(kFcontrib, mul(tp, contrib));
+        store3(b.contrib, i, mul(tp, contrib));
         *fire = 1;
       }
     }
@@ -416,66 +376,52 @@ __device__ __forceinline__ bool shade_lane(const Params& p, const Shade& b,
     new_tp = scale(mul(tp, scale(albedo, 1.0f - metallic)), 1.0f / p_diff);
     new_prev = false;
   }
-  io.set(kFo, new_o);
-  io.set(kFd, new_d);
-  io.set(kFtp, new_tp);
+  store3(b.o, i, new_o);
+  store3(b.d, i, new_d);
+  store3(b.tp, i, new_tp);
   b.prev_spec[i] = new_prev ? 1 : 0;
   b.alive[i] = new_alive ? 1 : 0;
   return new_alive;
 }
 
-// The counts and the next list: lane i (any value where !live) alive
-// after the bounce takes the slot of its rank among the live lanes of its
-// warp, past the warp's offset.  With kBlockCounts a block adds its
-// warps' counts with one atomicAdd each (the live count's old value is
-// the block's offset, the warps' offsets its prefix sums); else each warp
-// adds its own.  Called by every thread of the block.
+// The counts and the next list.  A block adds its warps' lanes alive
+// after the bounce with one atomicAdd to the live count (whose old value
+// is the block's offset) and its shadow rays with one more; lane i (any
+// value where !live) alive after takes the slot of its rank among the
+// block's live lanes, warp by warp.  Called by every thread of the block.
 __device__ __forceinline__ void count_and_list(const Shade& b, long long i,
                                                bool live, int fire) {
+  __shared__ unsigned long long warp_at[kWarps];
+  __shared__ int warp_fire[kWarps];
   const int lane = static_cast<int>(threadIdx.x & 31);
+  const int w = static_cast<int>(threadIdx.x >> 5);
   const unsigned keep = __ballot_sync(kFull, live);
   fire = __reduce_add_sync(kFull, fire);
-  unsigned long long at = 0;
-  if constexpr (kBlockCounts) {
-    constexpr int kWarps = kBlock / 32;
-    __shared__ unsigned long long warp_at[kWarps];
-    __shared__ int warp_fire[kWarps];
-    const int w = static_cast<int>(threadIdx.x >> 5);
-    if (lane == 0) {
-      warp_at[w] = __popc(keep);
-      warp_fire[w] = fire;
+  if (lane == 0) {
+    warp_at[w] = __popc(keep);
+    warp_fire[w] = fire;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long total = 0;
+    int fired = 0;
+    for (int k = 0; k < kWarps; ++k) {
+      const unsigned long long c = warp_at[k];
+      warp_at[k] = total;
+      total += c;
+      fired += warp_fire[k];
     }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      unsigned long long total = 0;
-      int fired = 0;
-      for (int k = 0; k < kWarps; ++k) {
-        const unsigned long long c = warp_at[k];
-        warp_at[k] = total;
-        total += c;
-        fired += warp_fire[k];
-      }
-      const unsigned long long base =
-          total ? atomicAdd(b.counts + kLiveAfter, total) : 0ull;
-      for (int k = 0; k < kWarps; ++k) warp_at[k] += base;
-      if (fired) {
-        atomicAdd(b.counts + kFired, static_cast<unsigned long long>(fired));
-      }
-    }
-    __syncthreads();
-    at = warp_at[w];
-  } else {
-    if (keep && lane == 0) {
-      at = atomicAdd(b.counts + kLiveAfter,
-                     static_cast<unsigned long long>(__popc(keep)));
-    }
-    at = __shfl_sync(kFull, at, 0);
-    if (lane == 0 && fire) {
-      atomicAdd(b.counts + kFired, static_cast<unsigned long long>(fire));
+    const unsigned long long base =
+        total ? atomicAdd(b.counts + kLiveAfter, total) : 0ull;
+    for (int k = 0; k < kWarps; ++k) warp_at[k] += base;
+    if (fired) {
+      atomicAdd(b.counts + kFired, static_cast<unsigned long long>(fired));
     }
   }
+  __syncthreads();
   const unsigned long long slot =
-      at + static_cast<unsigned long long>(__popc(keep & ((1u << lane) - 1u)));
+      warp_at[w] +
+      static_cast<unsigned long long>(__popc(keep & ((1u << lane) - 1u)));
   // A slot past n only if the live count did not start at 0: unlisted.
   if (live && b.next != nullptr &&
       slot < static_cast<unsigned long long>(b.n)) {
@@ -483,86 +429,19 @@ __device__ __forceinline__ void count_and_list(const Shade& b, long long i,
   }
 }
 
-// Copy the span of one [N, 3] field `dev` of the tile's `lanes` lanes
-// from lane0 between device memory and its shared row `sh`, in whole
-// 16-byte pieces and then the span's last floats.  Called by every thread
-// of the block.
-template <bool kIn>
-__device__ __forceinline__ void copy_span(float* dev, float* sh,
-                                          long long lane0, int lanes) {
-  float* const span = dev + 3 * lane0;
-  const int count = 3 * lanes;
-  const int whole = count / 4;
-  const int t = static_cast<int>(threadIdx.x);
-  float4* const dev4 = reinterpret_cast<float4*>(span);
-  float4* const sh4 = reinterpret_cast<float4*>(sh);
-  for (int c = t; c < whole; c += kBlock) {
-    if (kIn) {
-      sh4[c] = dev4[c];
-    } else {
-      dev4[c] = sh4[c];
-    }
+// The shade of one lane a thread: lane j of the list, or lane j.
+__global__ void __launch_bounds__(kBlock)
+    bounce_shade_kernel(const Params p, const Shade b) {
+  const long long j =
+      static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
+  long long i = -1;
+  bool live = false;
+  int fire = 0;
+  if (j < b.count) {
+    i = b.lanes != nullptr ? b.lanes[j] : j;
+    live = shade_lane(p, b, i, &fire);
   }
-  const int rest = 4 * whole + t;
-  if (rest < count) {
-    if (kIn) {
-      sh[rest] = span[rest];
-    } else {
-      span[rest] = sh[rest];
-    }
-  }
-}
-
-// The shade: kTile, a contiguous tile of 256 lanes a block, its [N, 3]
-// fields staged in shared memory; else one lane a thread, lane j of the
-// list (or lane j).
-template <bool kTile>
-__global__ void TRT_BOUNCE_BOUNDS bounce_shade_kernel(const Params p,
-                                                      const Shade b) {
-  if constexpr (kTile) {
-    __shared__ __align__(16) float tile[kNumFields][3 * kBlock];
-    const long long lane0 = static_cast<long long>(blockIdx.x) * kBlock;
-    const int lanes = static_cast<int>(
-        b.n - lane0 < kBlock ? b.n - lane0 : static_cast<long long>(kBlock));
-    const int t = static_cast<int>(threadIdx.x);
-    const bool lights = b.geo_ok != nullptr;
-#pragma unroll
-    for (int k = 0; k < kReadFields; ++k) {
-      copy_span<true>(b.field[k], tile[k], lane0, lanes);
-    }
-    if (lights) {
-#pragma unroll
-      for (int k = kReadFields; k < kNumFields; ++k) {
-        tile[k][3 * t] = 0.0f;
-        tile[k][3 * t + 1] = 0.0f;
-        tile[k][3 * t + 2] = 0.0f;
-      }
-    }
-    __syncthreads();
-    const long long i = lane0 + t;
-    int fire = 0;
-    const bool live =
-        t < lanes && shade_lane(p, b, i, Staged{tile, t}, &fire);
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kNumFields; ++k) {
-      if (k < kReadFields || lights) {
-        copy_span<false>(b.field[k], tile[k], lane0, lanes);
-      }
-    }
-    count_and_list(b, i, live, fire);
-  } else {
-    const long long j =
-        static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
-    long long i = -1;
-    bool live = false;
-    int fire = 0;
-    if (j < b.count) {
-      i = b.lanes != nullptr ? b.lanes[j] : j;
-      live = shade_lane(p, b, i, Direct{b, i}, &fire);
-    }
-    count_and_list(b, i, live, fire);
-  }
+  count_and_list(b, i, live, fire);
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -630,16 +509,12 @@ bool lanes_ok(const int* lanes, long long count, long long n) {
 
 // The sizes of the arrays the launches read, for the caller to check
 // against its own (floats, ints, bounce_shade's pointers), then the
-// build's compile-time choices: the dense share in thousandths, the
-// staged tile, the blocks an SM, the counts added a block at a time.
+// build's dense share (TRT_BOUNCE_DENSE_SHARE) in thousandths.
 extern "C" int trt_bounce_layout(int* out) {
   out[0] = trt_service::kNumFloats;
   out[1] = trt_service::kNumInts;
   out[2] = trt_bounce::kNumShadePtrs;
   out[3] = static_cast<int>(trt_bounce::kDenseShare * 1000.0 + 0.5);
-  out[4] = trt_bounce::kStaged ? 1 : 0;
-  out[5] = trt_bounce::kMinBlocks;
-  out[6] = trt_bounce::kBlockCounts ? 1 : 0;
   return 0;
 }
 
@@ -713,33 +588,27 @@ extern "C" int trt_bounce_shade_launch(const float* floats,
   b.pix = static_cast<const long long*>(ptrs[kPtrPix]);
   b.t = static_cast<const float*>(ptrs[kPtrT]);
   b.hit = static_cast<const long long*>(ptrs[kPtrHit]);
-  b.field[kFo] = static_cast<float*>(ptrs[kPtrO]);
-  b.field[kFd] = static_cast<float*>(ptrs[kPtrD]);
-  b.field[kFtp] = static_cast<float*>(ptrs[kPtrTp]);
-  b.field[kFrad] = static_cast<float*>(ptrs[kPtrRad]);
+  b.o = static_cast<float*>(ptrs[kPtrO]);
+  b.d = static_cast<float*>(ptrs[kPtrD]);
+  b.tp = static_cast<float*>(ptrs[kPtrTp]);
+  b.rad = static_cast<float*>(ptrs[kPtrRad]);
   b.alive = static_cast<unsigned char*>(ptrs[kPtrAlive]);
   b.prev_spec = static_cast<unsigned char*>(ptrs[kPtrPrevSpec]);
   b.geo_ok = lights ? static_cast<unsigned char*>(ptrs[kPtrGeoOk]) : nullptr;
-  b.field[kFso] = lights ? static_cast<float*>(ptrs[kPtrSo]) : nullptr;
-  b.field[kFsd] = lights ? static_cast<float*>(ptrs[kPtrSd]) : nullptr;
-  b.smax = lights ? static_cast<float*>(ptrs[kPtrSmax]) : nullptr;
-  b.field[kFcontrib] =
-      lights ? static_cast<float*>(ptrs[kPtrContrib]) : nullptr;
+  b.so = static_cast<float*>(ptrs[kPtrSo]);
+  b.sd = static_cast<float*>(ptrs[kPtrSd]);
+  b.smax = static_cast<float*>(ptrs[kPtrSmax]);
+  b.contrib = static_cast<float*>(ptrs[kPtrContrib]);
   b.counts = static_cast<unsigned long long*>(ptrs[kPtrCounts]);
   b.next = next;
   b.n = n;
   b.depth = depth;
   b.seed = static_cast<unsigned>(seed);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (listed(lanes, count, n)) {
-    b.lanes = lanes;
-    b.count = count;
-    bounce_shade_kernel<false><<<blocks(count), kBlock, 0, s>>>(p, b);
-  } else {
-    b.lanes = nullptr;
-    b.count = n;
-    bounce_shade_kernel<kStaged><<<blocks(n), kBlock, 0, s>>>(p, b);
-  }
+  const bool list = listed(lanes, count, n);
+  b.lanes = list ? lanes : nullptr;
+  b.count = list ? count : n;
+  bounce_shade_kernel<<<blocks(b.count), kBlock, 0,
+                        static_cast<cudaStream_t>(stream)>>>(p, b);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,9 +17,10 @@ add are ops/bounce.py's ``bounce_rays``, ``bounce_shade`` and
 plain version (eager PyTorch) on the CPU, so a bounce on a card is four
 launches (and the walks' counter fills), and the loop reads one number
 a bounce: the live count the shade leaves on the device.  On a card the
-shade lists the lanes it leaves alive, and the next bounce's shade and
-NEE add serve only that list (a grid sized by the count just read), so
-a late bounce's kernels cost its live lanes; the walks still run over
+shade lists the lanes it leaves alive, and once they are at most
+``bounce.dense_share()`` of the wave the next bounce's shade and NEE
+add serve only that list (a grid sized by the count just read), so a
+late bounce's kernels cost its live lanes; the walks still run over
 the whole wave, dead lanes masked.
 ``engine_tables`` builds the walk-order copy and the ``BounceTables``
 (the textures in one buffer, which are sampled as they are, not as the

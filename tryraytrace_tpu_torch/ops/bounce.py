@@ -43,33 +43,39 @@ replace its entries.  What the kernels write, by lane:
   - ``bounce_nee`` adds contrib to rad where geo_ok holds and the shadow
     ray is not occluded.
 
-The lists of live lanes.  On a card a bounce serves only the lanes alive
-at its entry: bounce 0 every lane (``bounce_rays`` left them all alive),
-a later bounce the list the shade of the bounce before wrote, one thread
-a listed lane, in a grid sized by its count (the live count the engine's
-loop reads anyway).  The shade lists the lanes alive after it (one
-atomic add a warp on the live count gives the warp's offset), so the
-lists' order is the atomics' and may change from run to run; no lane
-reads another's slots and the counts are integer sums, so the results
-do not depend on it.  The NEE add runs over the lanes its bounce's shade
-served.  The plain versions run over every lane and read no list.
+The lists of live lanes.  On a card the shade lists the lanes alive
+after it (``next_lanes``): a block's one atomic add on the live count,
+which starts at 0, gives the block's offset, and each live lane writes
+its index at that offset plus its rank in the block.  So a list's order
+is the atomics' and may change from run to run; no lane reads another's
+slots and the counts are integer sums, so the results do not depend on
+it.  The engine hands bounce k > 0 the list of bounce k - 1 with its
+count (the live count its loop reads anyway).  The kernel then has two
+launch shapes (csrc/bounce.cu): over the list, one listed lane a thread
+in a grid sized by the count, where the count is at most
+``dense_share()`` of the wave (0.9); over every lane in lane order at
+bounce 0 (no list: ``bounce_rays`` left every lane alive) and above
+that share, where a dead lane returns at its flag.  The NEE add takes
+the same list and count and decides alike, so it runs over the lanes
+its bounce's shade served, the only ones where geo_ok can hold.  The
+plain versions run over every lane and read no list.
 
 Why a lane off the list may be left alone: the invariant of the plain
 version that a lane dead at a bounce's entry leaves it with rad, tp and
 prev_spec bit-equal to their inputs and alive and geo_ok false (geo_ok
 is set only on the diffuse branch, whose lanes stay alive, so a lane
 that dies leaves with geo_ok false; its o, d and the other NEE fields
-are not compared).  tests/test_torch_bounce_kernel.py holds the plain
-path to it on every bounce of two small frames.
+are not compared).  So the kernel writes geo_ok only on the lanes it
+serves, and a lane off the list keeps the false geo_ok its last shade
+wrote.  tests/test_torch_bounce_kernel.py holds the plain path to the
+invariant on every bounce of two small frames.
 
-The kernel's two launch shapes (csrc/bounce.cu): over a list, one lane
-a thread; over every lane (bounce 0), a block a contiguous tile of 256
-lanes whose [N, 3] fields pass through shared memory and are stored in
-whole 16-byte pieces, where a lane that keeps a field writes back what
-it read and so, sd and contrib are 0 where no shadow ray is fired (not
-compared).  Its compile-time choices (``design``) were measured against
-the dropped ones (PERF.md): a dense bounce on the contiguous launch,
-and a thread storing its own lane there.
+Measured and dropped (PERF.md, PR 19): the [N, 3] fields of a
+contiguous launch staged through shared memory and stored in whole
+16-byte pieces (72 registers, slower than a thread storing its own
+lane), one atomic a warp for the counts (slower than one a block), the
+list on every bounce after 0 (a list read costs more than it saves
+above 90% of the lanes alive) and no list at all.
 
 Signed zeros: the eager blocks add ``+ 0.0`` to every lane's rad, the
 kernels only to the lanes they serve; rad starts at +0.0 and a sum of
@@ -346,12 +352,10 @@ def _host(params: BounceParams):
 
 
 _checked = set()  # libraries whose parameter layout matched the wrapper's
-# The design entries trt_bounce_layout gives after the layout.
-DESIGN = ("dense_share", "staged", "min_blocks", "block_counts")
 
 
 def _layout(lib) -> tuple:
-    layout = (ctypes.c_int * (3 + len(DESIGN)))()
+    layout = (ctypes.c_int * 4)()
     lib.trt_bounce_layout(ctypes.addressof(layout))
     return tuple(layout)
 
@@ -371,15 +375,11 @@ def _load(library=None):
     return lib
 
 
-def design(library=None) -> dict:
-    """The compile-time choices of a build of csrc/bounce.cu: the live
-    share above which a listed bounce runs over every lane (1: never), the
-    staged tile on a contiguous launch, the blocks an SM the shade's
-    registers must allow (0: no bound), the counts and the list's offsets
-    added one atomic a block (else one a warp)."""
-    layout = _layout(_load(library))[3:]
-    return dict(dense_share=layout[0] / 1000, staged=bool(layout[1]),
-                min_blocks=layout[2], block_counts=bool(layout[3]))
+def dense_share(library=None) -> float:
+    """A build's TRT_BOUNCE_DENSE_SHARE: a bounce whose listed lanes are
+    more than this share of the wave is launched over every lane (0:
+    never listed; 1: always)."""
+    return _layout(_load(library))[3] / 1000
 
 
 def _launch(dev, name: str, fn, *args) -> None:
