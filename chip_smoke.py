@@ -158,7 +158,10 @@ CUDA device it
 exits non-zero and prints no result.
 
 A kernel's ``ms`` is its own device time per launch (torch.profiler's
-durations of the kernel itself), ``wrapper_ms`` the time per call of
+durations of the kernel itself; a profiler that records no CUDA
+operation at all in a process fails the timing, and the whole script
+runs once more in a fresh process, where it must record),
+``wrapper_ms`` the time per call of
 its Python wrapper with everything the wrapper does around the launch
 (CUDA events around a run of calls).  ``bound_ms`` is the least time
 the card could take: the larger of the bytes its outputs depend on
@@ -317,8 +320,10 @@ ATOL_SP = 1e-4
 TWO_PROCESS_TIMEOUT_S = 300
 
 # Profiler sessions _kernel_ms runs before it gives up on a kernel whose
-# launches the profiler recorded none of.
+# launches the profiler recorded none of; the argument of the one run
+# again in a fresh process after a profiler that recorded nothing.
 PROFILE_TRIES = 3
+PROFILER_RETRY = "--profiler-retry"
 
 # NVIDIA's published H100 SXM figures: device-memory rate, and float32
 # and float64 rates outside the tensor cores.
@@ -544,6 +549,10 @@ def _time_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
+class ProfilerBlind(AssertionError):
+    """torch.profiler recorded no CUDA operation in a process."""
+
+
 def _kernel_ms(fn, kernel: str, reps: int = 20) -> float:
     """The kernel's own device time per launch: ``fn`` (a wrapper call
     that launches it once) ``reps`` times under torch.profiler, and the
@@ -553,11 +562,11 @@ def _kernel_ms(fn, kernel: str, reps: int = 20) -> float:
     miss a launch's record (it did on an H100, 6 of 10 kept once), so
     the mean is over the records it kept; a session that kept none of
     them (once on an H100, for the walk after two earlier sessions) is
-    run again, at most PROFILE_TRIES times in all; if the last recorded
-    no CUDA operation at all, the calls are timed with CUDA events
-    instead (``_time_ms``, which counts their copies too), and a line
-    says so.  More records than launches means the name matched another
-    kernel."""
+    run again, at most PROFILE_TRIES times in all.  If none of them
+    recorded any CUDA operation (once on an H100, for the walk: the
+    profiler then stayed blind for the rest of the process), raises
+    ProfilerBlind, and the script runs again in a fresh process.  More
+    records than launches means the name matched another kernel."""
     fn()
     torch.cuda.synchronize()
     for _ in range(PROFILE_TRIES):
@@ -573,14 +582,9 @@ def _kernel_ms(fn, kernel: str, reps: int = 20) -> float:
             break
     if not any(e.device_type == DeviceType.CUDA
                for e in prof.key_averages()):
-        # The profiler recorded no device operation at all (seen once on
-        # an H100 in a late session): CUDA events around the calls.
-        ms = _time_ms(fn, reps)
-        log(f"[profile] torch.profiler recorded no CUDA operation in "
-            f"{PROFILE_TRIES} sessions; {kernel!r} timed with CUDA events "
-            f"around its calls instead, their other device work included: "
-            f"{ms:.5f} ms")
-        return ms
+        raise ProfilerBlind(f"torch.profiler recorded no CUDA operation in "
+                            f"{PROFILE_TRIES} sessions of {reps} calls that "
+                            f"launch {kernel!r}")
     if not 0 < count <= reps:
         seen = sorted({e.key for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA})
@@ -3507,10 +3511,16 @@ def _shade_call(rb: Renderer, params, st, s, lanes, counts, nxt,
         None if lanes is None else st["n_lanes"], nxt, library=library)
 
 
-def _listed(st, library) -> bool:
-    """Whether a build launches over the recorded state's list."""
-    return st["lanes"] is not None and st["n_lanes"] <= (
-        bounce.dense_share(library) * len(st["hit_id"]))
+def _listed(n: int, count, library=None) -> bool:
+    """Whether a build launches over a list of ``count`` of ``n`` lanes
+    (None: no list) and not over all n: csrc/bounce.cu's rule, a list of
+    at most the build's dense share of the wave."""
+    return count is not None and count <= bounce.dense_share(library) * n
+
+
+def _served(n: int, count, library=None) -> int:
+    """The lanes such a launch runs over: the list's, or all n."""
+    return count if _listed(n, count, library) else n
 
 
 def check_bounce_shade(label: str, rb: Renderer, params, st,
@@ -3551,7 +3561,8 @@ def check_bounce_shade(label: str, rb: Renderer, params, st,
     bad = shade_contract(got, want)
     err = _max_err(got, want, ["rad", "tp"])
     entry = int(st["s"]["alive"].sum())
-    served = n if st["lanes"] is None else st["n_lanes"]
+    count = None if st["lanes"] is None else st["n_lanes"]
+    listed, served = _listed(n, count, library), _served(n, count, library)
     off = _off_list(st)
     ok = (not bad and counts.tolist() == [int(fired), int(live)]
           and next_ok(nxt) and not bool((st["s"]["alive"] & off).any()))
@@ -3564,18 +3575,18 @@ def check_bounce_shade(label: str, rb: Renderer, params, st,
         before = _copy(poisoned)
         counts2, nxt2 = zeros(), torch.full_like(nxt, -1)
         got2 = _shade_call(rb, params, st, poisoned,
-                           _shuffled(st["lanes"], served), counts2, nxt2,
+                           _shuffled(st["lanes"], count), counts2, nxt2,
                            library)
         shuffled = dict(fields=shade_contract(got2, want),
                         counts=counts2.tolist(), next_ok=next_ok(nxt2),
                         touched=(_untouched(got2, before, off)
-                                 if _listed(st, library) else []))
+                                 if listed else []))
         ok = (ok and not shuffled["fields"] and shuffled["next_ok"]
               and shuffled["counts"] == counts.tolist()
               and not shuffled["touched"])
     log(f"[bounce_kernels] shade {label} (bounce {st['depth']}): {entry} of "
         f"{n} lanes alive at entry, {served} served (over the list "
-        f"{_listed(st, library)}); counts (shadow, live) "
+        f"{listed}); counts (shadow, live) "
         f"kernel {counts.tolist()} plain {[int(fired), int(live)]}; fields "
         f"differing {bad}, max abs err {err!r}; next list equal to the "
         f"lanes alive after {next_ok(nxt)}; shuffled list: fields "
@@ -3587,8 +3598,7 @@ def check_bounce_shade(label: str, rb: Renderer, params, st,
                              f"version on the {label} state: {bad}, "
                              f"{shuffled}")
     out = dict(max_abs_err=err, depth=st["depth"], entry=entry,
-               served=served, listed=_listed(st, library),
-               counts=counts.tolist())
+               served=served, listed=listed, counts=counts.tolist())
     if not timed:
         return out
     work = shade_work(scene, tables, rb.cfg, st, want)
@@ -3596,7 +3606,7 @@ def check_bounce_shade(label: str, rb: Renderer, params, st,
     # and over a list its entries, less the flags of the lanes off it.
     flags = 2 if "geo_ok" in want else 1
     list_bytes = work["n_bytes"] + 4 * int(live) + (
-        4 * served - flags * (n - served) if _listed(st, library) else 0)
+        4 * served - flags * (n - served) if listed else 0)
     calls = [(_copy(st["s"]), zeros()) for _ in range(6)]
     copies = iter(calls)
 
@@ -3644,8 +3654,9 @@ def check_bounce_nee(label: str, st, timed: bool = True,
     list, the flags and the list entry (6 B) of the listed lanes only."""
     rad, geo_ok, contrib, occluded = st["nee"]
     lanes = st["lanes"]
-    served = len(geo_ok) if lanes is None else st["n_lanes"]
-    n_lanes = None if lanes is None else served
+    n_lanes = None if lanes is None else st["n_lanes"]
+    listed = _listed(len(geo_ok), n_lanes, library)
+    served = _served(len(geo_ok), n_lanes, library)
     state = lambda: dict(rad=rad.clone(), geo_ok=geo_ok, contrib=contrib)
     run = lambda s, ls=lanes: bounce.bounce_nee_cuda(s, occluded, ls,
                                                      n_lanes, library)
@@ -3658,22 +3669,21 @@ def check_bounce_nee(label: str, st, timed: bool = True,
     lit = int((geo_ok & ~occluded).sum())
     same = _same_bits(got, want)
     shuffled = (True if lanes is None else
-                _same_bits(run(state(), _shuffled(lanes, served))["rad"],
+                _same_bits(run(state(), _shuffled(lanes, n_lanes))["rad"],
                            want))
     err = _max_err(dict(r=got), dict(r=want), ["r"])
     log(f"[bounce_kernels] nee {label}: {int(geo_ok.sum())} shadow rays, "
         f"{lit} lit, {served} lanes served (over the list "
-        f"{_listed(st, library)}); rad equal {same}, with the "
+        f"{listed}); rad equal {same}, with the "
         f"list shuffled {shuffled}; max abs err {err!r}")
     if not same or not shuffled:
         raise AssertionError(f"bounce_nee kernel disagrees with its plain "
                              f"version on the {label} state")
-    out = dict(max_abs_err=err, lit=lit, served=served,
-               listed=_listed(st, library))
+    out = dict(max_abs_err=err, lit=lit, served=served, listed=listed)
     if not timed:
         return out
     n_bytes = 2 * geo_ok.numel() + 36 * lit
-    list_bytes = 6 * served + 36 * lit if _listed(st, library) else n_bytes
+    list_bytes = 6 * served + 36 * lit if listed else n_bytes
     copies = iter([state() for _ in range(6)])
     wrapper_ms = _time_ms(lambda: run(next(copies)), reps=5)
     ms = _kernel_ms(lambda: run(state()), "bounce_nee_kernel", reps=10)
@@ -3747,7 +3757,7 @@ def bounce_step_profile(rb: Renderer, params) -> dict:
     served, real = [], bounce.bounce_shade
 
     def shade_(*args):
-        served.append(len(args[4]) if args[11] is None else args[11])
+        served.append(_served(len(args[4]), args[11]))
         return real(*args)
 
     bounce.bounce_shade = shade_
@@ -4167,4 +4177,15 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except ProfilerBlind as e:
+        if PROFILER_RETRY in sys.argv:
+            raise
+        # Every check so far passed; the times need a profiler that
+        # records, so the whole run starts again in a fresh process (the
+        # kernels' builds are reused), once.
+        log(f"[profile] {e}; running again in a fresh process")
+        sys.stderr.flush()
+        os.execv(sys.executable, [sys.executable, os.path.abspath(__file__),
+                                  PROFILER_RETRY])

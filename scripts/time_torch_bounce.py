@@ -1,43 +1,35 @@
-"""Bounce steps of the PyTorch port with several builds of its shade and
-NEE-add kernels (csrc/bounce.cu), in one process on one card.
+"""The PyTorch port's bounce shade and NEE add (csrc/bounce.cu) alone on
+the fresh, mid and late states of a bounce frame, on one card.
 
-    python3 scripts/time_torch_bounce.py [--variant NAME=FLAGS ...]
-        [--steps 6] [--rounds 2] [--profiled 3] [--out FILE]
+    python3 scripts/time_torch_bounce.py [--define NAME=MACRO[,MACRO...]]
+        [--rounds 2] [--out FILE]
     python3 scripts/time_torch_bounce.py --parent DIR [--rounds 2]
-        [--profiled 3]
 
-Builds this checkout's ``csrc/bounce.cu`` as the port builds it
-("change") and the same source with extra nvcc flags for each
-``--variant`` (for example ``s09=-DTRT_BOUNCE_DENSE_SHARE=0.9``), one nvcc
-each, side by side.  Renders chip_smoke.py's main path (Cornell box +
+Renders frame 1 of chip_smoke.py's main path (Cornell box +
 icosphere(5), 20,487 triangles, 1200x800 at 1 spp) with
-``engine="bounce"``, each build swapped in as ``ops/bounce.py
-LIBRARY``: first every build's frame 1, whose sums must equal the
-change's bit for bit; then ``--rounds`` rounds of ``--steps`` steps a
-build, each step timed on the host clock and ended by
-``Renderer.block_until_ready``, the builds in order and then in reverse
-order, so a drift of the card's clock falls on both ends alike; then,
-after every unprofiled step, each build's shade and NEE add alone on the
-fresh, mid and late states of frame 1 (chip_smoke.py
-``check_bounce_shade`` and ``check_bounce_nee``: held to the plain
-versions, then timed), the builds in order and then in reverse; then
-``--profiled`` steps a build under torch.profiler: device operations a
-bounce, the shade's and the NEE add's launches and device time over a
-step (medians), the shade's device time at each bounce.  The late
-state is also timed with its live lanes gathered into a dense state of
-their own (``gathered``), the change's kernel over it with no list.
-Prints one line a build and a JSON summary (also written to ``--out``).
+``engine="bounce"`` and records its fresh, mid and late states
+(chip_smoke.py ``bounce_kernel_states``).  Then each build's shade and
+NEE add on each state, held to the plain versions and timed
+(chip_smoke.py ``check_bounce_shade`` and ``check_bounce_nee``: own
+time under torch.profiler, wrapper time, the bounds), ``--rounds``
+rounds, the builds in order and then in reverse: the port's build
+("change") and, for each ``--define`` (for example
+``s05=TRT_BOUNCE_DENSE_SHARE=0.5``), the same source built with those
+macros defined, one nvcc each, side by side, handed to the wrappers as
+``library=``.  The late state is also timed with its listed lanes
+gathered into a dense state of their own (``gathered``), the change's
+kernels over it with no list.  Prints one line a build and a JSON
+summary (also written to ``--out``).
 
-``--parent DIR`` instead times the kernels of two trees, ``DIR`` and
-this checkout, in turns (parent, this, this, parent), each in a process
-of its own that imports ``tryraytrace_tpu_torch`` and ``chip_smoke``
-from its tree (``--tree``) and builds that tree's ``csrc/bounce.cu`` as
-its port does: the shade and the NEE add alone on the fresh, mid and
-late states of frame 1 (the tree's own ``bounce_kernel_states``,
-``check_bounce_shade`` and ``check_bounce_nee``, ``--rounds`` times
-each), then ``--profiled`` steps under torch.profiler, the device time
-of each kernel over a step and at each bounce; one JSON line a run and
-a summary line.  Needs a CUDA device.
+``--parent DIR`` times the kernels of DIR's tree and of this checkout in
+turns (parent, this, this, parent), each in a process of its own that
+imports the port and chip_smoke.py from its tree (``--tree``) and builds
+that tree's ``csrc/bounce.cu`` as its port does: the shade and the NEE
+add on the three states, ``--rounds`` times each; one JSON line a run
+and a summary line of each state's fastest time.  Bounce steps are timed
+by ``scripts/time_torch_step.py --engine bounce``, and their kernels'
+device time by ``scripts/profile_torch_bounce.py``.  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -45,14 +37,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import statistics
 import subprocess
 import sys
-import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LABELS = ("fresh", "mid", "late")
-KERNELS = ("bounce_shade_kernel", "bounce_nee_kernel")
 
 
 def _import(tree: str):
@@ -72,72 +61,60 @@ def _import(tree: str):
             raise RuntimeError(f"imported {mod.__file__}, not from {tree}")
 
 
-def _step_profile(r, params) -> dict:
-    """One step of ``r`` under torch.profiler: each of KERNELS' launches
-    and device ms over the step, and its device ms at each launch."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        r.step(params)
-        r.block_until_ready()
-    events = sorted((e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
-    out = {}
-    for name in KERNELS:
-        ms = [e.time_range.elapsed_us() / 1e3 for e in events
-              if name in e.name]
-        out[name] = dict(launches=len(ms), ms=sum(ms), by_launch=ms)
-    return out
-
-
-def _kernels(tree: str, rounds: int, profiled: int) -> int:
-    """The shade and the NEE add of ``tree`` (imported) alone on the
-    three states, then over ``profiled`` steps; one JSON line."""
+def _states():
+    """A bounce Renderer of the main path, its camera's kernel params and
+    the recorded states of its frame 1."""
     w, h = chip_smoke.WIDTH, chip_smoke.HEIGHT
-    params = CameraController().get_params(w, h)
     r = Renderer(chip_smoke.main_path_arrays(),
                  cfg=RenderConfig(width=w, height=h, spp=1, engine="bounce"))
-    states = chip_smoke.bounce_kernel_states(r, params, w, h)
-    bp = states["rays"]["params"]
+    states = chip_smoke.bounce_kernel_states(
+        r, CameraController().get_params(w, h), w, h)
+    return r, states["rays"]["params"], states
+
+
+def _times(label: str, r, bp, st, **library) -> dict:
+    """The shade's and the NEE add's numbers on one state."""
+    shade = chip_smoke.check_bounce_shade(label, r, bp, st, **library)
+    nee = chip_smoke.check_bounce_nee(label, st, **library)
+    return dict(shade_ms=shade["ms"], nee_ms=nee["ms"],
+                shade_wrapper_ms=shade["wrapper_ms"],
+                nee_wrapper_ms=nee["wrapper_ms"],
+                shade_bound_ms=shade["bound_ms"],
+                nee_bound_ms=nee["bound_ms"],
+                shade_list_bound_ms=shade.get("list_bound_ms"),
+                nee_list_bound_ms=nee.get("list_bound_ms"))
+
+
+def _tree(tree: str, rounds: int) -> int:
+    """The kernels of ``tree`` (imported) on the three states, ``rounds``
+    times; one JSON line."""
+    r, bp, states = _states()
     out = {label: dict(shade_ms=[], nee_ms=[]) for label in LABELS}
     for _ in range(rounds):
         for label in LABELS:
-            out[label]["shade_ms"].append(chip_smoke.check_bounce_shade(
-                label, r, bp, states[label])["ms"])
-            out[label]["nee_ms"].append(chip_smoke.check_bounce_nee(
-                label, states[label])["ms"])
-    del states
-    r.step(params)
-    r.block_until_ready()
-    profs = [_step_profile(r, params) for _ in range(profiled)]
-    steps = {name: dict(
-        launches=[p[name]["launches"] for p in profs],
-        median_ms=statistics.median(p[name]["ms"] for p in profs),
-        by_launch=profs[0][name]["by_launch"]) for name in KERNELS}
+            got = _times(label, r, bp, states[label])
+            out[label]["shade_ms"].append(got["shade_ms"])
+            out[label]["nee_ms"].append(got["nee_ms"])
     print(json.dumps(dict(tree=tree, device=torch.cuda.get_device_name(0),
-                          states=out, steps=steps)))
+                          states=out)))
     return 0
 
 
-def _in_turns(parent: str, rounds: int, profiled: int) -> int:
-    """``_kernels`` of ``parent`` and of this checkout, parent, this,
-    this, parent, a process each; one summary line."""
+def _in_turns(parent: str, rounds: int) -> int:
+    """``_tree`` of ``parent`` and of this checkout, parent, this, this,
+    parent, a process each; one summary line."""
     runs = []
     for label, tree in (("parent", parent), ("change", HERE),
                         ("change", HERE), ("parent", parent)):
         line = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--tree", tree,
-             "--rounds", str(rounds), "--profiled", str(profiled)],
+             "--rounds", str(rounds)],
             capture_output=True, text=True, check=True,
             timeout=1200).stdout.strip().splitlines()[-1]
         print(line, flush=True)
         res = json.loads(line)
         runs.append(dict(label=label, states={
-            k: {f: min(v[f]) for f in v} for k, v in res["states"].items()},
-            steps={k: v["median_ms"] for k, v in res["steps"].items()}))
+            k: {f: min(v[f]) for f in v} for k, v in res["states"].items()}))
     print(json.dumps(dict(device=res["device"], turns=runs)))
     return 0
 
@@ -157,131 +134,69 @@ def gathered(st) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--variant", action="append", default=[])
-    ap.add_argument("--steps", type=int, default=6)
+    ap.add_argument("--define", action="append", default=[],
+                    metavar="NAME=MACRO[,MACRO...]")
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--profiled", type=int, default=3)
     ap.add_argument("--out")
     ap.add_argument("--parent", metavar="DIR",
                     help="time DIR's kernels and this checkout's in turns")
     ap.add_argument("--tree", help="time this tree's kernels alone")
     args = ap.parse_args()
     if args.parent:
-        return _in_turns(os.path.abspath(args.parent), args.rounds,
-                         args.profiled)
+        return _in_turns(os.path.abspath(args.parent), args.rounds)
     tree = os.path.abspath(args.tree or HERE)
     _import(tree)
     if not torch.cuda.is_available():
         print("time_torch_bounce: no CUDA device", file=sys.stderr)
         return 2
     if args.tree:
-        return _kernels(tree, args.rounds, args.profiled)
+        return _tree(tree, args.rounds)
     builds = {"change": bounce.LIBRARY}
-    for spec in args.variant:
-        name, flags = spec.split("=", 1)
-        lib = _build.KernelLibrary("bounce", bounce.FUNCTIONS)
-        lib.flags = (*lib.flags, *flags.split())
-        builds[name] = lib
+    for spec in args.define:
+        name, macros = spec.split("=", 1)
+        builds[name] = _build.KernelLibrary("bounce", bounce.FUNCTIONS,
+                                            defines=macros.split(","))
     _build.build_all(builds.values())
-    w, h = chip_smoke.WIDTH, chip_smoke.HEIGHT
-    params = CameraController().get_params(w, h)
-    r = Renderer(chip_smoke.main_path_arrays(),
-                 cfg=RenderConfig(width=w, height=h, spp=1, engine="bounce"))
-    out = {}
+    out = {name: dict(dense_share=bounce.dense_share(lib),
+                      build=chip_smoke.ptxas_numbers(
+                          lib.compiler_log, "bounce_shade_kernel"),
+                      states={label: {} for label in LABELS})
+           for name, lib in builds.items()}
     for name, lib in builds.items():
-        bounce.LIBRARY = lib
-        r.reset()
-        r.step(params)
-        sums = r.accum_host().tobytes()
-        out[name] = dict(dense_share=bounce.dense_share(lib),
-                         build=chip_smoke.ptxas_numbers(
-                             lib.compiler_log, "bounce_shade_kernel"),
-                         same_frame=sums == out.get("change", {}).get(
-                             "_sums", sums), _sums=sums, ms=[])
-        print(f"[time_bounce] {name}: {list(lib.flags[len(_build.NVCC_FLAGS):])}"
-              f" dense share {out[name]['dense_share']}, shade build "
-              f"{out[name]['build']}, frame 1 equal to the change's "
-              f"{out[name]['same_frame']}", flush=True)
+        print(f"[time_bounce] {name}: "
+              f"{list(lib.flags[len(_build.NVCC_FLAGS):])} dense share "
+              f"{out[name]['dense_share']}, shade build {out[name]['build']}",
+              flush=True)
+    r, bp, states = _states()
     order = list(builds)
     for k in range(args.rounds):
         for name in (order if k % 2 == 0 else order[::-1]):
-            bounce.LIBRARY = builds[name]
-            r.step(params)
-            r.block_until_ready()
-            for _ in range(args.steps):
-                t0 = time.perf_counter()
-                r.step(params)
-                r.block_until_ready()
-                out[name]["ms"].append(1e3 * (time.perf_counter() - t0))
-    # The kernels alone on the fresh, mid and late states of frame 1 (the
-    # change's lists), every build checked by the contract and timed, the
-    # builds in order and then in reverse.
-    bounce.LIBRARY = builds["change"]
-    states = chip_smoke.bounce_kernel_states(r, params, w, h)
-    bp = states["rays"]["params"]
-    for k in range(2):
-        for name in (order if k == 0 else order[::-1]):
             for label in LABELS:
-                shade = chip_smoke.check_bounce_shade(
-                    f"{label} [{name}]", r, bp, states[label],
-                    library=builds[name])
-                nee = chip_smoke.check_bounce_nee(
-                    f"{label} [{name}]", states[label], library=builds[name])
-                got = out[name].setdefault("states", {}).setdefault(
-                    label, dict(shade_ms=[], nee_ms=[]))
-                got["shade_ms"].append(shade["ms"])
-                got["nee_ms"].append(nee["ms"])
-                got.update(shade_bound_ms=shade["bound_ms"],
-                           shade_list_bound_ms=shade["list_bound_ms"],
-                           nee_bound_ms=nee["bound_ms"],
-                           nee_list_bound_ms=nee["list_bound_ms"])
+                got = _times(f"{label} [{name}]", r, bp, states[label],
+                             library=builds[name])
+                res = out[name]["states"][label]
+                for key, value in got.items():
+                    res.setdefault(key, []).append(value)
     # The late state's lanes gathered into a dense state of their own
     # (the same lanes, inputs and arithmetic; no list): the change's
-    # kernel on it, against its time on the wave's scattered lanes.
+    # kernels on it, against their time on the wave's scattered lanes.
     late = gathered(states["late"])
-    for k in range(2):
-        shade = chip_smoke.check_bounce_shade("late gathered", r, bp, late)
-        nee = chip_smoke.check_bounce_nee("late gathered", late)
-        out["change"].setdefault("late_gathered", dict(
-            lanes=len(late["hit_id"]), shade_ms=[], nee_ms=[]))
-        out["change"]["late_gathered"]["shade_ms"].append(shade["ms"])
-        out["change"]["late_gathered"]["nee_ms"].append(nee["ms"])
-    print(f"[time_bounce] change: late state gathered "
-          f"{out['change']['late_gathered']}", flush=True)
-    del states, late
-    for name, lib in builds.items():
-        bounce.LIBRARY = lib
-        profs = [chip_smoke.bounce_step_profile(r, params)
-                 for _ in range(args.profiled)]
-        res = out[name]
-        del res["_sums"]
-        ms = sorted(res["ms"])
-        q = statistics.quantiles(ms, n=4)
-        per = {key: statistics.median(p[key]["ms"] for p in profs)
-               for key in ("bounce_shade", "bounce_nee")}
-        res.update(median_ms=statistics.median(ms), q1_ms=q[0], q3_ms=q[2],
-                   profiles=profs, shade_step_ms=per["bounce_shade"],
-                   nee_step_ms=per["bounce_nee"])
-        print(f"[time_bounce] {name}: step median {res['median_ms']:.3f} ms"
-              f" (quartiles {q[0]:.3f}-{q[2]:.3f}, {len(ms)} steps); "
-              f"{args.profiled} profiled steps, medians: shade "
-              f"{per['bounce_shade']:.4f} ms, NEE add {per['bounce_nee']:.4f}"
-              f" ms a step; device operations a bounce "
-              f"{[round(p['operations_a_bounce'], 2) for p in profs]}; own "
-              f"ms by state " + ", ".join(
-                  f"{label} shade {res['states'][label]['shade_ms']} nee "
-                  f"{res['states'][label]['nee_ms']}" for label in LABELS),
-              flush=True)
-    bounce.LIBRARY = builds["change"]
+    res = out["change"]["late_gathered"] = dict(lanes=len(late["hit_id"]))
+    for _ in range(args.rounds):
+        for key, value in _times("late gathered", r, bp, late).items():
+            res.setdefault(key, []).append(value)
+    for name in order:
+        print(f"[time_bounce] {name}: own ms " + "; ".join(
+            f"{label} shade {out[name]['states'][label]['shade_ms']} nee "
+            f"{out[name]['states'][label]['nee_ms']}" for label in LABELS),
+            flush=True)
+    print(f"[time_bounce] change: late state gathered shade "
+          f"{res['shade_ms']} nee {res['nee_ms']}", flush=True)
     summary = dict(device=torch.cuda.get_device_name(0), builds=out)
     print(json.dumps(summary))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(summary, f)
-    bad = [name for name, res in out.items() if not res["same_frame"]]
-    if bad:
-        print(f"time_torch_bounce: frame 1 differs in {bad}", file=sys.stderr)
-        return 1
     return 0
 
 

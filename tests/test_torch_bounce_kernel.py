@@ -525,12 +525,14 @@ def test_cuda_bounce_kernels_match_plain(kind):
         # shuffled copy; the lanes off it poisoned and left alone; the
         # next list, sorted, the lanes alive after (check_bounce_shade).
         res = chip_smoke.check_bounce_shade(label, rb, bp, st, timed=False)
-        assert res["counts"][1] <= int(st["s"]["alive"].sum())
-        assert res["served"] == int(st["s"]["alive"].sum())
+        alive = int(st["s"]["alive"].sum())
+        assert res["counts"][1] <= alive
+        assert (n if st["lanes"] is None else st["n_lanes"]) == alive
+        assert res["served"] == (st["n_lanes"] if res["listed"] else n)
         chip_smoke.check_bounce_nee(label, st, timed=False)
         if label != "fresh":
             assert st["lanes"].dtype == torch.int32
-            assert res["served"] == st["n_lanes"] < n
+            assert st["n_lanes"] < n
             assert not chip_smoke._off_list(st)[st["s"]["alive"]].any()
         s = chip_smoke._copy(st["s"])
         bounce.bounce_shade_cuda(rb.scene, rb.bounce_tables, bp,
@@ -560,11 +562,11 @@ def test_cuda_bounce_variants_match_plain(variant):
     bp = states["rays"]["params"]
     listed = []
     for label in ("fresh", "mid", "late"):
-        chip_smoke.check_bounce_shade(label, rb, bp, states[label],
-                                      timed=False, library=lib)
+        listed.append(chip_smoke.check_bounce_shade(
+            label, rb, bp, states[label], timed=False,
+            library=lib)["listed"])
         chip_smoke.check_bounce_nee(label, states[label], timed=False,
                                     library=lib)
-        listed.append(chip_smoke._listed(states[label], lib))
     assert listed == ([False, True, True] if variant == "list_every_bounce"
                       else [False, False, False])
 
